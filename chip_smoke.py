@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of hevcasm_tpu_torch's main path on one CUDA card.
+"""Smoke run of hevcasm_tpu_torch's main paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,23 +7,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device   a CUDA card must be present; prints nvidia-smi's name and power
             limit of card 0.
-2. build    compiles hevcasm_tpu_torch/csrc/*.cu with nvcc (sm_90a) into
-            build/ and prints the build time.
+2. build    compiles hevcasm_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
+            process per source, into build/ and prints the build time.
 3. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit on every output: the 1080p shapes (510 CTUs, R = 32), an
             odd grid width (3) at R = 8, refine offsets at 0 and at the
-            maximum, and a constant plane on which every candidate ties.
-4. main     encode_inter_frame on a 1920x1088 P frame of bench content
-            (seed 0, a pure (2, 3) shift) with
+            maximum (in both stacked planes for B3), and constant planes on
+            which every candidate ties.
+4. main     three paths, each with every launch count set to 0 just before
+            it and read just after, all with
             EncodeConfig(search_range=32, qp=32, inter_impl="fused_dma"):
-            both kernels' launch counts must rise, the result must equal the
-            plain path on the card, and a small frame must equal the plain
-            path on the CPU.
-5. timing   CUDA-event medians over 20 samples after warm-up: the main path
-            per frame, synchronised after each (ms per frame and CTU/s), and
-            20 frames back to back; its plain version; each kernel beside its
-            plain version at the 1080p shapes, a kernel sample being 10
-            launches back to back so that its host overhead is hidden.
+            encode_inter_frame on a 1920x1088 luma P frame of bench content
+            (seed 0, a pure (2, 3) shift) must launch K1 and K2;
+            encode_inter_frame_yuv on a 1920x1088 4:2:0 P frame of bench's
+            structured pan must launch K1 and K2; encode_b_frame_yuv on the
+            B frame of that content must launch K1 twice and B3.  Each
+            result must equal its plain path on the card, and a 128x192
+            frame of each must equal the plain path on the CPU.
+5. timing   CUDA-event medians over 20 samples after warm-up: each path per
+            frame, synchronised after each (ms per frame and CTU/s), the luma
+            path also 20 frames back to back, and each path's plain version;
+            each kernel beside its plain version at the 1080p shapes, a
+            kernel sample being 10 launches back to back so that its host
+            overhead is hidden.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -62,6 +68,28 @@ def bench_frames(h: int, w: int, seed: int = 0):
     rng = np.random.default_rng(seed)
     base = rng.integers(0, 256, (h + 64, w + 64), dtype=np.uint8)
     return base[2:2 + h, 3:3 + w].copy(), base[:h, :w].copy()
+
+
+def structured_pan(h: int, w: int, seed: int = 0):
+    """bench.py's 4:2:0 rows: the bench noise smoothed twice by a 3-tap box
+    in each direction; the luma P frame's top half pans (+3, +2) and its
+    bottom half (-5, -7) against the reference, the B frame's second
+    reference is offset (-2, -4), and chroma is a (1, 2) shift.  Returns
+    (cur, ref0, ref1) as 3-tuples of (y, cb, cr) numpy planes."""
+    rng = np.random.default_rng(seed)
+    smooth = rng.integers(0, 256, (h + 64, w + 64), dtype=np.uint8).astype(np.float32)
+    for _ in range(2):
+        smooth = (np.roll(smooth, 1, 0) + smooth + np.roll(smooth, -1, 0)) / 3
+        smooth = (np.roll(smooth, 1, 1) + smooth + np.roll(smooth, -1, 1)) / 3
+    pan = np.clip(smooth, 0, 255).astype(np.uint8)
+    ref0 = pan[32:32 + h, 32:32 + w].copy()
+    cur = np.empty((h, w), np.uint8)
+    cur[:h // 2] = pan[35:35 + h // 2, 34:34 + w]
+    cur[h // 2:] = pan[27 + h // 2:27 + h, 25:25 + w]
+    ref1 = pan[30:30 + h, 28:28 + w].copy()
+    cb0 = pan[:h // 2, :w // 2].copy()
+    cb1 = pan[1:1 + h // 2, 2:2 + w // 2].copy()
+    return (cur, cb1, cb1), (ref0, cb0, cb0), (ref1, cb0, cb0)
 
 
 def max_abs_err(got, want) -> int:
@@ -103,7 +131,11 @@ def main() -> int:
     from hevcasm_tpu_torch.config import Tier
     from hevcasm_tpu_torch.encode import ctu as ctu_mod, motion
     from hevcasm_tpu_torch.encode.loop import EncodeConfig, encode_inter_frame
+    from hevcasm_tpu_torch.encode.video import (
+        YuvFrame, encode_b_frame_yuv, encode_inter_frame_yuv)
     from hevcasm_tpu_torch.kernels import build
+    from hevcasm_tpu_torch.kernels.bi_fused import (
+        bi_ctu_fused_dma, bi_ctu_fused_dma_ref)
     from hevcasm_tpu_torch.kernels.inter_fused import (
         inter_ctu_fused_dma, inter_ctu_fused_dma_ref)
     from hevcasm_tpu_torch.kernels.search import (
@@ -111,7 +143,7 @@ def main() -> int:
 
     # ---- 1. device -----------------------------------------------------------
     dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
+    card_kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(card)
     tag = f"[{card}]"
@@ -125,7 +157,7 @@ def main() -> int:
     # ---- 3. each kernel against its plain version ---------------------------
     cfg = EncodeConfig(search_range=SEARCH_RANGE, qp=32, inter_impl="fused_dma")
     qargs = (*cfg.quant_params(False), *cfg.dequant_params())
-    err = {"ssd_grid_plane": 0, "inter_ctu_fused_dma": 0}
+    err = {"ssd_grid_plane": 0, "inter_ctu_fused_dma": 0, "bi_ctu_fused_dma": 0}
 
     def search_inputs(cur, ref, r):
         """K1 operands as full_search_slab builds them."""
@@ -153,6 +185,24 @@ def main() -> int:
         log(f"K2 inter_ctu_fused_dma {what}: n={src.shape[0]} "
             f"offsets [{int(offsets.min())}, {int(offsets.max())}] max_abs_err={e}")
         err["inter_ctu_fused_dma"] = max(err["inter_ctu_fused_dma"], e)
+
+    def check_b3(what, src, flat, off0, off1):
+        got = bi_ctu_fused_dma(src, flat, off0, off1, *qargs)
+        want = bi_ctu_fused_dma_ref(src, flat, off0, off1, *qargs)
+        e = max_abs_err(got, want)
+        log(f"B3 bi_ctu_fused_dma {what}: n={src.shape[0]} offsets0 "
+            f"[{int(off0.min())}, {int(off0.max())}] offsets1 "
+            f"[{int(off1.min())}, {int(off1.max())}] max_abs_err={e}")
+        err["bi_ctu_fused_dma"] = max(err["bi_ctu_fused_dma"], e)
+
+    def stacked(ref0, ref1, r):
+        """Two references padded as the loop pads them, stacked by rows,
+        and the lower plane's row offset."""
+        pl, pr = r + motion.PAD_L, r + motion.PAD_R
+        planes = [ctu_mod.pad_frame(p, pl, pr, pl, pr) for p in (ref0, ref1)]
+        hp = planes[0].shape[0]
+        return (torch.cat(planes).contiguous(),
+                torch.tensor([hp, 0], dtype=torch.int32, device=dev))
 
     def mv_offsets(grid, r, seed):
         """Refine-window offsets pos + mv + R for random MVs in [-R, R],
@@ -190,22 +240,58 @@ def main() -> int:
         raise AssertionError("constant plane: the first minimum is not (-R, -R)")
     check_k2("constant plane (all fractions tie)", c_src, c_padded,
              mv_offsets(c_grid, SEARCH_RANGE, 4))
+    # B3: the B frame of the structured pan, two stacked 1080p planes.
+    yuv_cur, yuv_ref0, yuv_ref1 = (YuvFrame(*(torch.as_tensor(p, device=dev) for p in f))
+                                   for f in structured_pan(H, W))
+    b_src = ctu_mod.tile_frame(yuv_cur.y, 64).contiguous()
+    b_flat, lower = stacked(yuv_ref0.y, yuv_ref1.y, SEARCH_RANGE)
+    b_mvs = [motion.full_search_slab(b_src, half, SEARCH_RANGE, grid,
+                                     grid_plane_fn=ssd_grid_plane_ref)[0]
+             for half in b_flat.chunk(2)]
+    b3_off0 = (pos + b_mvs[0] + SEARCH_RANGE).contiguous()
+    b3_off1 = (pos + b_mvs[1] + SEARCH_RANGE + lower).contiguous()
+    check_b3("1080p at the searched MVs", b_src, b_flat, b3_off0, b3_off1)
+    check_b3("1080p offsets 0..max in both planes", b_src, b_flat,
+             mv_offsets(grid, SEARCH_RANGE, 5), mv_offsets(grid, SEARCH_RANGE, 6) + lower)
+    s_flat, s_lower = stacked(small[1], small[0], 8)
+    check_b3("odd grid width, offsets 0..max in both planes", s_src, s_flat,
+             mv_offsets(s_grid, 8, 7), mv_offsets(s_grid, 8, 8) + s_lower)
+    c_flat, c_lower = stacked(flat, torch.full_like(flat, 40), SEARCH_RANGE)
+    c_offsets = (mv_offsets(c_grid, SEARCH_RANGE, 9),
+                 mv_offsets(c_grid, SEARCH_RANGE, 10) + c_lower)
+    c_got = bi_ctu_fused_dma(c_src, c_flat, *c_offsets, *qargs)
+    if int(c_got[1].abs().max()) or int(c_got[2].abs().max()):
+        raise AssertionError("constant planes: the first fraction did not win")
+    check_b3("constant planes (all fractions tie)", c_src, c_flat, *c_offsets)
     bad = {k: v for k, v in err.items() if v}
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
 
-    # ---- 4. the main path ----------------------------------------------------
-    torch.cuda.synchronize()
-    ssd_grid_plane.launches = 0
-    inter_ctu_fused_dma.launches = 0
-    out = encode_inter_frame(cur, ref, cfg)
-    torch.cuda.synchronize()
-    launches = {"ssd_grid_plane": ssd_grid_plane.launches,
-                "inter_ctu_fused_dma": inter_ctu_fused_dma.launches}
-    log(f"main path launches: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    # ---- 4. the main paths ---------------------------------------------------
+    counted = {"ssd_grid_plane": ssd_grid_plane,
+               "inter_ctu_fused_dma": inter_ctu_fused_dma,
+               "bi_ctu_fused_dma": bi_ctu_fused_dma}
+    launches = dict.fromkeys(counted, 0)
 
+    def drive(what, fn, need):
+        """Run one path with every launch count set to 0 just before it;
+        fail unless each kernel in ``need`` ran at least that often."""
+        torch.cuda.synchronize()
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: wrapper.launches for name, wrapper in counted.items()}
+        log(f"{what} launches: {got}")
+        if any(got[name] < least for name, least in need.items()):
+            raise AssertionError(f"{what}: a kernel of the path was not launched "
+                                 f"as often as {need}: {got}")
+        for name in launches:
+            launches[name] += got[name]
+        return out
+
+    out = drive("luma P path", lambda: encode_inter_frame(cur, ref, cfg),
+                {"ssd_grid_plane": 1, "inter_ctu_fused_dma": 1})
     n = grid[0] * grid[1]
     shapes = {"recon": ((H, W), torch.uint8), "mvs": ((n, 2), torch.int32),
               "sad": ((n,), torch.int32), "nnz": ((), torch.int32),
@@ -237,6 +323,58 @@ def main() -> int:
         raise AssertionError("128x192 frame: the card differs from the CPU")
     log("128x192 R=8 frame (odd grid width): card equals the plain path on the CPU")
 
+    def yuv_path(kind, frames, config, tiers=Tier.ALL):
+        cur_f, ref0_f, ref1_f = frames
+        if kind == "P":
+            return encode_inter_frame_yuv(cur_f, ref0_f, config, tiers=tiers)
+        return encode_b_frame_yuv(cur_f, ref0_f, ref1_f, config, tiers=tiers)
+
+    def yuv_differs(got, want) -> str:
+        """'' when every integer output is equal and every PSNR within
+        1e-3 dB (float means summed in other orders), else what differs."""
+        if set(got) != set(want):
+            return f"keys {sorted(got)} != {sorted(want)}"
+        ints = [k for k in got if k != "recon" and not k.startswith("psnr")]
+        e = max_abs_err([*got["recon"], *(got[k] for k in ints)],
+                        [*want["recon"], *(want[k] for k in ints)])
+        far = [k for k in got if k.startswith("psnr")
+               and abs(float(got[k]) - float(want[k])) > 1e-3]
+        return f"max_abs_err {e}, psnr {far}" if e or far else ""
+
+    yuv_frames = (yuv_cur, yuv_ref0, yuv_ref1)
+    need = {"P": {"ssd_grid_plane": 1, "inter_ctu_fused_dma": 1},
+            "B": {"ssd_grid_plane": 2, "bi_ctu_fused_dma": 1}}
+    int_shapes = {"P": {"mvs": (n, 2), "nnz": ()},
+                  "B": {"mvs0": (n, 2), "mvs1": (n, 2), "nnz": ()}}
+    for kind in ("P", "B"):
+        got = drive(f"yuv {kind} path",
+                    lambda: yuv_path(kind, yuv_frames, cfg), need[kind])
+        plane_shapes = [(H, W), (H // 2, W // 2), (H // 2, W // 2)]
+        if [tuple(p.shape) for p in got["recon"]] != plane_shapes \
+                or any(p.dtype != torch.uint8 for p in got["recon"]):
+            raise AssertionError(f"yuv {kind}: recon planes {got['recon']}")
+        for key, shape in int_shapes[kind].items():
+            if tuple(got[key].shape) != shape or got[key].dtype != torch.int32:
+                raise AssertionError(f"yuv {kind} {key}: {tuple(got[key].shape)} "
+                                     f"{got[key].dtype}")
+        psnrs = {k: float(v) for k, v in got.items() if k.startswith("psnr")}
+        if not all(np.isfinite(v) and got[k].dtype == torch.float32
+                   for k, v in psnrs.items()):
+            raise AssertionError(f"yuv {kind}: psnr {psnrs}")
+        diff = yuv_differs(got, yuv_path(kind, yuv_frames, cfg, Tier.REF))
+        if diff:
+            raise AssertionError(f"yuv {kind} differs from the plain path on the card: {diff}")
+        small_yuv = [YuvFrame(*(torch.as_tensor(p) for p in f))
+                     for f in structured_pan(128, 192, seed=5)]
+        on_card = yuv_path(kind, [YuvFrame(*(p.to(dev) for p in f)) for f in small_yuv],
+                           small_cfg)
+        diff = yuv_differs(on_card, yuv_path(kind, small_yuv, small_cfg))
+        if diff:
+            raise AssertionError(f"128x192 yuv {kind}: the card differs from the CPU: {diff}")
+        log(f"yuv {kind} path: {', '.join(f'{k}={v:.4f}' for k, v in psnrs.items())} "
+            f"nnz={int(got['nnz'])}; equal to the plain path on the card, and a "
+            "128x192 R=8 frame equal to the plain path on the CPU")
+
     # ---- 5. timing -----------------------------------------------------------
     ms_main = median_ms(lambda: encode_inter_frame(cur, ref, cfg))
     ms_chain = median_ms(lambda: encode_inter_frame(cur, ref, cfg), calls=REPS)
@@ -245,6 +383,11 @@ def main() -> int:
         f"per frame; {ms_chain:.3f} ms/frame, {n / ms_chain * 1e3:.0f} CTU/s "
         f"with {REPS} frames back to back (plain path: {ms_plain:.3f} ms/frame, "
         f"{n / ms_plain * 1e3:.0f} CTU/s)")
+    for kind in ("P", "B"):
+        ms_k = median_ms(lambda: yuv_path(kind, yuv_frames, cfg))
+        ms_p = median_ms(lambda: yuv_path(kind, yuv_frames, cfg, Tier.REF))
+        log(f"{tag} yuv {kind} path: {ms_k:.3f} ms/frame, {n / ms_k * 1e3:.0f} CTU/s "
+            f"per frame (plain path: {ms_p:.3f} ms/frame, {n / ms_p * 1e3:.0f} CTU/s)")
     num = 2 * SEARCH_RANGE + 1
     times = {
         "ssd_grid_plane": (
@@ -254,6 +397,11 @@ def main() -> int:
             median_ms(lambda: inter_ctu_fused_dma(src, padded, k2_offsets, *qargs),
                       calls=10),
             median_ms(lambda: inter_ctu_fused_dma_ref(src, padded, k2_offsets, *qargs))),
+        "bi_ctu_fused_dma": (
+            median_ms(lambda: bi_ctu_fused_dma(b_src, b_flat, b3_off0, b3_off1, *qargs),
+                      calls=10),
+            median_ms(lambda: bi_ctu_fused_dma_ref(b_src, b_flat, b3_off0, b3_off1,
+                                                   *qargs))),
     }
     for name, (k_ms, p_ms) in times.items():
         log(f"{tag} {name} at 1080p: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
@@ -263,6 +411,8 @@ def main() -> int:
                            "hevcasm_tpu/kernels/search_pallas.py:688"),
         "inter_ctu_fused_dma": ("hevcasm_tpu_torch/csrc/inter_fused.cu",
                                 "hevcasm_tpu/kernels/interp_pallas.py:846"),
+        "bi_ctu_fused_dma": ("hevcasm_tpu_torch/csrc/bi_fused.cu",
+                             "hevcasm_tpu/kernels/interp_pallas.py:1020"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src_path,
                 "replaces": replaces, "launches": launches[name],
@@ -271,7 +421,7 @@ def main() -> int:
                for name, (src_path, replaces) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": card_kind, "count": torch.cuda.device_count()}}))
     return 0
 
 

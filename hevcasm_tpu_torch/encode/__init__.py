@@ -1,8 +1,9 @@
-"""Encode loop of the port: CTU tiling (ctu), motion search (motion) and
-the inter-frame inner loop (loop)."""
+"""Encode loop of the port: CTU tiling (ctu), motion search (motion), the
+inter-frame inner loop (loop) and the 4:2:0 P and B frames (video)."""
 
 from .ctu import tile_frame, untile_frame, pad_frame
 from .loop import EncodeConfig, config_from_fields, encode_inter_frame
+from .video import YuvFrame, chroma_qp, encode_b_frame_yuv, encode_inter_frame_yuv
 
 __all__ = [
     "tile_frame",
@@ -11,4 +12,8 @@ __all__ = [
     "EncodeConfig",
     "config_from_fields",
     "encode_inter_frame",
+    "YuvFrame",
+    "chroma_qp",
+    "encode_inter_frame_yuv",
+    "encode_b_frame_yuv",
 ]

@@ -16,8 +16,10 @@ Quantizer parameters follow the HM convention for 8-bit video:
             offset such that the added rounding = (85 or 171) << (shift - 9)
   inverse:  scale = DEQUANT_SCALES[qp%6] << (qp//6), shift = log2(TU) - 1
 
-Configuration values whose code is not ported yet raise
-NotImplementedError naming the ROADMAP item that ports them.
+Each entry point accepts what hevcasm_tpu's accepts: a configuration it
+rejects raises the same exception type, and one that would run a module or
+kernel not ported yet raises NotImplementedError naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch
 
 from .. import registry
 from ..config import Tier
-from ..kernels import inter_fused, search  # noqa: F401 (registers K1, K2)
+from ..kernels import bi_fused, inter_fused, search  # noqa: F401 (registers K1, K2, B3)
+from ..ops.residual import residual_pipeline_frame
 from ..utils.psnr import psnr
 from ..utils.tensor import as_tensor
 from . import ctu as ctu_mod
@@ -54,7 +57,8 @@ class EncodeConfig:
     ("auto" runs kernel K1 for a CUDA frame with the SSD metric, full
     search, 64x64 CTUs and R <= 32, else the plain grid search),
     fused_refine / refine_impl / residual_impl (the staged path), and
-    inter_impl ("stages" or "fused_dma", the K2 path).
+    inter_impl ("stages", or "fused_dma" for the K2 path; the B frame also
+    runs B3 under "fused" and "fused_batched").
     """
 
     ctu: int = 64
@@ -154,46 +158,46 @@ def config_from_fields(d: dict) -> EncodeConfig:
                            for k, v in d.items()})
 
 
-# residual_impl values whose code is still to be ported.
-_RESIDUAL_NOT_PORTED = {
-    "mxu": "residual_impl='mxu' is not ported yet: "
-           "ROADMAP A.5 (xla_opt.residual_pipeline_frame)",
-    "pallas": "residual_impl='pallas' is not ported yet: "
-              "ROADMAP B4 (residual_pipeline_ctu)",
-}
-
-# Configuration values whose code is still to be ported, with the ROADMAP
-# item that ports it.
-_NOT_PORTED = (
-    (lambda c: c.me_metric == "sad", "me_metric='sad'",
-     "ROADMAP A.2 (ops/sad.py) and B9 (sad_grid kernel)"),
-    (lambda c: c.me_strategy == "pyramid", "me_strategy='pyramid'",
-     "ROADMAP A.3 (motion.pyramid_search)"),
-    (lambda c: c.search_impl in ("mv", "dma"), "search_impl='mv'/'dma'",
-     "ROADMAP B17 (search_mv / search_mv_dma)"),
-    (lambda c: c.inter_impl == "mega", "inter_impl='mega'",
-     "ROADMAP B19 (encode_ctu_mega)"),
-    (lambda c: c.inter_impl in ("fused", "fused_batched"),
-     "inter_impl='fused'/'fused_batched'",
-     "ROADMAP B16 (inter_ctu_fused / inter_ctu_fused_batched)"),
-    (lambda c: c.pu_decision, "pu_decision=True",
-     "ROADMAP A.10 (encode/partition.py)"),
-    (lambda c: bool(c.tu_sizes), "tu_sizes",
-     "ROADMAP A.10 (partition.select_tu_recon)"),
-    (lambda c: c.inter_impl == "stages" and c.fused_refine, "fused_refine=True",
-     "ROADMAP B11 (refine_quarter_pel_fused)"),
-    (lambda c: c.inter_impl == "stages" and not c.fused_refine
-     and c.refine_impl == "mxu", "refine_impl='mxu'",
-     "ROADMAP A.2 (interp_xla.refine_quarter_pel_mxu as a torch op)"),
-)
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet: {item}")
 
 
-def _check_ported(cfg: EncodeConfig) -> None:
-    for applies, what, item in _NOT_PORTED:
-        if applies(cfg):
-            raise NotImplementedError(f"{what} is not ported yet: {item}")
-    if cfg.inter_impl == "stages" and cfg.residual_impl != "ref":
-        raise NotImplementedError(_RESIDUAL_NOT_PORTED[cfg.residual_impl])
+# The checks below mirror, per entry point, what hevcasm_tpu would run for a
+# configuration: they raise ValueError where it raises, and
+# NotImplementedError (naming the ROADMAP item) only where it would run a
+# module or kernel that is not ported yet.  Each runs before any work.
+
+def _check_search(cfg: EncodeConfig) -> None:
+    """What _integer_search runs."""
+    if cfg.me_strategy == "pyramid":
+        _not_ported("me_strategy='pyramid'", "ROADMAP A.3 (motion.pyramid_search)")
+    if cfg.me_metric == "sad":
+        _not_ported("me_metric='sad'", "ROADMAP A.2 (ops/sad.py) and B9 (sad_grid kernel)")
+    if cfg.search_impl in ("mv", "dma"):
+        _not_ported("search_impl='mv'/'dma'", "ROADMAP B17 (search_mv / search_mv_dma)")
+
+
+def _check_residual(cfg: EncodeConfig, block: int, tr_type: int = 0) -> None:
+    """What _residual_pipeline runs for (n, block, block) stacks."""
+    if cfg.residual_impl == "pallas" and cfg.tu == 8 and block == 64 and tr_type == 0:
+        _not_ported("residual_impl='pallas'", "ROADMAP B4 (residual_pipeline_ctu)")
+
+
+def _check_inter_core(cfg: EncodeConfig) -> None:
+    """What _inter_core runs; it serves the fixed CTU/TU geometry only."""
+    if cfg.pu_decision or cfg.tu_sizes:
+        raise ValueError(
+            "this entry point runs the fixed CTU/TU geometry; "
+            "pu_decision/tu_sizes compose only with encode_inter_frame"
+        )
+    _check_search(cfg)
+    if cfg.inter_impl in ("fused", "fused_batched"):
+        _not_ported("inter_impl='fused'/'fused_batched'",
+                    "ROADMAP B16 (inter_ctu_fused / inter_ctu_fused_batched)")
+    if cfg.inter_impl != "fused_dma":
+        if cfg.fused_refine:
+            _not_ported("fused_refine=True", "ROADMAP B11 (refine_quarter_pel_fused)")
+        _check_residual(cfg, cfg.ctu)
 
 
 def _op(name: str, tiers: Tier):
@@ -234,14 +238,20 @@ def _integer_search(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid,
 def _residual_pipeline(src_blocks, pred_blocks, cfg: EncodeConfig, intra: bool,
                        luma: bool = True, tiers: Tier = Tier.ALL):
     """residual -> TU transform -> quant -> dequant -> inverse + add.
-    Returns (recon_blocks (n, B, B) uint8, nnz () int32, cbf (n*(B/tu)^2,)
-    bool)."""
-    if cfg.residual_impl != "ref":
-        raise NotImplementedError(_RESIDUAL_NOT_PORTED[cfg.residual_impl])
+    residual_impl 'mxu' runs ops.residual.residual_pipeline_frame, 'ref'
+    (and 'pallas' outside the 64x64-CTU / 8x8-DCT geometry, as in
+    hevcasm_tpu) the registry's residual_pipeline.  Returns (recon_blocks
+    (n, B, B) uint8, nnz () int32, cbf (n*(B/tu)^2,) bool)."""
     # HEVC uses the DST-VII for 4x4 intra luma TUs; chroma uses the DCT.
     tr_type = 1 if (intra and luma and cfg.tu == 4) else 0
+    _check_residual(cfg, src_blocks.shape[-1], tr_type)
     scale, shift, offset = cfg.quant_params(intra)
     dscale, dshift = cfg.dequant_params()
+    if cfg.residual_impl == "mxu":
+        rec, nnz, cbf, _ = residual_pipeline_frame(
+            src_blocks, pred_blocks, scale, shift, offset, dscale, dshift,
+            tu=cfg.tu, tr_type=tr_type)
+        return rec, nnz, cbf.reshape(-1)
     return _op("residual_pipeline", tiers)(
         src_blocks, pred_blocks, scale, shift, offset, dscale, dshift,
         tu=cfg.tu, tr_type=tr_type,
@@ -251,10 +261,14 @@ def _residual_pipeline(src_blocks, pred_blocks, cfg: EncodeConfig, intra: bool,
 def _inter_core(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid,
                 tiers: Tier = Tier.ALL):
     """Integer search + quarter-pel refine + residual at the configured
-    composition, for a configuration _check_ported accepts.  src_ctus
-    (n, B, B); ref_padded padded by (R + PAD_L/PAD_R); pos (n, 2); grid
-    (rows, cols).  Returns (rec_ctus (n, B, B) uint8, mv_qpel (n, 2) int32,
-    best (n,) int32, nnz () int32)."""
+    composition: K2 for inter_impl='fused_dma', else the staged path (which
+    also serves 'mega' when the yuv frame calls, as in hevcasm_tpu).
+    refine_impl 'mxu' and 'ref' both run the registry's refine_qpel: the
+    banded-matmul form of 'mxu' is a TPU layout device with the same
+    (pred, frac, cost).  src_ctus (n, B, B); ref_padded padded by
+    (R + PAD_L/PAD_R); pos (n, 2); grid (rows, cols).  Returns (rec_ctus
+    (n, B, B) uint8, mv_qpel (n, 2) int32, best (n,) int32, nnz () int32)."""
+    _check_inter_core(cfg)
     r = cfg.search_range
     mv_int, best = _integer_search(src_ctus, ref_padded, pos, cfg, grid, tiers)
     if cfg.inter_impl == "fused_dma":
@@ -265,13 +279,40 @@ def _inter_core(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid,
             src_ctus, ref_padded, start, scale, shift, offset, dscale, dshift,
             group=cfg.fused_group,
         )
-        mv_qpel = mv_int * 4 + torch.stack([frac // 4, frac % 4], dim=-1)
-        return rec_ctus, mv_qpel.to(torch.int32), best, nnz_tu.sum(dtype=torch.int32)
+        return rec_ctus, _qpel_mvs(mv_int, frac), best, nnz_tu.sum(dtype=torch.int32)
     pred, mv_qpel, _ = motion.refine_quarter_pel(
         src_ctus, ref_padded, pos, mv_int, r, refine_fn=_op("refine_qpel", tiers))
     rec_ctus, nnz, _ = _residual_pipeline(src_ctus, pred, cfg, intra=False,
                                           tiers=tiers)
     return rec_ctus, mv_qpel, best, nnz
+
+
+def _qpel_mvs(mv_int: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
+    """Quarter-pel MVs (n, 2) int32 from integer MVs and fraction indices
+    yf*4 + xf."""
+    return (mv_int * 4 + torch.stack([frac // 4, frac % 4], dim=-1)).to(torch.int32)
+
+
+def _prepare_frame(cfg: EncodeConfig, cur, *refs):
+    """Check that cur and the reference planes are (H, W) uint8 planes of
+    one shape, move them to cur's device, and tile cur into CTUs.  Returns
+    (cur, refs, src_ctus, pos, grid)."""
+    cur = as_tensor(cur)
+    refs = tuple(as_tensor(ref, cur.device) for ref in refs)
+    if cur.dim() != 2 or cur.dtype != torch.uint8 or any(
+            ref.shape != cur.shape or ref.dtype != torch.uint8 for ref in refs):
+        raise ValueError("cur and ref must be (H, W) uint8 planes of one shape")
+    grid = ctu_mod.grid_shape(*cur.shape, cfg.ctu)
+    src_ctus = ctu_mod.tile_frame(cur, cfg.ctu).contiguous()
+    pos = motion.ctu_positions(*grid, cfg.ctu, cur.device)
+    return cur, refs, src_ctus, pos, grid
+
+
+def _pad_reference(ref: torch.Tensor, search_range: int) -> torch.Tensor:
+    """The reference plane edge-padded by (R + PAD_L) top/left and
+    (R + PAD_R) bottom/right, as the search and the refinement read it."""
+    pl, pr = search_range + motion.PAD_L, search_range + motion.PAD_R
+    return ctu_mod.pad_frame(ref, pl, pr, pl, pr)
 
 
 def encode_inter_frame(cur, ref, cfg: EncodeConfig = EncodeConfig(),
@@ -287,22 +328,16 @@ def encode_inter_frame(cur, ref, cfg: EncodeConfig = EncodeConfig(),
     "sad": (n,) int32 best integer score, "nnz": () int32 coded
     coefficients, "psnr_db": () float32}.
     """
-    cur = as_tensor(cur)
-    ref = as_tensor(ref, cur.device)
-    if cur.dim() != 2 or cur.shape != ref.shape or cur.dtype != torch.uint8 \
-            or ref.dtype != torch.uint8:
-        raise ValueError("cur and ref must be (H, W) uint8 planes of one shape")
-    _check_ported(cfg)
-    h, w = cur.shape
-    gr, gc = ctu_mod.grid_shape(h, w, cfg.ctu)
-    src_ctus = ctu_mod.tile_frame(cur, cfg.ctu).contiguous()
-    r = cfg.search_range
-    pl, pr = r + motion.PAD_L, r + motion.PAD_R
-    ref_padded = ctu_mod.pad_frame(ref, pl, pr, pl, pr)
-    pos = motion.ctu_positions(gr, gc, cfg.ctu, cur.device)
+    if cfg.pu_decision:
+        _not_ported("pu_decision=True", "ROADMAP A.10 (encode/partition.py)")
+    if cfg.inter_impl == "mega":
+        _not_ported("inter_impl='mega'", "ROADMAP B19 (encode_ctu_mega)")
+    if cfg.tu_sizes:
+        _not_ported("tu_sizes", "ROADMAP A.10 (partition.select_tu_recon)")
+    cur, (ref,), src_ctus, pos, grid = _prepare_frame(cfg, cur, ref)
     rec_ctus, mv_qpel, best, nnz = _inter_core(
-        src_ctus, ref_padded, pos, cfg, (gr, gc), tiers)
-    recon = ctu_mod.untile_frame(rec_ctus, h, w)
+        src_ctus, _pad_reference(ref, cfg.search_range), pos, cfg, grid, tiers)
+    recon = ctu_mod.untile_frame(rec_ctus, *cur.shape)
     return {
         "recon": recon,
         "mvs": mv_qpel,

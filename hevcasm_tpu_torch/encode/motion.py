@@ -26,6 +26,7 @@ __all__ = [
     "extract_aligned_windows",
     "full_search",
     "full_search_slab",
+    "full_search_multi",
     "refine_quarter_pel",
 ]
 
@@ -121,6 +122,39 @@ def full_search_slab(src_ctus, ref_padded, search_range: int,
                        PAD_L : PAD_L + gc * b + 2 * r].contiguous()
     scores = grid_plane_fn(src_ctus, plane, grid, num)
     best, best_score = first_min(scores.reshape(scores.shape[0], -1))
+    return _mv_from_index(best, num, r), best_score
+
+
+def full_search_multi(src_ctus, planes, positions, search_range: int,
+                      grid_fn=ssd_grid, grid: tuple[int, int] | None = None,
+                      joint: bool = True):
+    """Integer full search against k stacked reference planes (k, Hp, Wp),
+    each padded like full_search's ref_padded, in one grid call over the
+    k*n windows (the grid route of hevcasm_tpu.encode.motion.
+    full_search_multi; its TPU-only multi-plane kernel is not taken).
+
+    joint: (mv (n, 2), ref_idx (n,), best (n,)), the first minimum over
+    (ref, dy, dx) in that order.  joint=False: per reference, (mv (k, n, 2),
+    best (k, n)).  All int32."""
+    src_ctus = as_tensor(src_ctus)
+    planes = as_tensor(planes, src_ctus.device)
+    positions = as_tensor(positions, src_ctus.device)
+    k = planes.shape[0]
+    n, b = src_ctus.shape[0], src_ctus.shape[-1]
+    r = search_range
+    num = 2 * r + 1
+    size = b + 2 * r
+    if grid is not None and size % b == 0:
+        wins = [extract_aligned_windows(p, (PAD_L, PAD_L), grid, b, size) for p in planes]
+    else:
+        wins = [extract_windows(p, positions + PAD_L, size) for p in planes]
+    scores = grid_fn(src_ctus.repeat(k, 1, 1), torch.cat(wins), num, num)
+    scores = scores.reshape(k, n, num * num)
+    if joint:
+        best, best_score = first_min(scores.transpose(0, 1).reshape(n, k * num * num))
+        return (_mv_from_index(best % (num * num), num, r),
+                best // (num * num), best_score)
+    best, best_score = first_min(scores)
     return _mv_from_index(best, num, r), best_score
 
 

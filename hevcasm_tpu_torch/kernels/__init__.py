@@ -5,6 +5,8 @@ version (tier REF).
                read from the padded reference plane.
 * inter_fused  K2 ``inter_ctu_fused_dma``: quarter-pel refinement fused with
                the 8x8 residual pipeline.
+* bi_fused     B3 ``bi_ctu_fused_dma``: both references' refinements, the
+               bi-prediction combine and the 8x8 residual pipeline.
 * build        compiles ``csrc/*.cu`` with nvcc on first use and loads it.
 
 Importing a kernel module registers both tiers of its op; nothing is

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, on first use, into
-``build/hevcasm_tpu_torch/<hash>/`` beside the package (the hash covers the
-sources and the flags, so an edited kernel is rebuilt and an unchanged one
-is not).  The library is loaded with ``ctypes``; each C entry takes device
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a plain C
+interface, on first use, into ``build/hevcasm_tpu_torch/<hash>/`` beside
+the package (the hash covers the sources, the ``csrc/*.cuh`` headers they
+share and the flags, so an edited kernel is rebuilt and an unchanged one is
+not).  The library is loaded with ``ctypes``; each C entry takes device
 pointers, ints and a CUDA stream, launches one kernel on that stream and
 returns ``cudaGetLastError()``.
 """
@@ -26,7 +27,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "hevcasm_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +40,10 @@ _ENTRIES = {
     # qscale, qshift, qoffset, dscale, dshift, device, stream
     "hevc_inter_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P],
+    # src, plane, offsets0, offsets1, rec, frac0, frac1, nnz, bits, n,
+    # plane_h, plane_w, qscale, qshift, qoffset, dscale, dshift, device, stream
+    "hevc_bi_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -57,33 +62,47 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (put it on PATH or set CUDA_HOME)")
 
 
-def _digest(sources: list[Path]) -> str:
+def _digest(files: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the output of every failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the sources if no library for their hash exists yet; returns
-    the library's path.  The library is written to a temporary name and
-    renamed into place, so a process never loads a partial file."""
+    the library's path.  The objects go to a scratch directory and the
+    library to a temporary name that is renamed into place, so a process
+    never loads a partial file."""
     sources = _sources()
-    out_dir = BUILD_ROOT / _digest(sources)
+    out_dir = BUILD_ROOT / _digest(sources + sorted(CSRC.glob("*.cuh")))
     lib = out_dir / "libhevcasm_kernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as scratch:
+        objs = [str(Path(scratch) / f"{src.stem}.o") for src in sources]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(sources, objs)])
+        tmp = str(Path(scratch) / lib.name)
+        _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, lib)
     return lib
 
 

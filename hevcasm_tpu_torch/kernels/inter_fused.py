@@ -51,6 +51,19 @@ def _check(src: torch.Tensor, plane: torch.Tensor, offsets: torch.Tensor,
         raise ValueError(f"dshift={dshift} outside [1, 31]")
 
 
+def residual_8x8(src, pred, qscale, qshift, qoffset, dscale, dshift):
+    """The fused kernels' residual stage, plain: the REF pipeline over 8x8
+    TUs of (n, 64, 64) stacks.  Returns (rec (n, 64, 64) uint8, nnz and
+    Exp-Golomb bits per TU, each (n, 8, 8) int32)."""
+    rec, levels, _ = residual_levels(src, pred, qscale, qshift, qoffset,
+                                     dscale, dshift, tu=TU)
+    k = CTU // TU
+    levels = levels.reshape(src.shape[0], k, k, TU, TU)
+    nnz = (levels != 0).sum(dim=(-2, -1), dtype=torch.int32)
+    bits = bits_egk(levels).sum(dim=(-2, -1), dtype=torch.int32)
+    return rec, nnz, bits
+
+
 def inter_ctu_fused_dma_ref(src_ctus, ref_plane, offsets, qscale, qshift,
                             qoffset, dscale, dshift, group: int = 6):
     """Plain version, equal to the TPU kernel's ``_group_body``: gather the
@@ -61,15 +74,9 @@ def inter_ctu_fused_dma_ref(src_ctus, ref_plane, offsets, qscale, qshift,
     plane = as_tensor(ref_plane, src.device)
     offsets = as_tensor(offsets, src.device)
     _check(src, plane, offsets, qscale, qshift, qoffset, dscale, dshift)
-    n = src.shape[0]
     win = extract_windows(plane, offsets, WIN)
     pred, frac, cost = refine_qpel(src, win)
-    rec, levels, _ = residual_levels(src, pred, qscale, qshift, qoffset,
-                                     dscale, dshift, tu=TU)
-    k = CTU // TU
-    levels = levels.reshape(n, k, k, TU, TU)
-    nnz = (levels != 0).sum(dim=(-2, -1), dtype=torch.int32)
-    bits = bits_egk(levels).sum(dim=(-2, -1), dtype=torch.int32)
+    rec, nnz, bits = residual_8x8(src, pred, qscale, qshift, qoffset, dscale, dshift)
     return rec, frac, cost, nnz, bits
 
 

@@ -14,8 +14,8 @@ from .transform import (
     inverse_transform_add,
     add_residual,
 )
-from .pred_inter import pred_uni, qpel_score, refine_qpel
-from .residual import residual_pipeline
+from .pred_inter import pred_uni, pred_uni_16, pred_bi, qpel_score, refine_qpel
+from .residual import residual_pipeline, residual_pipeline_frame
 
 _REF_OPS = {
     "ssd": ssd,
@@ -27,6 +27,7 @@ _REF_OPS = {
     "inverse_transform": inverse_transform,
     "inverse_transform_add": inverse_transform_add,
     "pred_uni": pred_uni,
+    "pred_bi": pred_bi,
     "refine_qpel": refine_qpel,
     "residual_pipeline": residual_pipeline,
 }
@@ -39,6 +40,6 @@ __all__ = [
     "quantize", "quantize_inverse", "reconstruct",
     "forward_transform", "inverse_transform", "inverse_transform_add",
     "add_residual",
-    "pred_uni", "qpel_score", "refine_qpel",
-    "residual_pipeline",
+    "pred_uni", "pred_uni_16", "pred_bi", "qpel_score", "refine_qpel",
+    "residual_pipeline", "residual_pipeline_frame",
 ]

@@ -20,7 +20,8 @@ import torch
 
 from ..utils.tensor import as_tensor, first_min
 
-__all__ = ["KERNEL8", "KERNEL4", "pred_uni", "qpel_score", "refine_qpel"]
+__all__ = ["KERNEL8", "KERNEL4", "pred_uni", "pred_uni_16", "pred_bi",
+           "qpel_score", "refine_qpel"]
 
 # Luma 8-tap quarter-pel filters (H.265 table 8-11).
 KERNEL8 = np.array(
@@ -50,8 +51,15 @@ KERNEL4 = np.array(
 
 
 def _fir(x: torch.Tensor, coef, axis: int, out_len: int) -> torch.Tensor:
-    """Valid FIR along ``axis`` (-1 or -2): sum_k coef[k] * x[shifted k],
-    int32.  ``coef`` is a sequence of ints shared by the whole batch."""
+    """Valid FIR along ``axis`` (-1 or -2): sum_k coef[..., k] * x[shifted k],
+    int32.  ``coef`` is a numpy row of ints shared by the whole batch (zero
+    taps are skipped), or an int32 tensor (..., taps) of per-block rows
+    broadcast over the trailing (h, w) axes."""
+    if isinstance(coef, torch.Tensor):
+        acc = x.narrow(axis, 0, out_len) * coef[..., 0, None, None]
+        for k in range(1, coef.shape[-1]):
+            acc = acc + x.narrow(axis, k, out_len) * coef[..., k, None, None]
+        return acc
     acc = None
     for k, c in enumerate(coef):
         c = int(c)
@@ -72,21 +80,50 @@ def _wrap16(x: torch.Tensor) -> torch.Tensor:
     return ((x + 32768) & 0xFFFF) - 32768
 
 
-def _hv(window: torch.Tensor, xfrac: int, yfrac: int, taps: int) -> torch.Tensor:
-    """Pre-shift vertical accumulation (int32) of shape (..., h, w)."""
+def _coef(frac, taps: int, device):
+    """Filter row(s) for a fraction: the numpy row for an int (the shared
+    fast path), else an int32 tensor (..., taps) gathered per block."""
     kern = KERNEL8 if taps == 8 else KERNEL4
+    if isinstance(frac, (int, np.integer)):
+        return kern[int(frac)]
+    frac = as_tensor(frac, device).long()
+    return torch.as_tensor(kern, device=device)[frac]
+
+
+def _hv(window: torch.Tensor, xfrac, yfrac, taps: int) -> torch.Tensor:
+    """Pre-shift vertical accumulation (int32) of shape (..., h, w)."""
     h = window.shape[-2] - taps + 1
     w = window.shape[-1] - taps + 1
     x = window.to(torch.int32)
-    inter = _wrap16(_fir(x, kern[xfrac], axis=-1, out_len=w))
-    return _fir(inter, kern[yfrac], axis=-2, out_len=h)
+    cx = _coef(xfrac, taps, x.device)
+    cy = _coef(yfrac, taps, x.device)
+    inter = _wrap16(_fir(x, cx, axis=-1, out_len=w))
+    return _fir(inter, cy, axis=-2, out_len=h)
 
 
-def pred_uni(window, xfrac: int, yfrac: int, taps: int = 8) -> torch.Tensor:
-    """Uni-prediction 8to8: (..., h+t-1, w+t-1) uint8 -> (..., h, w) uint8,
-    for one (xfrac, yfrac) shared by the batch."""
+def pred_uni(window, xfrac, yfrac, taps: int = 8) -> torch.Tensor:
+    """Uni-prediction 8to8: (..., h+t-1, w+t-1) uint8 -> (..., h, w) uint8.
+    xfrac/yfrac are ints shared by the batch or integer tensors
+    broadcastable over its leading axes (one fraction per block)."""
     acc = _hv(as_tensor(window), xfrac, yfrac, taps)
     return ((acc + 2048) >> 12).clamp(0, 255).to(torch.uint8)
+
+
+def pred_uni_16(window, xfrac, yfrac, taps: int = 8) -> torch.Tensor:
+    """Uni-prediction 8to16, the bi-prediction intermediate: the H pass,
+    then the V pass shifted by 6, stored to int16 by two's-complement wrap
+    without clipping.  Fractions as in pred_uni."""
+    acc = _hv(as_tensor(window), xfrac, yfrac, taps)
+    return _wrap16(acc >> 6).to(torch.int16)
+
+
+def pred_bi(window0, window1, xfrac0, yfrac0, xfrac1, yfrac1,
+            taps: int = 8) -> torch.Tensor:
+    """Bi-prediction 8to8: two 8to16 uni paths combined as
+    Clip3(0, 255, (r0 + r1 + 64) >> 7)."""
+    r0 = pred_uni_16(window0, xfrac0, yfrac0, taps).to(torch.int32)
+    r1 = pred_uni_16(window1, xfrac1, yfrac1, taps).to(torch.int32)
+    return ((r0 + r1 + 64) >> 7).clamp(0, 255).to(torch.uint8)
 
 
 def qpel_score(acc: torch.Tensor, src: torch.Tensor) -> torch.Tensor:

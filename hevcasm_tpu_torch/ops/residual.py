@@ -5,6 +5,9 @@ individually exact ops.
 
   recon (n, B, B) uint8; nnz () int32 total coded coefficients;
   cbf (n*(B/tu)^2,) bool per-TU coded-block flags in raster TU order.
+
+``residual_pipeline_frame`` gives the same integers in the whole-frame
+contract of ``hevcasm_tpu.kernels.xla_opt.residual_pipeline_frame``.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ from ..utils.tensor import as_tensor
 from .quantize import quantize, quantize_inverse
 from .transform import forward_transform, inverse_transform_add
 
-__all__ = ["residual_pipeline", "residual_levels", "bits_egk"]
+__all__ = ["residual_pipeline", "residual_pipeline_frame", "residual_levels",
+           "bits_egk"]
 
 
 def _split(blocks: torch.Tensor, sub: int) -> torch.Tensor:
@@ -69,3 +73,22 @@ def bits_egk(q: torch.Tensor) -> torch.Tensor:
                         device=a.device)
     fl = (a[..., None] >= pow2).sum(dim=-1, dtype=torch.int32)
     return torch.where(a > 0, 2 * fl + 3, 0).to(torch.int32)
+
+
+def residual_pipeline_frame(src_blocks, pred_blocks, qscale, qshift, qoffset,
+                            dscale, dshift, tu: int = 8, tr_type: int = 0):
+    """The whole-frame residual pipeline, the counterpart of
+    ``hevcasm_tpu.kernels.xla_opt.residual_pipeline_frame`` (XLA in the
+    JAX package, whose block-diagonal bf16 matmuls are a TPU layout device:
+    here it is the per-TU composition of residual_levels).
+
+    src/pred (n, B, B) uint8, tu in {4, 8, 16, 32}, tr_type 1 (DST-VII) at
+    tu 4.  Returns (recon (n, B, B) uint8, nnz () int32, cbf (n, B/tu, B/tu)
+    bool, bits (n,) int32 per-CTU Exp-Golomb bit-cost sums of the levels).
+    """
+    rec, levels, cbf = residual_levels(src_blocks, pred_blocks, qscale, qshift,
+                                       qoffset, dscale, dshift, tu, tr_type)
+    n, k = rec.shape[0], rec.shape[-1] // tu
+    nnz = (levels != 0).sum(dtype=torch.int32)
+    bits = bits_egk(levels).reshape(n, -1).sum(dim=-1, dtype=torch.int32)
+    return rec, nnz, cbf.reshape(n, k, k), bits

@@ -132,8 +132,8 @@ def test_numpy_inputs_and_output_types():
     (dict(pu_decision=True, inter_impl="fused_dma"), "ROADMAP A.10"),
     (dict(tu_sizes=(8, 16), inter_impl="fused_dma"), "ROADMAP A.10"),
     (dict(fused_refine=True, residual_impl="ref"), "ROADMAP B11"),
-    (dict(refine_impl="mxu", residual_impl="ref"), "ROADMAP A.2"),
-    (dict(refine_impl="ref", residual_impl="mxu"), "ROADMAP A.5"),
+    (dict(me_metric="sad", refine_impl="mxu", residual_impl="mxu"), "ROADMAP A.2"),
+    (dict(refine_impl="mxu", residual_impl="pallas"), "ROADMAP B4"),
     (dict(refine_impl="ref", residual_impl="pallas"), "ROADMAP B4"),
 ])
 def test_unported_configurations_name_their_roadmap_item(kwargs, item):

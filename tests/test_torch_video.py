@@ -1,0 +1,193 @@
+"""The slice end to end: hevcasm_tpu_torch's 4:2:0 P and B frames
+(encode_inter_frame_yuv, encode_b_frame_yuv) against hevcasm_tpu's on the
+CPU, on the same numpy frames: 128x192 (a 2x3 CTU grid, odd width), R = 8.
+recon (y, cb, cr), mvs / mvs0 / mvs1 and nnz must be equal; PSNR may differ
+by 1e-3 dB, since the two sum the float means in different orders.  A
+configuration hevcasm_tpu rejects must raise the same exception type in the
+port.  test_torch_cuda.py runs the kernel path on a card."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from hevcasm_tpu.encode import EncodeConfig as JaxConfig
+from hevcasm_tpu.encode.loop import encode_inter_frame as jax_encode
+from hevcasm_tpu.encode.video import YuvFrame as JaxYuv
+from hevcasm_tpu.encode.video import chroma_qp as jax_chroma_qp
+from hevcasm_tpu.encode.video import encode_b_frame_yuv as jax_b
+from hevcasm_tpu.encode.video import encode_inter_frame_yuv as jax_p
+
+from hevcasm_tpu_torch.encode import (EncodeConfig, YuvFrame, chroma_qp,
+                                      encode_b_frame_yuv, encode_inter_frame,
+                                      encode_inter_frame_yuv)
+from hevcasm_tpu_torch.encode.video import _b_frame_luma
+
+H, W = 128, 192
+PSNR_TOL_DB = 1e-3
+PSNR_KEYS = {"P": ("psnr_y", "psnr_cb", "psnr_cr"), "B": ("psnr_y",)}
+INT_KEYS = {"P": ("mvs", "nnz"), "B": ("mvs0", "mvs1", "nnz")}
+
+
+def clip(w=W, seed=0):
+    """Three 4:2:0 frames (ref0, cur, ref1) as numpy planes: a smooth
+    picture with a little noise, panned by (2.25, 3.25) luma pixels a frame
+    (half that on chroma), so the MVs need quarter-pel fractions."""
+    rng = np.random.default_rng(seed)
+
+    def plane(h, w, dy, dx, fy, fx):
+        y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+        yy, xx = y + dy, x + dx
+        v = 128 + 70 * np.sin(xx / fx + yy / fy) + 40 * np.cos(xx / 23 - yy / 9)
+        return np.clip(np.rint(v + rng.normal(0, 1.5, v.shape)), 0, 255).astype(np.uint8)
+
+    def frame(t):
+        dy, dx = 2.25 * t, 3.25 * t
+        return (plane(H, w, dy, dx, 17, 11), plane(H // 2, w // 2, dy / 2, dx / 2, 7, 5),
+                plane(H // 2, w // 2, dy / 2, dx / 2, 5, 9))
+
+    return frame(0), frame(1), frame(2)
+
+
+def run_jax(kind, w=W, **kw):
+    ref0, cur, ref1 = (JaxYuv(*map(jnp.asarray, f)) for f in clip(w))
+    cfg = JaxConfig(**kw)
+    out = jax_p(cur, ref0, cfg) if kind == "P" else jax_b(cur, ref0, ref1, cfg)
+    return {k: (tuple(np.asarray(p) for p in v) if k == "recon" else np.asarray(v))
+            for k, v in out.items()}
+
+
+def run_port(kind, w=W, **kw):
+    ref0, cur, ref1 = clip(w)
+    cfg = EncodeConfig(**kw)
+    if kind == "P":
+        return encode_inter_frame_yuv(cur, ref0, cfg)
+    return encode_b_frame_yuv(YuvFrame(*cur), ref0, ref1, cfg)
+
+
+_JAX_CACHE = {}
+
+
+def jax_result(kind, **kw):
+    key = (kind, tuple(sorted(kw.items())))
+    if key not in _JAX_CACHE:
+        _JAX_CACHE[key] = run_jax(kind, **kw)
+    return _JAX_CACHE[key]
+
+
+def assert_matches(kind, ours, theirs):
+    assert isinstance(ours["recon"], YuvFrame)
+    for plane, o, t in zip("y cb cr".split(), ours["recon"], theirs["recon"]):
+        assert o.dtype == torch.uint8 and tuple(o.shape) == t.shape, plane
+        np.testing.assert_array_equal(o.numpy(), t, err_msg=plane)
+    for k in INT_KEYS[kind]:
+        got = ours[k].numpy()
+        assert got.dtype == theirs[k].dtype and got.shape == theirs[k].shape, k
+        np.testing.assert_array_equal(got, theirs[k], err_msg=k)
+    for k in PSNR_KEYS[kind]:
+        assert ours[k].dtype == torch.float32
+        assert abs(float(ours[k]) - float(theirs[k])) <= PSNR_TOL_DB, k
+    assert set(ours) == set(theirs)
+
+
+CONFIGS = {
+    "defaults": dict(search_range=8, qp=27),
+    "fused_dma": dict(search_range=8, qp=27, inter_impl="fused_dma"),
+}
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("kind", ["P", "B"])
+def test_yuv_frame_matches_jax(kind, config):
+    kw = CONFIGS[config]
+    assert_matches(kind, run_port(kind, **kw), jax_result(kind, **kw))
+
+
+def test_b_frame_fused_matches_jax():
+    # "fused" runs the same bi kernel as "fused_dma" in hevcasm_tpu.
+    kw = dict(search_range=8, qp=27, inter_impl="fused")
+    assert_matches("B", run_port("B", **kw), jax_result("B", **kw))
+
+
+def test_the_panned_clip_needs_fractions():
+    theirs = jax_result("B", **CONFIGS["defaults"])
+    assert ((theirs["mvs0"] % 4) != 0).any() or ((theirs["mvs1"] % 4) != 0).any()
+    assert (theirs["mvs0"] != theirs["mvs1"]).any()
+    assert (theirs["mvs1"] < 0).all(), "chroma MC should see negative MVs"
+
+
+@pytest.mark.parametrize("kind,kw", [
+    # hevcasm_tpu's yuv P frame runs the staged luma path under "mega".
+    ("P", dict(search_range=8, qp=27, inter_impl="mega")),
+    # luma on the fused kernel, chroma (4x4 TUs) on the plain pipeline.
+    ("P", dict(search_range=8, qp=30, inter_impl="fused_dma", residual_impl="pallas")),
+    ("B", dict(search_range=8, qp=30, inter_impl="fused_dma", residual_impl="pallas")),
+    # The B frame ignores pu_decision and tu_sizes, as hevcasm_tpu does.
+    ("B", dict(search_range=8, qp=37, pu_decision=True, tu_sizes=(8, 16))),
+    ("B", dict(search_range=8, qp=22, me_strategy="pyramid", refine_impl="ref",
+               residual_impl="ref")),
+])
+def test_accepted_configurations_match_jax(kind, kw):
+    assert_matches(kind, run_port(kind, **kw), run_jax(kind, **kw))
+
+
+@pytest.mark.parametrize("entry", ["luma", "P", "B"])
+def test_literal_defaults_match_jax(entry):
+    """EncodeConfig() as it stands (R = 32, stages, mxu refine and
+    residual) runs every entry point of the slice."""
+    if entry == "luma":
+        ref0, cur, _ = clip()
+        ours = encode_inter_frame(cur[0], ref0[0])
+        theirs = jax_encode(jnp.asarray(cur[0]), jnp.asarray(ref0[0]), JaxConfig())
+        for k in ("recon", "mvs", "sad", "nnz"):
+            np.testing.assert_array_equal(ours[k].numpy(), np.asarray(theirs[k]), err_msg=k)
+        assert abs(float(ours["psnr_db"]) - float(theirs["psnr_db"])) <= PSNR_TOL_DB
+    else:
+        assert_matches(entry, run_port(entry), jax_result(entry))
+
+
+@pytest.mark.parametrize("kind,kw", [
+    # An even grid width (256): hevcasm_tpu's luma slab search asserts one.
+    ("P", dict(search_range=32, search_impl="slab", w=256)),
+    ("B", dict(search_range=32, search_impl="slab", w=256)),
+    ("B", dict(search_range=32, search_impl="mv")),
+    ("P", dict(search_range=8, pu_decision=True)),
+    ("P", dict(search_range=8, tu_sizes=(8, 16))),
+])
+def test_rejected_configurations_raise_like_jax(kind, kw):
+    with pytest.raises(ValueError) as theirs:
+        run_jax(kind, **kw)
+    with pytest.raises(ValueError) as ours:
+        run_port(kind, **kw)
+    key = "fixed CTU/TU geometry" if "pu_decision" in kw or "tu_sizes" in kw \
+        else "search_impl"
+    assert key in str(theirs.value) and key in str(ours.value)
+
+
+@pytest.mark.parametrize("kind,kw,item", [
+    ("P", dict(search_range=8, inter_impl="fused"), "ROADMAP B16"),
+    ("P", dict(search_range=8, inter_impl="fused_batched"), "ROADMAP B16"),
+    ("P", dict(search_range=8, me_metric="sad"), "ROADMAP A.2"),
+    ("P", dict(search_range=8, me_strategy="pyramid"), "ROADMAP A.3"),
+    ("P", dict(search_range=8, fused_refine=True), "ROADMAP B11"),
+    ("P", dict(search_range=8, residual_impl="pallas"), "ROADMAP B4"),
+    ("B", dict(search_range=8, residual_impl="pallas"), "ROADMAP B4"),
+    ("B", dict(search_range=8, me_metric="sad"), "ROADMAP A.2"),
+])
+def test_unported_configurations_name_their_roadmap_item(kind, kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        run_port(kind, **kw)
+
+
+def test_traced_quantizer_parameters_name_rate_control():
+    ref0, cur, ref1 = clip()
+    src = torch.zeros((6, 64, 64), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        _b_frame_luma(src, torch.as_tensor(ref0[0]), torch.as_tensor(ref1[0]),
+                      torch.zeros((6, 2), dtype=torch.int32), (2, 3),
+                      EncodeConfig(search_range=8), qparams=(1, 20, 0, 1, 2))
+
+
+@pytest.mark.parametrize("qp", [0, 29, 30, 35, 43, 44, 51])
+def test_chroma_qp_table(qp):
+    assert chroma_qp(qp) == jax_chroma_qp(qp)
