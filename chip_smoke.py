@@ -13,23 +13,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
             for bit on every output: the 1080p shapes (510 CTUs, R = 32), an
             odd grid width (3) at R = 8, refine offsets at 0 and at the
             maximum (in both stacked planes for B3), and constant planes on
-            which every candidate ties.
-4. main     three paths, each with every launch count set to 0 just before
-            it and read just after, all with
+            which every candidate ties.  The partition kernels run on the
+            structured pan's luma: B15 at base 16 (the 26 PU lists of the
+            default layouts) and base 32, B14 at base 8 and 16, B13 on the
+            8160 16x16 and 32640 8x8 tiles at their searched MVs and at
+            offsets 0..max, B12 at b = 64/32/16/8 on gathered windows, B8
+            on the sub-block windows of the 8160 16x16 blocks at R = 16 and
+            32, the 32640 8x8 blocks at R = 16, and the 510 CTUs at R = 32.
+4. main     the paths below, each with every launch count set to 0 just
+            before it and read just after.  With
             EncodeConfig(search_range=32, qp=32, inter_impl="fused_dma"):
             encode_inter_frame on a 1920x1088 luma P frame of bench content
             (seed 0, a pure (2, 3) shift) must launch K1 and K2;
             encode_inter_frame_yuv on a 1920x1088 4:2:0 P frame of bench's
             structured pan must launch K1 and K2; encode_b_frame_yuv on the
-            B frame of that content must launch K1 twice and B3.  Each
-            result must equal its plain path on the card, and a 128x192
-            frame of each must equal the plain path on the CPU.
+            B frame of that content must launch K1 twice and B3.  The RDO P
+            frame, encode_inter_frame(EncodeConfig(search_range=32, qp=32,
+            pu_decision=True)) on the structured pan's luma, must launch B15
+            and B13; with all six layouts B14 and B13; with tu_sizes=(4, 8,
+            16, 32) K1; with both B15 and B13; and at search_range=16 B8 and
+            B13.  The unpruned PU decision, partition.select_pu_layout, must
+            launch B8 and B12 and equal the pruned one.  Each frame must
+            equal its plain path on the card (pu_layout and tu_choice
+            included), and 128x192 frames of each must equal the plain path
+            on the CPU.
 5. timing   CUDA-event medians over 20 samples after warm-up: each path per
             frame, synchronised after each (ms per frame and CTU/s), the luma
             path also 20 frames back to back, and each path's plain version;
-            each kernel beside its plain version at the 1080p shapes, a
-            kernel sample being 10 launches back to back so that its host
-            overhead is hidden.
+            the four RDO variants of tools/bench_rdo.py (pu_decision,
+            pu_amp+8x8, tu_select, pu+tu), pu_decision at R = 16 and the
+            plain pu_decision path on the structured pan's luma, each with
+            the minimum and maximum of its samples; each kernel beside its
+            plain version at the 1080p shapes, a kernel sample being 10
+            launches back to back so that its host overhead is hidden.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -37,6 +53,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -93,19 +110,20 @@ def structured_pan(h: int, w: int, seed: int = 0):
 
 
 def max_abs_err(got, want) -> int:
-    """Largest |difference| over matching tensors (0 when bit-equal)."""
+    """Largest |difference| over matching tensors (0 when bit-equal),
+    computed on the device of ``got``."""
     err = 0
     for g, w in zip(got, want):
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"shape/dtype {g.shape} {g.dtype} != {w.shape} {w.dtype}")
         if g.numel():
-            err = max(err, int((g.cpu().long() - w.cpu().long()).abs().max()))
+            err = max(err, int((g.long() - w.to(g.device).long()).abs().max()))
     return err
 
 
-def median_ms(fn, calls: int = 1) -> float:
-    """Median over REPS samples of the CUDA-event time of ``calls`` calls
-    of fn, per call.  Each sample starts on an idle card."""
+def samples_ms(fn, calls: int = 1) -> list[float]:
+    """REPS samples of the CUDA-event time of ``calls`` calls of fn, per
+    call, sorted.  Each sample starts on an idle card."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -119,7 +137,11 @@ def median_ms(fn, calls: int = 1) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+    return sorted(times)
+
+
+def median_ms(fn, calls: int = 1) -> float:
+    return statistics.median(samples_ms(fn, calls))
 
 
 def main() -> int:
@@ -129,17 +151,22 @@ def main() -> int:
         return 1
 
     from hevcasm_tpu_torch.config import Tier
-    from hevcasm_tpu_torch.encode import ctu as ctu_mod, motion
+    from hevcasm_tpu_torch.encode import ctu as ctu_mod, motion, partition
     from hevcasm_tpu_torch.encode.loop import EncodeConfig, encode_inter_frame
     from hevcasm_tpu_torch.encode.video import (
         YuvFrame, encode_b_frame_yuv, encode_inter_frame_yuv)
     from hevcasm_tpu_torch.kernels import build
+    from hevcasm_tpu_torch.kernels.base_grids import (
+        base_grids_ctu, base_grids_ctu_ref, base_layout_decide, base_layout_decide_ref)
     from hevcasm_tpu_torch.kernels.bi_fused import (
         bi_ctu_fused_dma, bi_ctu_fused_dma_ref)
+    from hevcasm_tpu_torch.kernels.costmap import (
+        refine_qpel_costmap, refine_qpel_costmap_dma, refine_qpel_costmap_dma_ref,
+        refine_qpel_costmap_ref)
     from hevcasm_tpu_torch.kernels.inter_fused import (
         inter_ctu_fused_dma, inter_ctu_fused_dma_ref)
     from hevcasm_tpu_torch.kernels.search import (
-        ssd_grid_plane, ssd_grid_plane_ref)
+        ssd_grid, ssd_grid_plane, ssd_grid_plane_ref, ssd_grid_ref)
 
     # ---- 1. device -----------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -157,7 +184,9 @@ def main() -> int:
     # ---- 3. each kernel against its plain version ---------------------------
     cfg = EncodeConfig(search_range=SEARCH_RANGE, qp=32, inter_impl="fused_dma")
     qargs = (*cfg.quant_params(False), *cfg.dequant_params())
-    err = {"ssd_grid_plane": 0, "inter_ctu_fused_dma": 0, "bi_ctu_fused_dma": 0}
+    err = dict.fromkeys(("ssd_grid_plane", "inter_ctu_fused_dma", "bi_ctu_fused_dma",
+                         "refine_qpel_costmap", "refine_qpel_costmap_dma",
+                         "base_grids_ctu", "base_layout_decide", "ssd_grid"), 0)
 
     def search_inputs(cur, ref, r):
         """K1 operands as full_search_slab builds them."""
@@ -263,6 +292,125 @@ def main() -> int:
     if int(c_got[1].abs().max()) or int(c_got[2].abs().max()):
         raise AssertionError("constant planes: the first fraction did not win")
     check_b3("constant planes (all fractions tie)", c_src, c_flat, *c_offsets)
+
+    # B8 and B12-B15: the partition kernels on the structured pan's luma.
+    def check(name, what, got, want, shape):
+        e = max_abs_err(got, want)
+        log(f"{name} {what}: {shape} max_abs_err={e}")
+        err[name] = max(err[name], e)
+        return got
+
+    def check_b15(what, src, win, base, lists):
+        return check("base_layout_decide", what, [base_layout_decide(src, win, base, lists)],
+                     [base_layout_decide_ref(src, win, base, lists)],
+                     f"n={src.shape[0]} base={base} PUs={len(lists)}")[0]
+
+    def check_b14(what, src, win, base):
+        got = check("base_grids_ctu", what, [base_grids_ctu(src, win, base)],
+                    [base_grids_ctu_ref(src, win, base)], f"n={src.shape[0]} base={base}")[0]
+        torch.cuda.empty_cache()
+        return got
+
+    def check_b13(what, tiles, plane, offsets):
+        return check("refine_qpel_costmap_dma", what,
+                     refine_qpel_costmap_dma(tiles, plane, offsets),
+                     refine_qpel_costmap_dma_ref(tiles, plane, offsets),
+                     f"tiles={tuple(tiles.shape)} offsets [{int(offsets.min())}, "
+                     f"{int(offsets.max())}]")
+
+    def check_b8(what, blocks, windows, num):
+        return check("ssd_grid", what, [ssd_grid(blocks, windows, num, num)],
+                     [ssd_grid_ref(blocks, windows, num, num)],
+                     f"blocks={tuple(blocks.shape)} windows={tuple(windows.shape)}")[0]
+
+    def sub_block_windows(ctu_win, base, r):
+        """partition.base_grid_search's operands: the (base x base) blocks
+        of the pan's CTUs and their (base + 2r)^2 windows, cut from CTU
+        windows at R = 32."""
+        wsub, o = base + 2 * r, SEARCH_RANGE - r
+        w = ctu_win[:, o:o + 64 + 2 * r, o:o + 64 + 2 * r]
+        w = w.unfold(1, wsub, base).unfold(2, wsub, base).reshape(-1, wsub, wsub)
+        return ctu_mod.split_blocks(b_src, base).contiguous(), w.contiguous()
+
+    def check_b12(what, tiles, windows):
+        return check("refine_qpel_costmap", what, [refine_qpel_costmap(tiles, windows)],
+                     [refine_qpel_costmap_ref(tiles, windows)],
+                     f"tiles={tuple(tiles.shape)}")[0]
+
+    def tile_offsets(base, mv):
+        """Window starts pos + tile offset + MV + R of every base tile of
+        the frame, for integer MVs (n, k*k, 2)."""
+        k = 64 // base
+        offs = torch.tensor([(ty * base, tx * base) for ty in range(k) for tx in range(k)],
+                            dtype=torch.int32, device=dev)
+        return (pos[:, None] + offs[None] + mv + SEARCH_RANGE).reshape(-1, 2) \
+            .to(torch.int32).contiguous()
+
+    p_padded = ctu_mod.pad_frame(yuv_ref0.y, SEARCH_RANGE + motion.PAD_L,
+                                 SEARCH_RANGE + motion.PAD_R, SEARCH_RANGE + motion.PAD_L,
+                                 SEARCH_RANGE + motion.PAD_R)
+    p_win = motion.extract_aligned_windows(p_padded, (motion.PAD_L, motion.PAD_L), grid,
+                                           64, 64 + 2 * SEARCH_RANGE)
+    default_layouts = EncodeConfig().pu_layouts
+    lists16 = partition._pu_lists(default_layouts, 16)
+    lists32 = partition._pu_lists(default_layouts[:4], 32)       # quarter needs base 16
+    dec16 = check_b15("1080p base 16, default layouts", b_src, p_win, 16, lists16)
+    check_b15("1080p base 32", b_src, p_win, 32, lists32)
+    g8 = check_b14("1080p base 8", b_src, p_win, 8)
+    mv8, _ = partition._argmin_grid(g8, SEARCH_RANGE)                      # (n, 8, 8, 2)
+    del g8
+    check_b14("1080p base 16", b_src, p_win, 16)
+    # The quarter layout's PUs are the 16 base-16 tiles (lists 9..24).
+    q0 = len(lists16) - 17
+    starts16 = tile_offsets(16, dec16[:, q0:q0 + 16, :2])
+    starts8 = tile_offsets(8, mv8.reshape(-1, 64, 2))
+    tiles16 = ctu_mod.split_blocks(b_src, 16).contiguous()
+    tiles8 = ctu_mod.split_blocks(b_src, 8).contiguous()
+    max_off = [p_padded.shape[0], p_padded.shape[1]]
+
+    def spread(b, count, seed):
+        """Offsets over [0, the largest start that fits], the first at 0 and
+        the last at the maximum."""
+        rng = np.random.default_rng(seed)
+        hi = np.array(max_off) - (b + 7)
+        o = (rng.random((count, 2)) * (hi + 1)).astype(np.int32)
+        o[0], o[-1] = 0, hi
+        return torch.as_tensor(o, device=dev)
+
+    check_b13("1080p 16x16 tiles at the searched MVs", tiles16, p_padded, starts16)
+    check_b13("1080p 8x8 tiles at the searched MVs", tiles8, p_padded, starts8)
+    tiles32 = ctu_mod.split_blocks(b_src, 32).contiguous()
+    for seed, tiles in enumerate((tiles32, tiles16, tiles8)):
+        b = tiles.shape[-1]
+        check_b13(f"1080p {b}x{b} tiles, offsets 0..max", tiles, p_padded,
+                  spread(b, tiles.shape[0], 11 + seed))
+    starts_by_b = {64: tile_offsets(64, dec16[:, -1:, :2]),
+                   32: tile_offsets(32, dec16[:, q0 - 4:q0, :2]), 16: starts16, 8: starts8}
+    for b, starts in starts_by_b.items():
+        tiles = ctu_mod.split_blocks(b_src, b).contiguous()
+        check_b12(f"1080p b={b} on gathered windows at the searched MVs", tiles,
+                  motion.extract_windows(p_padded, starts, b + 7))
+    b8_r16 = sub_block_windows(p_win, 16, 16)
+    for base, r in ((16, 16), (16, SEARCH_RANGE), (8, 16)):
+        blocks, wins = b8_r16 if (base, r) == (16, 16) else sub_block_windows(p_win, base, r)
+        check_b8(f"1080p {base}x{base} blocks, R={r}", blocks, wins, 2 * r + 1)
+    check_b8("1080p CTUs, R=32", b_src, p_win, 2 * SEARCH_RANGE + 1)
+    # Constant inputs: every candidate and every fraction ties.
+    flat_win = torch.full_like(p_win, 97)
+    c_dec = check_b15("constant windows (all candidates tie)", b_src, flat_win, 16, lists16)
+    if not bool((c_dec[:, :, :2] == -SEARCH_RANGE).all()):
+        raise AssertionError("B15 constant windows: the first minimum is not (-R, -R)")
+    check_b14("constant windows (all candidates tie)", b_src, flat_win, 32)
+    c_grid = check_b8("constant windows (all candidates tie)",
+                      *sub_block_windows(flat_win, 16, 16), 33)
+    if not bool((c_grid == c_grid[:, :1, :1]).all()):
+        raise AssertionError("B8 constant windows: the candidates do not tie")
+    flat_plane = torch.full_like(p_padded, 40)
+    c_cost, _ = check_b13("constant plane (all fractions tie)", tiles16, flat_plane, starts16)
+    c_map = check_b12("constant windows (all fractions tie)", tiles8,
+                      torch.full((tiles8.shape[0], 15, 15), 97, dtype=torch.uint8, device=dev))
+    if not (bool((c_cost == c_cost[:, :1, :1]).all()) and bool((c_map == c_map[:, :1, :1]).all())):
+        raise AssertionError("B12/B13 constant inputs: the fractions do not tie")
     bad = {k: v for k, v in err.items() if v}
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
@@ -270,7 +418,12 @@ def main() -> int:
     # ---- 4. the main paths ---------------------------------------------------
     counted = {"ssd_grid_plane": ssd_grid_plane,
                "inter_ctu_fused_dma": inter_ctu_fused_dma,
-               "bi_ctu_fused_dma": bi_ctu_fused_dma}
+               "bi_ctu_fused_dma": bi_ctu_fused_dma,
+               "refine_qpel_costmap": refine_qpel_costmap,
+               "refine_qpel_costmap_dma": refine_qpel_costmap_dma,
+               "base_grids_ctu": base_grids_ctu,
+               "base_layout_decide": base_layout_decide,
+               "ssd_grid": ssd_grid}
     launches = dict.fromkeys(counted, 0)
 
     def drive(what, fn, need):
@@ -375,6 +528,82 @@ def main() -> int:
             f"nnz={int(got['nnz'])}; equal to the plain path on the card, and a "
             "128x192 R=8 frame equal to the plain path on the CPU")
 
+    # The RDO P frame on the structured pan's luma: the PU decision at the
+    # default layouts (B15 + B13), at all six (B14 + B13) and at R = 16
+    # (B8 + B13), the TU-size selection (K1), and both (B15 + B13).
+    rdo_cfgs = {
+        "pu_decision": EncodeConfig(search_range=SEARCH_RANGE, qp=32, pu_decision=True),
+        "pu_amp+8x8": EncodeConfig(search_range=SEARCH_RANGE, qp=32, pu_decision=True,
+                                   pu_layouts=tuple(partition.PU_LAYOUTS)),
+        "tu_select": EncodeConfig(search_range=SEARCH_RANGE, qp=32, tu_sizes=(4, 8, 16, 32)),
+        "pu+tu": EncodeConfig(search_range=SEARCH_RANGE, qp=32, pu_decision=True,
+                              tu_sizes=(4, 8, 16, 32)),
+        "pu_decision R=16": EncodeConfig(search_range=16, qp=32, pu_decision=True),
+    }
+    rdo_need = {"pu_decision": {"base_layout_decide": 1, "refine_qpel_costmap_dma": 1},
+                "pu_amp+8x8": {"base_grids_ctu": 1, "refine_qpel_costmap_dma": 1},
+                "tu_select": {"ssd_grid_plane": 1},
+                "pu+tu": {"base_layout_decide": 1, "refine_qpel_costmap_dma": 1},
+                "pu_decision R=16": {"ssd_grid": 1, "refine_qpel_costmap_dma": 1}}
+    small_pan = structured_pan(128, 192, seed=5)
+    for name, need_rdo in rdo_need.items():
+        rcfg = rdo_cfgs[name]
+        got = drive(f"RDO P path ({name})",
+                    lambda: encode_inter_frame(yuv_cur.y, yuv_ref0.y, rcfg), need_rdo)
+        rdo_shapes = {"recon": ((H, W), torch.uint8), "mvs": ((n, 2), torch.int32),
+                      "sad": ((n,), torch.int32), "nnz": ((), torch.int32),
+                      "psnr_db": ((), torch.float32)}
+        if rcfg.pu_decision:
+            rdo_shapes["pu_layout"] = ((n,), torch.int32)
+        if rcfg.tu_sizes:
+            rdo_shapes["tu_choice"] = ((n,), torch.int32)
+        if set(got) != set(rdo_shapes) or any(
+                (tuple(got[k].shape), got[k].dtype) != v for k, v in rdo_shapes.items()):
+            raise AssertionError(f"RDO {name}: {[(k, tuple(v.shape), v.dtype) for k, v in got.items()]}")
+        psnr = float(got["psnr_db"])
+        if not np.isfinite(psnr):
+            raise AssertionError(f"RDO {name}: psnr_db {psnr} is not finite")
+        plain = encode_inter_frame(yuv_cur.y, yuv_ref0.y, rcfg, tiers=Tier.REF)
+        keys_rdo = [k for k in rdo_shapes if k != "psnr_db"]
+        e = max_abs_err([got[k] for k in keys_rdo], [plain[k] for k in keys_rdo])
+        if e or abs(psnr - float(plain["psnr_db"])) > 1e-3:
+            raise AssertionError(f"RDO {name} differs from the plain path on the card: {e}")
+        radii = sorted({8, rcfg.search_range})
+        for r_small in radii:
+            cfg_small = dataclasses.replace(rcfg, search_range=r_small)
+            s_cur, s_ref = (torch.as_tensor(f[0]) for f in small_pan[:2])
+            on_card = encode_inter_frame(s_cur.to(dev), s_ref.to(dev), cfg_small)
+            on_cpu = encode_inter_frame(s_cur, s_ref, cfg_small)
+            e = max_abs_err([on_card[k] for k in keys_rdo], [on_cpu[k] for k in keys_rdo])
+            if e or abs(float(on_card["psnr_db"]) - float(on_cpu["psnr_db"])) > 1e-3:
+                raise AssertionError(f"128x192 RDO {name} R={r_small}: the card differs "
+                                     "from the CPU")
+        chosen = []
+        for key, names in (("pu_layout", rcfg.pu_layouts), ("tu_choice", rcfg.tu_sizes)):
+            if key in got:
+                counts = torch.bincount(got[key].long(), minlength=len(names))
+                chosen.append(f"{key} {dict(zip(names, counts.tolist()))}")
+        log(f"RDO P path ({name}): psnr_db={psnr:.4f} nnz={int(got['nnz'])} "
+            f"{'; '.join(chosen)}; equal to the plain path on the card, and 128x192 "
+            f"frames at R={' and R='.join(map(str, radii))} equal to the plain path on "
+            "the CPU")
+
+    # The unpruned oracle, partition.select_pu_layout, scores its grids in
+    # B8 and refines every layout through B12; its selected result must
+    # equal the pruned decision's.
+    lam = partition.mv_lambda(32)
+    oracle = drive("RDO oracle select_pu_layout (default layouts)",
+                   lambda: partition.select_pu_layout(
+                       b_src, p_padded, pos, p_win, SEARCH_RANGE, lam, default_layouts,
+                       ssd_grid, costmap_fn=refine_qpel_costmap),
+                   {"ssd_grid": 1, "refine_qpel_costmap": 1})
+    pruned = partition.select_pu_layout_pruned(b_src, p_padded, pos, p_win, SEARCH_RANGE, lam,
+                                               default_layouts, ssd_grid, grid=grid)
+    e = max_abs_err([oracle[0], oracle[1], oracle[3]], [pruned[0], pruned[1], pruned[3]])
+    if e:
+        raise AssertionError(f"select_pu_layout differs from select_pu_layout_pruned: {e}")
+    log("RDO oracle: pred, choice and best64 equal to the pruned decision's")
+
     # ---- 5. timing -----------------------------------------------------------
     ms_main = median_ms(lambda: encode_inter_frame(cur, ref, cfg))
     ms_chain = median_ms(lambda: encode_inter_frame(cur, ref, cfg), calls=REPS)
@@ -388,7 +617,20 @@ def main() -> int:
         ms_p = median_ms(lambda: yuv_path(kind, yuv_frames, cfg, Tier.REF))
         log(f"{tag} yuv {kind} path: {ms_k:.3f} ms/frame, {n / ms_k * 1e3:.0f} CTU/s "
             f"per frame (plain path: {ms_p:.3f} ms/frame, {n / ms_p * 1e3:.0f} CTU/s)")
+    def log_rdo(what, samples, psnr=None):
+        ms_r = statistics.median(samples)
+        log(f"{tag} RDO {what}: {ms_r:.3f} ms/frame (min {samples[0]:.3f}, max "
+            f"{samples[-1]:.3f} over {REPS} samples), {n / ms_r * 1e3:.0f} CTU/s"
+            + ("" if psnr is None else f", psnr_db={psnr:.4f}"))
+
+    for name, rcfg in rdo_cfgs.items():
+        samples = samples_ms(lambda: encode_inter_frame(yuv_cur.y, yuv_ref0.y, rcfg))
+        log_rdo(name, samples,
+                float(encode_inter_frame(yuv_cur.y, yuv_ref0.y, rcfg)["psnr_db"]))
+    log_rdo("pu_decision plain path", samples_ms(lambda: encode_inter_frame(
+        yuv_cur.y, yuv_ref0.y, rdo_cfgs["pu_decision"], tiers=Tier.REF)))
     num = 2 * SEARCH_RANGE + 1
+    win16 = motion.extract_windows(p_padded, starts16, 23)
     times = {
         "ssd_grid_plane": (
             median_ms(lambda: ssd_grid_plane(src, plane, grid, num), calls=10),
@@ -402,9 +644,53 @@ def main() -> int:
                       calls=10),
             median_ms(lambda: bi_ctu_fused_dma_ref(b_src, b_flat, b3_off0, b3_off1,
                                                    *qargs))),
+        "refine_qpel_costmap": (
+            median_ms(lambda: refine_qpel_costmap(tiles16, win16), calls=10),
+            median_ms(lambda: refine_qpel_costmap_ref(tiles16, win16))),
+        "refine_qpel_costmap_dma": (
+            median_ms(lambda: refine_qpel_costmap_dma(tiles16, p_padded, starts16), calls=10),
+            median_ms(lambda: refine_qpel_costmap_dma_ref(tiles16, p_padded, starts16))),
+        "base_grids_ctu": (
+            median_ms(lambda: base_grids_ctu(b_src, p_win, 8), calls=10),
+            median_ms(lambda: base_grids_ctu_ref(b_src, p_win, 8))),
+        "base_layout_decide": (
+            median_ms(lambda: base_layout_decide(b_src, p_win, 16, lists16), calls=10),
+            median_ms(lambda: base_layout_decide_ref(b_src, p_win, 16, lists16))),
+        "ssd_grid": (
+            median_ms(lambda: ssd_grid(*b8_r16, 33, 33), calls=10),
+            median_ms(lambda: ssd_grid_ref(*b8_r16, 33, 33))),
     }
+    shapes_timed = {"refine_qpel_costmap": "8160 16x16 tiles, gathered windows",
+                    "refine_qpel_costmap_dma": "8160 16x16 tiles at the searched MVs",
+                    "base_grids_ctu": "510 CTUs, base 8",
+                    "base_layout_decide": "510 CTUs, base 16, 26 PU lists",
+                    "ssd_grid": "8160 16x16 blocks, R=16"}
+    b8_r32 = sub_block_windows(p_win, 16, SEARCH_RANGE)
+    more = {
+        "refine_qpel_costmap_dma 32640 8x8 tiles": (
+            median_ms(lambda: refine_qpel_costmap_dma(tiles8, p_padded, starts8), calls=10),
+            median_ms(lambda: refine_qpel_costmap_dma_ref(tiles8, p_padded, starts8))),
+        "refine_qpel_costmap 510 64x64 tiles": (
+            median_ms(lambda: refine_qpel_costmap(b_src, p_win[:, 32:103, 32:103]), calls=10),
+            median_ms(lambda: refine_qpel_costmap_ref(b_src, p_win[:, 32:103, 32:103]))),
+        "base_grids_ctu 510 CTUs, base 16": (
+            median_ms(lambda: base_grids_ctu(b_src, p_win, 16), calls=10),
+            median_ms(lambda: base_grids_ctu_ref(b_src, p_win, 16))),
+        "ssd_grid 8160 16x16 blocks, R=32": (
+            median_ms(lambda: ssd_grid(*b8_r32, 65, 65), calls=10),
+            median_ms(lambda: ssd_grid_ref(*b8_r32, 65, 65))),
+        "ssd_grid 510 CTUs, R=32": (
+            median_ms(lambda: ssd_grid(b_src, p_win, 65, 65), calls=10),
+            median_ms(lambda: ssd_grid_ref(b_src, p_win, 65, 65))),
+        "base_layout_decide 510 CTUs, base 32": (
+            median_ms(lambda: base_layout_decide(b_src, p_win, 32, lists32), calls=10),
+            median_ms(lambda: base_layout_decide_ref(b_src, p_win, 32, lists32))),
+    }
+    for what, (k_ms, p_ms) in more.items():
+        log(f"{tag} {what} at 1080p: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
     for name, (k_ms, p_ms) in times.items():
-        log(f"{tag} {name} at 1080p: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+        shape = f" ({shapes_timed[name]})" if name in shapes_timed else ""
+        log(f"{tag} {name} at 1080p{shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
 
     sources = {
         "ssd_grid_plane": ("hevcasm_tpu_torch/csrc/ssd_grid_plane.cu",
@@ -413,6 +699,16 @@ def main() -> int:
                                 "hevcasm_tpu/kernels/interp_pallas.py:846"),
         "bi_ctu_fused_dma": ("hevcasm_tpu_torch/csrc/bi_fused.cu",
                              "hevcasm_tpu/kernels/interp_pallas.py:1020"),
+        "refine_qpel_costmap": ("hevcasm_tpu_torch/csrc/costmap.cu",
+                                "hevcasm_tpu/kernels/interp_pallas.py:291"),
+        "refine_qpel_costmap_dma": ("hevcasm_tpu_torch/csrc/costmap.cu",
+                                    "hevcasm_tpu/kernels/interp_pallas.py:451"),
+        "base_grids_ctu": ("hevcasm_tpu_torch/csrc/base_grids.cu",
+                           "hevcasm_tpu/kernels/search_pallas.py:1100"),
+        "base_layout_decide": ("hevcasm_tpu_torch/csrc/base_grids.cu",
+                               "hevcasm_tpu/kernels/search_pallas.py:1045"),
+        "ssd_grid": ("hevcasm_tpu_torch/csrc/ssd_grid.cu",
+                     "hevcasm_tpu/kernels/search_pallas.py:359"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src_path,
                 "replaces": replaces, "launches": launches[name],

@@ -1,8 +1,10 @@
 """Encode loop of the port: CTU tiling (ctu), motion search (motion), the
-inter-frame inner loop (loop) and the 4:2:0 P and B frames (video)."""
+inter-frame inner loop (loop), the PU-layout and TU-size decisions of the
+RDO frame (partition) and the 4:2:0 P and B frames (video)."""
 
 from .ctu import tile_frame, untile_frame, pad_frame
 from .loop import EncodeConfig, config_from_fields, encode_inter_frame
+from .partition import PU_LAYOUTS, select_pu_layout, select_pu_layout_pruned, select_tu_recon
 from .video import YuvFrame, chroma_qp, encode_b_frame_yuv, encode_inter_frame_yuv
 
 __all__ = [
@@ -12,6 +14,10 @@ __all__ = [
     "EncodeConfig",
     "config_from_fields",
     "encode_inter_frame",
+    "PU_LAYOUTS",
+    "select_pu_layout",
+    "select_pu_layout_pruned",
+    "select_tu_recon",
     "YuvFrame",
     "chroma_qp",
     "encode_inter_frame_yuv",

@@ -7,9 +7,15 @@
 ``encode_inter_frame`` is the entry point.  With
 ``inter_impl="fused_dma"`` a CUDA frame runs on two hand-written kernels:
 K1 (kernels.search.ssd_grid_plane) scores the integer search and K2
-(kernels.inter_fused.inter_ctu_fused_dma) refines and codes each CTU.  A
-CPU frame runs the plain PyTorch version of every step, and so does a CUDA
-frame when ``tiers=Tier.REF``.  Every path gives the same integers.
+(kernels.inter_fused.inter_ctu_fused_dma) refines and codes each CTU.  The
+RDO frame (``pu_decision=True``, encode.partition) decides each CTU's PU
+layout in B15 (kernels.base_grids.base_layout_decide, or B14 base_grids_ctu
+when the "eighth" layout sets base 8; at R != 32, B8 kernels.search.ssd_grid
+scores the sub-block grids) and refines its PUs in B13
+(kernels.costmap.refine_qpel_costmap_dma); ``tu_sizes`` picks each CTU's TU
+size.  A CPU frame runs the plain PyTorch version of every step, and so
+does a CUDA frame when ``tiers=Tier.REF``.  Every path gives the same
+integers.
 
 Quantizer parameters follow the HM convention for 8-bit video:
   forward:  scale = QUANT_SCALES[qp%6],  shift = 21 + qp//6 - log2(TU),
@@ -30,12 +36,14 @@ import torch
 
 from .. import registry
 from ..config import Tier
-from ..kernels import bi_fused, inter_fused, search  # noqa: F401 (registers K1, K2, B3)
+# Importing the kernel modules registers K1, K2, B3, B8 and B12-B15.
+from ..kernels import base_grids, bi_fused, costmap, inter_fused, search  # noqa: F401
 from ..ops.residual import residual_pipeline_frame
 from ..utils.psnr import psnr
 from ..utils.tensor import as_tensor
 from . import ctu as ctu_mod
 from . import motion
+from . import partition
 
 __all__ = ["EncodeConfig", "QUANT_SCALES", "DEQUANT_SCALES", "PU_LAYOUT_NAMES",
            "config_from_fields", "encode_inter_frame"]
@@ -43,9 +51,8 @@ __all__ = ["EncodeConfig", "QUANT_SCALES", "DEQUANT_SCALES", "PU_LAYOUT_NAMES",
 QUANT_SCALES = (26214, 23302, 20560, 18396, 16384, 14564)
 DEQUANT_SCALES = (40, 45, 51, 57, 64, 72)
 
-#: Names of the PU layouts the RDO partition search knows (the keys of
-#: hevcasm_tpu.encode.partition.PU_LAYOUTS).
-PU_LAYOUT_NAMES = ("2Nx2N", "2NxN", "Nx2N", "NxN", "quarter", "eighth")
+#: Names of the PU layouts the RDO partition search knows.
+PU_LAYOUT_NAMES = tuple(partition.PU_LAYOUTS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +62,8 @@ class EncodeConfig:
     The implementation fields name interchangeable ways to compute the
     same integers: me_metric / me_strategy (integer search), search_impl
     ("auto" runs kernel K1 for a CUDA frame with the SSD metric, full
-    search, 64x64 CTUs and R <= 32, else the plain grid search),
+    search, 64x64 CTUs and R <= 32, else the grid search on gathered
+    windows, which runs kernel B8 for a CUDA frame),
     fused_refine / refine_impl / residual_impl (the staged path), and
     inter_impl ("stages", or "fused_dma" for the K2 path; the B frame also
     runs B3 under "fused" and "fused_batched").
@@ -183,6 +191,23 @@ def _check_residual(cfg: EncodeConfig, block: int, tr_type: int = 0) -> None:
         _not_ported("residual_impl='pallas'", "ROADMAP B4 (residual_pipeline_ctu)")
 
 
+def _check_rdo(cfg: EncodeConfig) -> None:
+    """What encode_inter_frame runs under pu_decision / tu_sizes.  The PU
+    decision ignores me_strategy, search_impl, inter_impl, refine_impl and
+    fused_refine; tu_sizes alone searches by _integer_search and refines
+    with the 'mxu' sweep whatever refine_impl, fused_refine and inter_impl
+    say."""
+    if cfg.pu_decision:
+        if cfg.me_metric == "sad":
+            _not_ported("me_metric='sad' with pu_decision",
+                        "ROADMAP A.2 (ops/sad.py) and B9 (sad_grid kernel)")
+        partition.base_for(cfg.pu_layouts)
+    else:
+        _check_search(cfg)
+    if not cfg.tu_sizes:
+        _check_residual(cfg, cfg.ctu)
+
+
 def _check_inter_core(cfg: EncodeConfig) -> None:
     """What _inter_core runs; it serves the fixed CTU/TU geometry only."""
     if cfg.pu_decision or cfg.tu_sizes:
@@ -210,7 +235,8 @@ def _op(name: str, tiers: Tier):
 def _search_impl_resolved(cfg: EncodeConfig, device: torch.device) -> str:
     """Resolve search_impl='auto': 'slab' (kernel K1) for a CUDA frame with
     the SSD metric, full search, 64x64 CTUs and R <= 32, at any grid
-    width; else 'grid' (the plain full_search).  Both give the same MVs."""
+    width; else 'grid' (full_search, B8 for a CUDA frame).  Both give the
+    same MVs."""
     if cfg.search_impl != "auto":
         return cfg.search_impl
     if (
@@ -279,18 +305,12 @@ def _inter_core(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid,
             src_ctus, ref_padded, start, scale, shift, offset, dscale, dshift,
             group=cfg.fused_group,
         )
-        return rec_ctus, _qpel_mvs(mv_int, frac), best, nnz_tu.sum(dtype=torch.int32)
+        return rec_ctus, motion.qpel_mvs(mv_int, frac), best, nnz_tu.sum(dtype=torch.int32)
     pred, mv_qpel, _ = motion.refine_quarter_pel(
         src_ctus, ref_padded, pos, mv_int, r, refine_fn=_op("refine_qpel", tiers))
     rec_ctus, nnz, _ = _residual_pipeline(src_ctus, pred, cfg, intra=False,
                                           tiers=tiers)
     return rec_ctus, mv_qpel, best, nnz
-
-
-def _qpel_mvs(mv_int: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
-    """Quarter-pel MVs (n, 2) int32 from integer MVs and fraction indices
-    yf*4 + xf."""
-    return (mv_int * 4 + torch.stack([frac // 4, frac % 4], dim=-1)).to(torch.int32)
 
 
 def _prepare_frame(cfg: EncodeConfig, cur, *refs):
@@ -315,6 +335,25 @@ def _pad_reference(ref: torch.Tensor, search_range: int) -> torch.Tensor:
     return ctu_mod.pad_frame(ref, pl, pr, pl, pr)
 
 
+def _decide_pu(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid, tiers: Tier):
+    """The PU decision (partition.select_pu_layout_pruned) with the search
+    windows and kernels the configuration and tiers select.  Returns (pred
+    (n, 64, 64) uint8, choice (n,) int32, mv_tiles (n, k, k, 2) int32,
+    best64 (n,) int32)."""
+    r = cfg.search_range
+    size = cfg.ctu + 2 * r
+    if size % cfg.ctu == 0:
+        win = motion.extract_aligned_windows(
+            ref_padded, (motion.PAD_L, motion.PAD_L), grid, cfg.ctu, size)
+    else:
+        win = motion.extract_windows(ref_padded, pos + motion.PAD_L, size)
+    return partition.select_pu_layout_pruned(
+        src_ctus, ref_padded, pos, win, r, partition.mv_lambda(cfg.qp), cfg.pu_layouts,
+        _op("ssd_grid", tiers), grid=grid, metric=cfg.me_metric,
+        decide_fn=_op("base_layout_decide", tiers), grids_fn=_op("base_grids_ctu", tiers),
+        costmap_dma_fn=_op("refine_qpel_costmap_dma", tiers))
+
+
 def encode_inter_frame(cur, ref, cfg: EncodeConfig = EncodeConfig(),
                        tiers: Tier = Tier.ALL) -> dict:
     """Encode one inter (P) frame against a reference plane.
@@ -326,22 +365,39 @@ def encode_inter_frame(cur, ref, cfg: EncodeConfig = EncodeConfig(),
 
     Returns {"recon": (H, W) uint8, "mvs": (n, 2) int32 quarter-pel,
     "sad": (n,) int32 best integer score, "nnz": () int32 coded
-    coefficients, "psnr_db": () float32}.
+    coefficients, "psnr_db": () float32}.  With pu_decision=True, "mvs" is
+    each CTU's top-left PU MV, "sad" the whole-CTU best integer SSD and
+    "pu_layout" (n,) int32 the chosen index into cfg.pu_layouts; with
+    tu_sizes, "tu_choice" (n,) int32 indexes cfg.tu_sizes and "nnz" counts
+    coded TUs.
     """
-    if cfg.pu_decision:
-        _not_ported("pu_decision=True", "ROADMAP A.10 (encode/partition.py)")
-    if cfg.inter_impl == "mega":
+    if cfg.inter_impl == "mega":      # EncodeConfig rejects it with pu_decision/tu_sizes
         _not_ported("inter_impl='mega'", "ROADMAP B19 (encode_ctu_mega)")
-    if cfg.tu_sizes:
-        _not_ported("tu_sizes", "ROADMAP A.10 (partition.select_tu_recon)")
+    rdo = cfg.pu_decision or bool(cfg.tu_sizes)
+    if rdo:
+        _check_rdo(cfg)
     cur, (ref,), src_ctus, pos, grid = _prepare_frame(cfg, cur, ref)
-    rec_ctus, mv_qpel, best, nnz = _inter_core(
-        src_ctus, _pad_reference(ref, cfg.search_range), pos, cfg, grid, tiers)
+    ref_padded = _pad_reference(ref, cfg.search_range)
+    out = {}
+    if not rdo:
+        rec_ctus, mv_qpel, best, nnz = _inter_core(src_ctus, ref_padded, pos, cfg, grid, tiers)
+    else:
+        if cfg.pu_decision:
+            pred, choice, mv_tiles, best = _decide_pu(src_ctus, ref_padded, pos, cfg, grid,
+                                                      tiers)
+            mv_qpel = mv_tiles[:, 0, 0]
+            out["pu_layout"] = choice
+        else:
+            mv_int, best = _integer_search(src_ctus, ref_padded, pos, cfg, grid, tiers)
+            pred, mv_qpel, _ = motion.refine_quarter_pel(
+                src_ctus, ref_padded, pos, mv_int, cfg.search_range,
+                refine_fn=_op("refine_qpel", tiers))
+        if cfg.tu_sizes:
+            rec_ctus, out["tu_choice"], nnz = partition.select_tu_recon(
+                src_ctus, pred, cfg, cfg.tu_sizes)
+        else:
+            rec_ctus, nnz, _ = _residual_pipeline(src_ctus, pred, cfg, intra=False,
+                                                  tiers=tiers)
     recon = ctu_mod.untile_frame(rec_ctus, *cur.shape)
-    return {
-        "recon": recon,
-        "mvs": mv_qpel,
-        "sad": best,
-        "nnz": nnz,
-        "psnr_db": psnr(cur, recon),
-    }
+    return {"recon": recon, "mvs": mv_qpel, **out, "sad": best, "nnz": nnz,
+            "psnr_db": psnr(cur, recon)}

@@ -14,9 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.search import ssd_grid_plane
+from ..kernels.search import ssd_grid, ssd_grid_plane
 from ..ops.pred_inter import refine_qpel
-from ..ops.ssd import ssd_grid
 from ..utils.tensor import as_tensor, first_min
 
 __all__ = [
@@ -28,6 +27,7 @@ __all__ = [
     "full_search_slab",
     "full_search_multi",
     "refine_quarter_pel",
+    "qpel_mvs",
 ]
 
 TAPS = 8
@@ -168,5 +168,10 @@ def refine_quarter_pel(src_ctus, ref_padded, positions, mv_int,
     start = positions + mv_int + search_range
     win = extract_windows(ref_padded, start, b + TAPS - 1)  # (n, B+7, B+7)
     pred, frac, _ = refine_fn(src_ctus, win)
-    mv_qpel = mv_int * 4 + torch.stack([frac // 4, frac % 4], dim=-1)
-    return pred, mv_qpel.to(torch.int32), win
+    return pred, qpel_mvs(mv_int, frac), win
+
+
+def qpel_mvs(mv_int: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
+    """Quarter-pel MVs (..., 2) int32 from integer MVs (..., 2) and fraction
+    indices yf*4 + xf (...)."""
+    return (mv_int * 4 + torch.stack([frac // 4, frac % 4], dim=-1)).to(torch.int32)

@@ -30,7 +30,7 @@ from ..utils.tensor import as_tensor
 from . import ctu as ctu_mod
 from . import motion
 from .loop import (EncodeConfig, _check_residual, _inter_core, _not_ported, _op,
-                   _pad_reference, _prepare_frame, _qpel_mvs, _residual_pipeline,
+                   _pad_reference, _prepare_frame, _residual_pipeline,
                    _search_impl_resolved)
 
 __all__ = ["YuvFrame", "chroma_qp", "encode_inter_frame_yuv", "encode_b_frame_yuv"]
@@ -183,7 +183,7 @@ def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
             src_ctus, planes.reshape(2 * hp, wp), pos + mv_ints[0] + r,
             pos + mv_ints[1] + r + lower, scale, shift, offset, dscale, dshift,
             group=cfg.fused_group)
-        mvs = [_qpel_mvs(mv_ints[0], f0), _qpel_mvs(mv_ints[1], f1)]
+        mvs = [motion.qpel_mvs(mv_ints[0], f0), motion.qpel_mvs(mv_ints[1], f1)]
         return (rec_y_ctus, mvs, nnz_tu.sum(dtype=torch.int32),
                 bits_tu.sum(dtype=torch.int32))
 
@@ -192,7 +192,7 @@ def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
     for plane, mv_int in zip(planes, mv_ints):
         win = motion.extract_windows(plane, pos + mv_int + r, cfg.ctu + motion.TAPS - 1)
         _, frac, _ = refine(src_ctus, win)
-        mvs.append(_qpel_mvs(mv_int, frac))
+        mvs.append(motion.qpel_mvs(mv_int, frac))
         preds16.append(pred_uni_16(win, frac % 4, frac // 4, motion.TAPS).to(torch.int32))
     pred_y = ((preds16[0] + preds16[1] + 64) >> 7).clamp(0, 255).to(torch.uint8)
     rec_y_ctus, nnz_y, _ = _residual_pipeline(src_ctus, pred_y, cfg, intra=False,

@@ -2,11 +2,17 @@
 version (tier REF).
 
 * search       K1 ``ssd_grid_plane``: exact SSD grids of every CTU, windows
-               read from the padded reference plane.
+               read from the padded reference plane; B8 ``ssd_grid``: exact
+               SSD grids of square blocks against given windows.
 * inter_fused  K2 ``inter_ctu_fused_dma``: quarter-pel refinement fused with
                the 8x8 residual pipeline.
 * bi_fused     B3 ``bi_ctu_fused_dma``: both references' refinements, the
                bi-prediction combine and the 8x8 residual pipeline.
+* costmap      B12 ``refine_qpel_costmap`` and B13
+               ``refine_qpel_costmap_dma``: the 16 quarter-pel QPEL_SCOREs of
+               8- to 64-wide tiles, windows gathered or read from the plane.
+* base_grids   B14 ``base_grids_ctu`` and B15 ``base_layout_decide``: the
+               sub-block SSD grids of every CTU, and each PU's first minimum.
 * build        compiles ``csrc/*.cu`` with nvcc on first use and loads it.
 
 Importing a kernel module registers both tiers of its op; nothing is

@@ -36,6 +36,9 @@ _I = ctypes.c_int
 _ENTRIES = {
     # src, plane, out, n, gc, plane_h, plane_w, radius, device, stream
     "hevc_ssd_grid_plane": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # src, windows, win_stride, row_stride, win_h, win_w, out, n, b, num_dy,
+    # num_dx, device, stream
+    "hevc_ssd_grid": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P],
     # src, plane, offsets, rec, frac, cost, nnz, bits, n, plane_h, plane_w,
     # qscale, qshift, qoffset, dscale, dshift, device, stream
     "hevc_inter_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -44,6 +47,15 @@ _ENTRIES = {
     # plane_h, plane_w, qscale, qshift, qoffset, dscale, dshift, device, stream
     "hevc_bi_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _I, _I, _P],
+    # src, windows, tile_stride, row_stride, cost, n, b, device, stream
+    "hevc_costmap": [_P, _P, _I, _I, _P, _I, _I, _I, _P],
+    # src, plane, offsets, cost, win_out, n, b, plane_h, plane_w, device, stream
+    "hevc_costmap_dma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # src, windows, ctu_stride, row_stride, grids, n, base, radius, device, stream
+    "hevc_base_grids": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P],
+    # src, windows, ctu_stride, row_stride, pu_table, num_pu, grids, keys, out,
+    # n, base, radius, device, stream
+    "hevc_base_decide": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

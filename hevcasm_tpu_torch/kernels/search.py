@@ -1,17 +1,27 @@
-"""Kernel K1: the exact SSD grid of every CTU, windows read from the plane.
+"""Kernels K1 and B8: exact SSD grids, windows read from the plane (K1) or
+given (B8).
 
 ``ssd_grid_plane`` replaces the TPU kernel
 ``hevcasm_tpu/kernels/search_pallas.py`` ``ssd_grid_plane`` (body
-``_kernel_slab``).  The CUDA source is ``csrc/ssd_grid_plane.cu``; its
-header says what bounds it on the card.  Beside it stands the plain
-PyTorch version, ``ssd_grid_plane_ref``, which the CPU tests use and which
-the kernel is held against on the card.
+``_kernel_slab``), and ``ssd_grid`` the TPU kernel ``ssd_grid`` of the same
+file.  The CUDA sources are ``csrc/ssd_grid_plane.cu`` and
+``csrc/ssd_grid.cu``; their headers say what bounds them on the card.
+Beside each stands its plain PyTorch version (``*_ref``), which the CPU
+tests use and which the kernel is held against on the card.
 
-Contract: src (n, 64, 64) uint8 row-major CTUs of a (gr, gc) grid; plane
-uint8 with at least 64*gr + 2R rows and 64*gc + 2R columns, the reference
-padded by R on the top and left, so the window of CTU (r, c) is
-plane[64r : 64r + 64 + 2R, 64c : 64c + 64 + 2R].  Returns (n, 2R+1, 2R+1)
-int32 exact SSD grids in [dy, dx] order, for 1 <= R <= 32 and any grid.
+Contracts:
+
+* ``ssd_grid_plane(src, plane, grid, num)``: src (n, 64, 64) uint8
+  row-major CTUs of a (gr, gc) grid; plane uint8 with at least 64*gr + 2R
+  rows and 64*gc + 2R columns, the reference padded by R on the top and
+  left, so the window of CTU (r, c) is plane[64r : 64r + 64 + 2R, 64c : 64c
+  + 64 + 2R].  Returns (n, 2R+1, 2R+1) int32 exact SSD grids in [dy, dx]
+  order, for 1 <= R <= 32 and any grid.
+* ``ssd_grid(src, window, num_dy, num_dx)``: src (n, b, b) uint8, window
+  (n, >= b + num_dy - 1, >= b + num_dx - 1) uint8 -> (n, num_dy, num_dx)
+  int32, ``out[i, dy, dx] = sum (window[i, dy + y, dx + x] - src[i, y,
+  x])^2``.  The kernel takes b in {8, 16, 32, 64} and windows up to 256
+  wide (the TPU kernel's limit is 128).
 """
 
 from __future__ import annotations
@@ -20,14 +30,17 @@ import torch
 
 from ..config import Tier
 from .. import registry
-from ..ops.ssd import ssd_grid
+from ..ops.ssd import ssd_grid as ssd_grid_ref
 from ..utils.tensor import as_tensor
 from . import build
 
-__all__ = ["ssd_grid_plane", "ssd_grid_plane_ref", "MAX_RADIUS"]
+__all__ = ["ssd_grid_plane", "ssd_grid_plane_ref", "ssd_grid", "ssd_grid_ref",
+           "MAX_RADIUS", "GRID_BLOCKS", "MAX_WINDOW"]
 
 CTU = 64
 MAX_RADIUS = 32
+GRID_BLOCKS = (8, 16, 32, 64)         # block sides the B8 kernel takes
+MAX_WINDOW = 256                      # the widest window it reads
 
 
 def _check_geometry(src: torch.Tensor, plane: torch.Tensor,
@@ -60,7 +73,7 @@ def ssd_grid_plane_ref(src_ctus, plane, grid: tuple[int, int],
     size = CTU + 2 * r
     win = plane[: (gr - 1) * CTU + size, : (gc - 1) * CTU + size]
     win = win.unfold(0, size, CTU).unfold(1, size, CTU).reshape(gr * gc, size, size)
-    return ssd_grid(src, win, num, num)
+    return ssd_grid_ref(src, win, num, num)
 
 
 def ssd_grid_plane(src_ctus, plane, grid: tuple[int, int],
@@ -92,7 +105,49 @@ def ssd_grid_plane(src_ctus, plane, grid: tuple[int, int],
     return out
 
 
+def ssd_grid(src, window, num_dy: int, num_dx: int) -> torch.Tensor:
+    """Exact SSD grids (n, num_dy, num_dx) int32 of blocks against their
+    windows.  CPU tensors run the plain version (ops.ssd.ssd_grid); CUDA
+    tensors launch the kernel (and raise if it cannot be built or
+    launched, or the geometry is one it does not take)."""
+    src = as_tensor(src)
+    window = as_tensor(window, src.device)
+    if src.device.type == "cpu":
+        return ssd_grid_ref(src, window, num_dy, num_dx)
+    if src.device.type != "cuda" or window.device != src.device:
+        raise ValueError(f"ssd_grid: tensors on {src.device} and {window.device}; "
+                         "need one CUDA device")
+    if src.dtype != torch.uint8 or window.dtype != torch.uint8:
+        raise TypeError("ssd_grid: src and window must be uint8")
+    if src.dim() != 3 or src.shape[1] != src.shape[2] or src.shape[1] not in GRID_BLOCKS:
+        raise ValueError(f"ssd_grid: src must be (n, b, b) with b in {GRID_BLOCKS}, "
+                         f"got {tuple(src.shape)}")
+    n, b = src.shape[0], src.shape[1]
+    wh, ww = b + num_dy - 1, b + num_dx - 1
+    if num_dy < 1 or num_dx < 1 or max(wh, ww) > MAX_WINDOW:
+        raise ValueError(f"ssd_grid: num_dy={num_dy}, num_dx={num_dx} at b={b} need "
+                         f"windows of 1 to {MAX_WINDOW} rows and columns")
+    if window.dim() != 3 or window.shape[0] != n or window.shape[1] < wh \
+            or window.shape[2] < ww:
+        raise ValueError(f"ssd_grid: window must be ({n}, >= {wh}, >= {ww}), "
+                         f"got {tuple(window.shape)}")
+    if not src.is_contiguous() or window.stride(2) != 1 or window.stride(0) >= 2 ** 31:
+        raise ValueError("ssd_grid: src must be contiguous and window rows contiguous")
+    out = torch.empty((n, num_dy, num_dx), dtype=torch.int32, device=src.device)
+    lib = build.load()
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    err = lib.hevc_ssd_grid(
+        src.data_ptr(), window.data_ptr(), window.stride(0), window.stride(1),
+        window.shape[1], window.shape[2], out.data_ptr(),
+        n, b, num_dy, num_dx, src.device.index or 0, stream)
+    build.check(err, "ssd_grid")
+    ssd_grid.launches += 1
+    return out
+
+
 ssd_grid_plane.launches = 0
+ssd_grid.launches = 0
 
 registry.register("ssd_grid_plane", Tier.REF, ssd_grid_plane_ref)
 registry.register("ssd_grid_plane", Tier.KERNEL, ssd_grid_plane)
+registry.register("ssd_grid", Tier.KERNEL, ssd_grid)

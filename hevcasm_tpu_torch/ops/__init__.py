@@ -14,7 +14,8 @@ from .transform import (
     inverse_transform_add,
     add_residual,
 )
-from .pred_inter import pred_uni, pred_uni_16, pred_bi, qpel_score, refine_qpel
+from .pred_inter import (pred_uni, pred_uni_16, pred_bi, qpel_score, qpel_costmap,
+                         refine_qpel_costmap_mxu, refine_qpel)
 from .residual import residual_pipeline, residual_pipeline_frame
 
 _REF_OPS = {
@@ -40,6 +41,7 @@ __all__ = [
     "quantize", "quantize_inverse", "reconstruct",
     "forward_transform", "inverse_transform", "inverse_transform_add",
     "add_residual",
-    "pred_uni", "pred_uni_16", "pred_bi", "qpel_score", "refine_qpel",
+    "pred_uni", "pred_uni_16", "pred_bi", "qpel_score", "qpel_costmap",
+    "refine_qpel_costmap_mxu", "refine_qpel",
     "residual_pipeline", "residual_pipeline_frame",
 ]

@@ -21,7 +21,7 @@ import torch
 from ..utils.tensor import as_tensor, first_min
 
 __all__ = ["KERNEL8", "KERNEL4", "pred_uni", "pred_uni_16", "pred_bi",
-           "qpel_score", "refine_qpel"]
+           "qpel_score", "qpel_costmap", "refine_qpel_costmap_mxu", "refine_qpel"]
 
 # Luma 8-tap quarter-pel filters (H.265 table 8-11).
 KERNEL8 = np.array(
@@ -138,10 +138,50 @@ def qpel_score(acc: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return d.sum(dim=(-2, -1), dtype=torch.int32)
 
 
+def _qpel_accs(windows: torch.Tensor, b: int):
+    """The 16 pre-shift vertical accumulators (..., b, b) int32 of the
+    quarter-pel sweep, in yf*4 + xf order, from windows (..., >= b+7,
+    >= b+7) anchored at the integer MV: 4 horizontal passes wrapped to
+    int16, each shared by the 4 vertical fractions."""
+    win32 = windows[..., : b + 7, : b + 7].to(torch.int32)
+    h_pass = [_wrap16(_fir(win32, KERNEL8[xf], axis=-1, out_len=b))
+              for xf in range(4)]
+    for yf in range(4):
+        for xf in range(4):
+            yield _fir(h_pass[xf], KERNEL8[yf], axis=-2, out_len=b)
+
+
+def qpel_costmap(src, windows) -> torch.Tensor:
+    """QPEL_SCORE of all 16 quarter-pel candidates, no selection.
+
+    src (n, b, b) uint8; windows (n, >= b+7, >= b+7) uint8 anchored at the
+    integer MV (only the top-left (b+7, b+7) is read).  Returns (n, 4, 4)
+    int32 indexed [yf, xf]."""
+    src = as_tensor(src)
+    windows = as_tensor(windows, src.device)
+    n, b = src.shape[0], src.shape[-1]
+    costs = [qpel_score(acc, src) for acc in _qpel_accs(windows, b)]
+    return torch.stack(costs, dim=-1).reshape(n, 4, 4)
+
+
+def refine_qpel_costmap_mxu(src, windows):
+    """The 16-candidate sweep with every prediction, the counterpart of
+    ``hevcasm_tpu.kernels.interp_xla.refine_qpel_costmap_mxu`` (XLA there;
+    its banded matmuls are a TPU layout device).  src (n, b, b) uint8,
+    windows (n, b+7, b+7) uint8.  Returns (preds (n, 16, b, b) uint8,
+    costs (n, 16) int32), both in yf*4 + xf order."""
+    src = as_tensor(src)
+    windows = as_tensor(windows, src.device)
+    accs = list(_qpel_accs(windows, src.shape[-1]))
+    preds = [((acc + 2048) >> 12).clamp(0, 255).to(torch.uint8) for acc in accs]
+    costs = [qpel_score(acc, src) for acc in accs]
+    return torch.stack(preds, dim=1), torch.stack(costs, dim=1)
+
+
 def refine_qpel(src_ctus, windows):
-    """Quarter-pel candidate sweep: interpolate all 16 (yf, xf) luma
-    fractions from the extended windows, score each by qpel_score on the
-    pre-shift accumulator, and keep the first minimum in yf*4 + xf order.
+    """Quarter-pel candidate sweep: score the 16 (yf, xf) luma fractions
+    by qpel_costmap, keep the first minimum in yf*4 + xf order, and
+    interpolate the winner alone (pred_uni at per-block fractions).
 
     src_ctus (n, b, b) uint8; windows (n, b+7, b+7) uint8 anchored at the
     integer MV.  Returns (pred (n, b, b) uint8, frac (n,) int32 = yf*4+xf,
@@ -149,15 +189,7 @@ def refine_qpel(src_ctus, windows):
     """
     src_ctus = as_tensor(src_ctus)
     windows = as_tensor(windows, src_ctus.device)
-    b = src_ctus.shape[-1]
-    win32 = windows.to(torch.int32)
-    # 4 H passes shared by the 4 vertical fractions.
-    h_pass = [_wrap16(_fir(win32, KERNEL8[xf], axis=-1, out_len=b))
-              for xf in range(4)]
-    accs = torch.stack(
-        [_fir(h_pass[xf], KERNEL8[yf], axis=-2, out_len=b)
-         for yf in range(4) for xf in range(4)], dim=1)      # (n, 16, b, b)
-    frac, cost = first_min(qpel_score(accs, src_ctus[:, None]))
-    acc = torch.take_along_dim(accs, frac.long()[:, None, None, None], dim=1)[:, 0]
-    pred = ((acc + 2048) >> 12).clamp(0, 255).to(torch.uint8)
+    n = src_ctus.shape[0]
+    frac, cost = first_min(qpel_costmap(src_ctus, windows).reshape(n, 16))
+    pred = pred_uni(windows, frac % 4, frac // 4)
     return pred, frac, cost

@@ -18,7 +18,8 @@ from hevcasm_tpu_torch.encode import motion
 from hevcasm_tpu_torch.encode.loop import EncodeConfig, encode_inter_frame
 from hevcasm_tpu_torch.encode.video import (YuvFrame, encode_b_frame_yuv,
                                             encode_inter_frame_yuv)
-from hevcasm_tpu_torch.kernels import bi_fused, inter_fused, search
+from hevcasm_tpu_torch.encode import partition
+from hevcasm_tpu_torch.kernels import base_grids, bi_fused, costmap, inter_fused, search
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +69,51 @@ def test_k1_rejects_what_it_does_not_take(cuda):
         search.ssd_grid_plane(src.to(torch.int16), plane, (1, 2), 17)
     with pytest.raises(ValueError, match="contiguous"):
         search.ssd_grid_plane(src, plane[:, :-1], (1, 2), 17)
+
+
+# ---- B8: ssd_grid ------------------------------------------------------------
+
+@pytest.mark.parametrize("b,n,ndy,ndx,extra", [
+    (8, 37, 65, 65, 0), (16, 21, 65, 65, 0), (16, 50, 33, 33, 3), (32, 5, 17, 9, 0),
+    (64, 3, 65, 65, 0), (64, 2, 129, 129, 0), (8, 9, 5, 7, 2), (16, 8160, 33, 33, 0)])
+def test_b8_matches_plain(cuda, b, n, ndy, ndx, extra):
+    rng = np.random.default_rng(b + n + ndy)
+    src = random_u8(rng, (n, b, b), cuda)
+    win = random_u8(rng, (n, b + ndy - 1 + extra, b + ndx - 1 + extra + 11), cuda)
+    win = win[:, :, :b + ndx - 1 + extra]              # rows further apart than wide
+    before = search.ssd_grid.launches
+    got = search.ssd_grid(src, win, ndy, ndx)
+    assert search.ssd_grid.launches == before + 1
+    assert_bit_equal([got], [search.ssd_grid_ref(src, win, ndy, ndx)])
+
+
+def test_b8_constant_window_ties_and_largest_sum_fits_int32(cuda):
+    rng = np.random.default_rng(8)
+    src = random_u8(rng, (6, 16, 16), cuda)
+    win = torch.full((6, 80, 80), 97, dtype=torch.uint8, device=cuda)
+    got = search.ssd_grid(src, win, 65, 65)
+    assert bool((got == got[:, :1, :1]).all())
+    assert_bit_equal([got], [search.ssd_grid_ref(src, win, 65, 65)])
+    zeros = torch.zeros((2, 64, 64), dtype=torch.uint8, device=cuda)
+    got = search.ssd_grid(zeros, torch.full((2, 80, 80), 255, dtype=torch.uint8, device=cuda),
+                          17, 17)
+    assert int(got.min()) == int(got.max()) == 4096 * 255 * 255
+
+
+def test_b8_rejects_what_it_does_not_take(cuda):
+    src = torch.zeros((2, 16, 16), dtype=torch.uint8, device=cuda)
+    win = torch.zeros((2, 32, 32), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        search.ssd_grid(src.to(torch.int16), win, 17, 17)
+    with pytest.raises(ValueError, match="b in"):
+        search.ssd_grid(src[:, :12, :12].contiguous(), win, 17, 17)
+    with pytest.raises(ValueError, match="window must be"):
+        search.ssd_grid(src, win[:, :31], 17, 17)
+    with pytest.raises(ValueError, match="256"):
+        search.ssd_grid(src, torch.zeros((2, 300, 300), dtype=torch.uint8, device=cuda),
+                        260, 260)
+    with pytest.raises(ValueError, match="contiguous"):
+        search.ssd_grid(src, win.transpose(1, 2), 17, 17)
 
 
 # ---- K2: inter_ctu_fused_dma -------------------------------------------------
@@ -170,6 +216,140 @@ def test_b3_rejects_what_it_does_not_take(cuda):
         bi_fused.bi_ctu_fused_dma(src, flat[:, :-1], off0, off1, *qargs)
 
 
+# ---- B12 and B13: refine_qpel_costmap and refine_qpel_costmap_dma ---------------
+
+@pytest.mark.parametrize("b,n,extra", [(8, 37, 0), (16, 21, 0), (32, 5, 0), (64, 3, 0),
+                                       (8, 64, 5), (16, 16, 9), (64, 2, 1)])
+def test_b12_matches_plain(cuda, b, n, extra):
+    rng = np.random.default_rng(b + n)
+    src = random_u8(rng, (n, b, b), cuda)
+    win = random_u8(rng, (n, b + 7 + extra, b + 7 + extra), cuda)
+    before = costmap.refine_qpel_costmap.launches
+    got = costmap.refine_qpel_costmap(src, win)
+    assert costmap.refine_qpel_costmap.launches == before + 1
+    assert_bit_equal([got], [costmap.refine_qpel_costmap_ref(src, win)])
+
+
+@pytest.mark.parametrize("b", [8, 16, 32, 64])
+def test_b12_constant_windows_tie_every_fraction(cuda, b):
+    rng = np.random.default_rng(b)
+    src = random_u8(rng, (9, b, b), cuda)
+    win = torch.full((9, b + 7, b + 7), 97, dtype=torch.uint8, device=cuda)
+    got = costmap.refine_qpel_costmap(src, win)
+    assert bool((got == got[:, :1, :1]).all())
+    assert_bit_equal([got], [costmap.refine_qpel_costmap_ref(src, win)])
+
+
+def b13_case(b, n, seed, device, hp=200, wp=264):
+    """Tiles, a plane and offsets with the first at (0, 0), the last at the
+    largest start that fits, and one past the plane's end (clamped)."""
+    rng = np.random.default_rng(seed)
+    src = random_u8(rng, (n, b, b), device)
+    plane = random_u8(rng, (hp, wp), device)
+    offs = np.stack([rng.integers(0, hp - b - 6, n), rng.integers(0, wp - b - 6, n)], -1)
+    offs[0], offs[-1], offs[n // 2] = (0, 0), (hp - b - 7, wp - b - 7), (hp, wp + 3)
+    return src, plane, torch.as_tensor(offs.astype(np.int32), device=device)
+
+
+@pytest.mark.parametrize("b,n", [(8, 97), (16, 33), (32, 7), (8, 1), (16, 8160)])
+def test_b13_matches_plain(cuda, b, n):
+    src, plane, offs = b13_case(b, n, b + n, cuda)
+    before = costmap.refine_qpel_costmap_dma.launches
+    got = costmap.refine_qpel_costmap_dma(src, plane, offs)
+    assert costmap.refine_qpel_costmap_dma.launches == before + 1
+    assert_bit_equal(got, costmap.refine_qpel_costmap_dma_ref(src, plane, offs))
+
+
+def test_b13_constant_plane_ties_every_fraction(cuda):
+    src, plane, offs = b13_case(16, 40, 3, cuda)
+    plane = torch.full_like(plane, 40)
+    cost, win = costmap.refine_qpel_costmap_dma(src, plane, offs)
+    assert bool((cost == cost[:, :1, :1]).all()) and bool((win == 40).all())
+    assert_bit_equal((cost, win), costmap.refine_qpel_costmap_dma_ref(src, plane, offs))
+
+
+def test_b12_b13_reject_what_they_do_not_take(cuda):
+    src, plane, offs = b13_case(16, 4, 1, cuda)
+    with pytest.raises(TypeError):
+        costmap.refine_qpel_costmap_dma(src, plane, offs.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        costmap.refine_qpel_costmap_dma(src, plane[:, :-1], offs)
+    with pytest.raises(ValueError):
+        costmap.refine_qpel_costmap_dma(src[:, :8, :8].contiguous(), plane[:12], offs)
+
+
+# ---- B14 and B15: base_grids_ctu and base_layout_decide --------------------------
+
+DEFAULT_LAYOUTS = ("2Nx2N", "2NxN", "Nx2N", "NxN", "quarter")
+
+
+def b14_case(n, r, seed, device, strided=False):
+    """CTUs and their (64 + 2R)^2 windows; ``strided`` cuts the windows out
+    of wider rows, as a view."""
+    rng = np.random.default_rng(seed)
+    src = random_u8(rng, (n, 64, 64), device)
+    size = 64 + 2 * r
+    win = random_u8(rng, (n, size, size + (13 if strided else 0)), device)
+    return src, win[:, :, :size]
+
+
+@pytest.mark.parametrize("base", [8, 16, 32])
+@pytest.mark.parametrize("n,r,strided", [(3, 32, False), (2, 8, True), (1, 1, False),
+                                         (7, 17, False)])
+def test_b14_matches_plain(cuda, base, n, r, strided):
+    src, win = b14_case(n, r, base + n + r, cuda, strided)
+    before = base_grids.base_grids_ctu.launches
+    got = base_grids.base_grids_ctu(src, win, base)
+    assert base_grids.base_grids_ctu.launches == before + 1
+    assert_bit_equal([got], [base_grids.base_grids_ctu_ref(src, win, base)])
+
+
+def pu_lists(base):
+    layouts = DEFAULT_LAYOUTS if base <= 16 else DEFAULT_LAYOUTS[:4]
+    return partition._pu_lists(layouts, base)
+
+
+@pytest.mark.parametrize("base,lists", [(16, "default"), (32, "default"), (8, "default"),
+                                        (16, "rows")])
+@pytest.mark.parametrize("n,r", [(5, 32), (2, 8), (3, 1)])
+def test_b15_matches_plain(cuda, base, lists, n, r):
+    src, win = b14_case(n, r, base + n + r, cuda)
+    k = 64 // base
+    lists = pu_lists(base) if lists == "default" else tuple(
+        tuple(range(i * k, i * k + k)) for i in range(k))
+    before = base_grids.base_layout_decide.launches
+    got = base_grids.base_layout_decide(src, win, base, lists)
+    assert base_grids.base_layout_decide.launches == before + 1
+    assert_bit_equal([got], [base_grids.base_layout_decide_ref(src, win, base, lists)])
+
+
+def test_b14_b15_constant_window_ties_every_candidate(cuda):
+    src, win = b14_case(4, 32, 0, cuda)
+    win = torch.full_like(win, 97)
+    got = base_grids.base_layout_decide(src, win, 16, pu_lists(16))
+    assert bool((got[:, :, :2] == -32).all())
+    assert_bit_equal([got], [base_grids.base_layout_decide_ref(src, win, 16, pu_lists(16))])
+    assert_bit_equal([base_grids.base_grids_ctu(src, win, 32)],
+                     [base_grids.base_grids_ctu_ref(src, win, 32)])
+
+
+def test_b15_largest_sum_fits_int32(cuda):
+    src = torch.zeros((2, 64, 64), dtype=torch.uint8, device=cuda)
+    win = torch.full((2, 128, 128), 255, dtype=torch.uint8, device=cuda)
+    got = base_grids.base_layout_decide(src, win, 16, pu_lists(16))
+    assert int(got[:, -1, 2].min()) == 4096 * 255 * 255
+
+
+def test_b14_b15_reject_what_they_do_not_take(cuda):
+    src, win = b14_case(2, 32, 1, cuda)
+    with pytest.raises(TypeError):
+        base_grids.base_grids_ctu(src.to(torch.int16), win, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        base_grids.base_grids_ctu(src.transpose(1, 2), win, 16)
+    with pytest.raises(ValueError):
+        base_grids.base_layout_decide(src, win, 16, ((16,),))
+
+
 # ---- the slice -------------------------------------------------------------------
 
 def pan_frames(h, w, seed=0):
@@ -197,6 +377,21 @@ def test_card_matches_cpu(cuda, h, w, r, impl):
     assert search.ssd_grid_plane.launches == before[0] + 1
     assert inter_fused.inter_ctu_fused_dma.launches == before[1] + (impl == "fused_dma")
     on_cpu = encode_inter_frame(cur, ref, cfg, tiers=Tier.REF)
+    for k in ("recon", "mvs", "sad", "nnz"):
+        assert torch.equal(on_card[k].cpu(), on_cpu[k]), k
+    assert abs(float(on_card["psnr_db"]) - float(on_cpu["psnr_db"])) <= 1e-3
+
+
+@pytest.mark.parametrize("r,kw", [(48, {}), (8, dict(search_impl="grid"))])
+def test_grid_search_runs_b8_and_matches_cpu(cuda, r, kw):
+    cur, ref = pan_frames(128, 192)
+    cfg = EncodeConfig(search_range=r, qp=32, **kw)
+    before = (search.ssd_grid.launches, search.ssd_grid_plane.launches)
+    on_card = encode_inter_frame(torch.as_tensor(cur, device=cuda),
+                                 torch.as_tensor(ref, device=cuda), cfg)
+    assert (search.ssd_grid.launches, search.ssd_grid_plane.launches) == \
+        (before[0] + 1, before[1])
+    on_cpu = encode_inter_frame(cur, ref, cfg)
     for k in ("recon", "mvs", "sad", "nnz"):
         assert torch.equal(on_card[k].cpu(), on_cpu[k]), k
     assert abs(float(on_card["psnr_db"]) - float(on_cpu["psnr_db"])) <= 1e-3
@@ -243,3 +438,41 @@ def test_yuv_frames_on_card_match_plain_and_cpu(cuda, h, w, r, impl, kind):
         for k in on_card:
             if k.startswith("psnr"):
                 assert abs(float(on_card[k]) - float(other[k])) <= 1e-3, k
+
+
+RDO_VARIANTS = {
+    "pu": dict(pu_decision=True),
+    "six": dict(pu_decision=True, pu_layouts=tuple(partition.PU_LAYOUTS)),
+    "tu": dict(tu_sizes=(4, 8, 16, 32)),
+    "pu+tu": dict(pu_decision=True, tu_sizes=(4, 8, 16, 32)),
+}
+
+
+@pytest.mark.parametrize("r", [32, 8])
+@pytest.mark.parametrize("variant", list(RDO_VARIANTS))
+def test_rdo_frame_on_card_matches_plain_and_cpu(cuda, r, variant):
+    cur, ref = pan_frames(128, 192)
+    cur[64:, :96] = np.roll(cur[64:, :96], (3, -2), (0, 1))      # a second motion
+    cfg = EncodeConfig(search_range=r, qp=32, **RDO_VARIANTS[variant])
+    counts = {"decide": base_grids.base_layout_decide, "grids": base_grids.base_grids_ctu,
+              "costmap_dma": costmap.refine_qpel_costmap_dma, "k1": search.ssd_grid_plane,
+              "b8": search.ssd_grid}
+    before = {k: f.launches for k, f in counts.items()}
+    on_card = encode_inter_frame(torch.as_tensor(cur, device=cuda),
+                                 torch.as_tensor(ref, device=cuda), cfg)
+    got = {k: f.launches - before[k] for k, f in counts.items()}
+    pu = cfg.pu_decision
+    want = {"decide": int(pu and r == 32 and variant != "six"),
+            "grids": int(pu and r == 32 and variant == "six"),
+            "costmap_dma": int(pu), "k1": int(not pu), "b8": int(pu and r != 32)}
+    assert got == want
+    plain = encode_inter_frame(torch.as_tensor(cur, device=cuda),
+                               torch.as_tensor(ref, device=cuda), cfg, tiers=Tier.REF)
+    on_cpu = encode_inter_frame(cur, ref, cfg)
+    assert set(on_card) == set(plain) == set(on_cpu)
+    for other in (plain, on_cpu):
+        for k in on_card:
+            if k == "psnr_db":
+                assert abs(float(on_card[k]) - float(other[k])) <= 1e-3
+            else:
+                assert torch.equal(on_card[k].cpu(), other[k].cpu()), k

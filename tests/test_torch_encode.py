@@ -129,8 +129,8 @@ def test_numpy_inputs_and_output_types():
     (dict(inter_impl="mega"), "ROADMAP B19"),
     (dict(inter_impl="fused"), "ROADMAP B16"),
     (dict(inter_impl="fused_batched"), "ROADMAP B16"),
-    (dict(pu_decision=True, inter_impl="fused_dma"), "ROADMAP A.10"),
-    (dict(tu_sizes=(8, 16), inter_impl="fused_dma"), "ROADMAP A.10"),
+    (dict(pu_decision=True, me_metric="sad", inter_impl="fused_dma"), "ROADMAP A.2"),
+    (dict(tu_sizes=(8, 16), me_strategy="pyramid"), "ROADMAP A.3"),
     (dict(fused_refine=True, residual_impl="ref"), "ROADMAP B11"),
     (dict(me_metric="sad", refine_impl="mxu", residual_impl="mxu"), "ROADMAP A.2"),
     (dict(refine_impl="mxu", residual_impl="pallas"), "ROADMAP B4"),

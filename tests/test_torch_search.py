@@ -1,8 +1,9 @@
 """Integer motion search of hevcasm_tpu_torch against hevcasm_tpu on the CPU:
-the plain version of kernel K1 (ssd_grid_plane) against the JAX kernel in
-interpret mode and against the JAX SSD grid on gathered windows, and the
-search functions of encode.motion with their first-minimum tie-break.
-The kernel itself is held against its plain version in test_torch_cuda.py."""
+the plain versions of kernels K1 (ssd_grid_plane) and B8 (ssd_grid)
+against the JAX kernels in interpret mode and against the JAX SSD grid on
+gathered windows, and the search functions of encode.motion with their
+first-minimum tie-break.  The kernels themselves are held against their
+plain versions in test_torch_cuda.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -11,8 +12,10 @@ import torch
 
 from hevcasm_tpu.encode import motion as jmotion
 from hevcasm_tpu.kernels import xla_opt
+from hevcasm_tpu.kernels.search_pallas import ssd_grid as jax_ssd_grid
 from hevcasm_tpu.kernels.search_pallas import ssd_grid_plane as jax_ssd_grid_plane
 
+from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode import ctu as tctu
 from hevcasm_tpu_torch.encode import motion as tmotion
 from hevcasm_tpu_torch.kernels import search
@@ -60,6 +63,40 @@ def test_ssd_grid_matches_jax_reference(rng):
     win = rng.integers(0, 256, (3, 16 + 12, 16 + 6), dtype=np.uint8)
     want = np.asarray(xla_opt.ssd_grid_ref(jnp.asarray(src), jnp.asarray(win), 13, 7))
     np.testing.assert_array_equal(ssd_grid(src, win, 13, 7).numpy(), want)
+
+
+@pytest.mark.parametrize("b,ndy,ndx,extra", [(8, 17, 17, 0), (16, 9, 17, 5), (32, 13, 13, 0),
+                                             (64, 9, 17, 0), (16, 17, 17, 0)])
+def test_plain_b8_matches_jax_kernel(rng, b, ndy, ndx, extra):
+    # hevcasm_tpu's Pallas ssd_grid in interpret mode; both take windows
+    # wider than the grid needs (``extra``), and non-square grids.
+    src = rng.integers(0, 256, (2, b, b), dtype=np.uint8)
+    win = rng.integers(0, 256, (2, b + ndy - 1 + extra, b + ndx - 1 + extra), dtype=np.uint8)
+    want = np.asarray(jax_ssd_grid(jnp.asarray(src), jnp.asarray(win), ndy, ndx))
+    got = search.ssd_grid(src, win, ndy, ndx)             # CPU: the plain version
+    assert got.dtype == torch.int32 and tuple(got.shape) == (2, ndy, ndx)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_plain_b8_constant_window_ties_every_candidate(rng):
+    src = rng.integers(0, 256, (3, 16, 16), dtype=np.uint8)
+    win = np.full((3, 32, 32), 97, dtype=np.uint8)
+    want = np.asarray(jax_ssd_grid(jnp.asarray(src), jnp.asarray(win), 17, 17))
+    got = search.ssd_grid_ref(src, win, 17, 17)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert bool((got == got[:, :1, :1]).all())
+
+
+def test_b8_wrapper_runs_the_plain_version_on_cpu_and_is_registered(rng):
+    src = torch.as_tensor(rng.integers(0, 256, (4, 8, 8), dtype=np.uint8))
+    win = torch.as_tensor(rng.integers(0, 256, (4, 24, 24), dtype=np.uint8))
+    before = search.ssd_grid.launches
+    got = search.ssd_grid(src, win, 17, 17)
+    assert search.ssd_grid.launches == before            # a CPU tensor launches nothing
+    assert torch.equal(got, ssd_grid(src, win, 17, 17))
+    assert registry.get("ssd_grid", Tier.REF) is ssd_grid is search.ssd_grid_ref
+    assert registry.tiers_of("ssd_grid") == Tier.REF | Tier.KERNEL
+    assert tmotion.full_search.__defaults__[0] is search.ssd_grid
 
 
 def test_k1_wrapper_checks_and_counts(rng):
