@@ -20,6 +20,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
             offsets 0..max, B12 at b = 64/32/16/8 on gathered windows, B8
             on the sub-block windows of the 8160 16x16 blocks at R = 16 and
             32, the 32640 8x8 blocks at R = 16, and the 510 CTUs at R = 32.
+            The multi-reference kernels run on the multiref pan (below): B7
+            at k = 4, R = 32 on the loop's padded planes (a view), and at
+            k = 3, R = 8 on an odd grid width; B11 on the 510 64x64 windows
+            at the searched MVs and on the 8160 16x16 tiles; B16 on 510
+            windows at random MVs, unbatched and in groups of 4 (which do
+            not divide 510); B4 on 510 CTUs at 4x4 TUs with the DST-VII and
+            the DCT, and at 8, 16 and 32.
 4. main     the paths below, each with every launch count set to 0 just
             before it and read just after.  With
             EncodeConfig(search_range=32, qp=32, inter_impl="fused_dma"):
@@ -33,10 +40,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
             and B13; with all six layouts B14 and B13; with tu_sizes=(4, 8,
             16, 32) K1; with both B15 and B13; and at search_range=16 B8 and
             B13.  The unpruned PU decision, partition.select_pu_layout, must
-            launch B8 and B12 and equal the pruned one.  Each frame must
-            equal its plain path on the card (pu_layout and tu_choice
-            included), and 128x192 frames of each must equal the plain path
-            on the CPU.
+            launch B8 and B12 and equal the pruned one.  The multi-reference
+            P frame, encode_inter_frame_multiref, on the multiref pan (the
+            structured pan's picture at four earlier positions of a (2, 3)
+            pixel-a-frame pan, each reference clean in its own quarter of
+            the frame and noisy elsewhere): with k = 4 and inter_impl
+            "fused_dma" it must launch B7 and K2; with k = 2,
+            fused_refine=True and residual_impl="pallas" B7, B11 and B4;
+            its ref_idx must use more than one reference.  The luma P frame
+            under inter_impl "fused" and "fused_batched" must launch K1 and
+            B16.  Each frame must equal its plain path on the card
+            (pu_layout, tu_choice and ref_idx included), and 128x192 frames
+            of each must equal the plain path on the CPU.
 5. timing   CUDA-event medians over 20 samples after warm-up: each path per
             frame, synchronised after each (ms per frame and CTU/s), the luma
             path also 20 frames back to back, and each path's plain version;
@@ -46,6 +61,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
             the minimum and maximum of its samples; each kernel beside its
             plain version at the 1080p shapes, a kernel sample being 10
             launches back to back so that its host overhead is hidden.
+            The multi-reference and fused paths, with min and max too (the
+            plain multi-reference path, ~0.3 s a frame, over 3 samples),
+            and B7 (its plain version over 3 samples), B11, B16 and B4 (at
+            each TU size).  Each kernel's bound is computed from the shapes
+            it was timed at: the larger of the bytes it must move (each
+            input read once, each output written once) at 3.35 TB/s and its
+            multiply-adds (2 operations each, in the form the int8 tensor
+            cores could run) at 1,979 TOP/s, the H100 SXM's published rates.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -93,12 +116,7 @@ def structured_pan(h: int, w: int, seed: int = 0):
     bottom half (-5, -7) against the reference, the B frame's second
     reference is offset (-2, -4), and chroma is a (1, 2) shift.  Returns
     (cur, ref0, ref1) as 3-tuples of (y, cb, cr) numpy planes."""
-    rng = np.random.default_rng(seed)
-    smooth = rng.integers(0, 256, (h + 64, w + 64), dtype=np.uint8).astype(np.float32)
-    for _ in range(2):
-        smooth = (np.roll(smooth, 1, 0) + smooth + np.roll(smooth, -1, 0)) / 3
-        smooth = (np.roll(smooth, 1, 1) + smooth + np.roll(smooth, -1, 1)) / 3
-    pan = np.clip(smooth, 0, 255).astype(np.uint8)
+    pan = pan_picture(h, w, seed)
     ref0 = pan[32:32 + h, 32:32 + w].copy()
     cur = np.empty((h, w), np.uint8)
     cur[:h // 2] = pan[35:35 + h // 2, 34:34 + w]
@@ -121,14 +139,14 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def samples_ms(fn, calls: int = 1) -> list[float]:
-    """REPS samples of the CUDA-event time of ``calls`` calls of fn, per
-    call, sorted.  Each sample starts on an idle card."""
-    for _ in range(WARMUP):
+def samples_ms(fn, calls: int = 1, reps: int = REPS) -> list[float]:
+    """``reps`` samples of the CUDA-event time of ``calls`` calls of fn,
+    per call, sorted.  Each sample starts on an idle card."""
+    for _ in range(min(WARMUP, reps)):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -140,8 +158,73 @@ def samples_ms(fn, calls: int = 1) -> list[float]:
     return sorted(times)
 
 
-def median_ms(fn, calls: int = 1) -> float:
-    return statistics.median(samples_ms(fn, calls))
+def median_ms(fn, calls: int = 1, reps: int = REPS) -> float:
+    return statistics.median(samples_ms(fn, calls, reps))
+
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+INT8_OPS_PER_S = 1979e12        # H100 SXM int8 tensor cores, dense
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for a function that must
+    move ``nbytes`` and do ``ops`` operations, and which of the two bounds
+    it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def refine_macs(b: int) -> int:
+    """Multiply-adds of one b x b quarter-pel refinement: the 4 horizontal
+    8-tap passes over b+7 rows, the 16 vertical candidates, and the
+    winner's recomputation."""
+    return 4 * (b + 7) * b * 8 + 16 * b * b * 8 + b * b * 8
+
+
+def refine_ops(b: int) -> int:
+    """refine_macs as operations, plus QPEL_SCORE's difference and sum for
+    each candidate pixel."""
+    return 2 * refine_macs(b) + 2 * 16 * b * b
+
+
+def residual_ops(tu: int) -> int:
+    """Operations of one 64x64 CTU's residual: four separable transform
+    passes of 4096 outputs, each tu multiply-adds."""
+    return 2 * 4 * 4096 * tu
+
+
+def pan_picture(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """bench.py's structured picture: its noise smoothed twice by a 3-tap
+    box in each direction, (h + 64, w + 64) uint8."""
+    rng = np.random.default_rng(seed)
+    smooth = rng.integers(0, 256, (h + 64, w + 64), dtype=np.uint8).astype(np.float32)
+    for _ in range(2):
+        smooth = (np.roll(smooth, 1, 0) + smooth + np.roll(smooth, -1, 0)) / 3
+        smooth = (np.roll(smooth, 1, 1) + smooth + np.roll(smooth, -1, 1)) / 3
+    return np.clip(smooth, 0, 255).astype(np.uint8)
+
+
+def multiref_pan(h: int, w: int, k: int = 4, seed: int = 0):
+    """The multi-reference content: cur is the pan picture at (32, 32); the
+    k references are it at the k earlier positions of a pan of (2, 3)
+    pixels a frame, reference i clean in the i-th of k vertical strips and
+    with noise in [-24, 24] elsewhere, so each strip's CTUs pick their own
+    reference.  Returns (cur (h, w), refs (k, h, w)) uint8."""
+    pan = pan_picture(h, w, seed)
+    cur = pan[32:32 + h, 32:32 + w].copy()
+    noise = np.random.default_rng(seed + 1).integers(-24, 25, (k, h, w))
+    refs = []
+    for i in range(k):
+        y0, x0 = 32 - 2 * (i + 1), 32 - 3 * (i + 1)
+        ref = pan[y0:y0 + h, x0:x0 + w].astype(np.int32)
+        clean = slice(i * w // k, (i + 1) * w // k)
+        noise[i][:, clean] = 0
+        refs.append(np.clip(ref + noise[i], 0, 255).astype(np.uint8))
+    return cur, np.stack(refs)
 
 
 def main() -> int:
@@ -152,7 +235,8 @@ def main() -> int:
 
     from hevcasm_tpu_torch.config import Tier
     from hevcasm_tpu_torch.encode import ctu as ctu_mod, motion, partition
-    from hevcasm_tpu_torch.encode.loop import EncodeConfig, encode_inter_frame
+    from hevcasm_tpu_torch.encode.loop import (
+        EncodeConfig, encode_inter_frame, encode_inter_frame_multiref)
     from hevcasm_tpu_torch.encode.video import (
         YuvFrame, encode_b_frame_yuv, encode_inter_frame_yuv)
     from hevcasm_tpu_torch.kernels import build
@@ -164,9 +248,14 @@ def main() -> int:
         refine_qpel_costmap, refine_qpel_costmap_dma, refine_qpel_costmap_dma_ref,
         refine_qpel_costmap_ref)
     from hevcasm_tpu_torch.kernels.inter_fused import (
-        inter_ctu_fused_dma, inter_ctu_fused_dma_ref)
+        inter_ctu_fused, inter_ctu_fused_batched, inter_ctu_fused_dma,
+        inter_ctu_fused_dma_ref, inter_ctu_fused_ref, refine_quarter_pel_fused,
+        refine_quarter_pel_fused_ref)
+    from hevcasm_tpu_torch.kernels.residual_ctu import (
+        residual_pipeline_ctu, residual_pipeline_ctu_ref)
     from hevcasm_tpu_torch.kernels.search import (
-        ssd_grid, ssd_grid_plane, ssd_grid_plane_ref, ssd_grid_ref)
+        ssd_grid, ssd_grid_plane, ssd_grid_plane_multi, ssd_grid_plane_multi_ref,
+        ssd_grid_plane_ref, ssd_grid_ref)
 
     # ---- 1. device -----------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -186,7 +275,9 @@ def main() -> int:
     qargs = (*cfg.quant_params(False), *cfg.dequant_params())
     err = dict.fromkeys(("ssd_grid_plane", "inter_ctu_fused_dma", "bi_ctu_fused_dma",
                          "refine_qpel_costmap", "refine_qpel_costmap_dma",
-                         "base_grids_ctu", "base_layout_decide", "ssd_grid"), 0)
+                         "base_grids_ctu", "base_layout_decide", "ssd_grid",
+                         "ssd_grid_plane_multi", "refine_quarter_pel_fused",
+                         "inter_ctu_fused", "residual_pipeline_ctu"), 0)
 
     def search_inputs(cur, ref, r):
         """K1 operands as full_search_slab builds them."""
@@ -411,6 +502,56 @@ def main() -> int:
                       torch.full((tiles8.shape[0], 15, 15), 97, dtype=torch.uint8, device=dev))
     if not (bool((c_cost == c_cost[:, :1, :1]).all()) and bool((c_map == c_map[:, :1, :1]).all())):
         raise AssertionError("B12/B13 constant inputs: the fractions do not tie")
+
+    # B7, B11, B16 and B4: the multi-reference P frame's kernels.
+    mr_cur_np, mr_refs_np = multiref_pan(H, W)
+    mr_cur = torch.as_tensor(mr_cur_np, device=dev)
+    mr_src = ctu_mod.tile_frame(mr_cur, 64).contiguous()
+    pl, pr = SEARCH_RANGE + motion.PAD_L, SEARCH_RANGE + motion.PAD_R
+    mr_planes = torch.stack([ctu_mod.pad_frame(torch.as_tensor(p, device=dev), pl, pr, pl, pr)
+                             for p in mr_refs_np])                   # (4, Hp, Wp)
+    mr_view = mr_planes[:, motion.PAD_L:motion.PAD_L + H + 2 * SEARCH_RANGE,
+                        motion.PAD_L:motion.PAD_L + W + 2 * SEARCH_RANGE]
+    check("ssd_grid_plane_multi", "1080p k=4 on the padded planes (a view)",
+          [ssd_grid_plane_multi(mr_src, mr_view, grid, 65)],
+          [ssd_grid_plane_multi_ref(mr_src, mr_view, grid, 65)], f"n=510 k=4 R={SEARCH_RANGE}")
+    s_planes = torch.stack([ctu_mod.pad_frame(p, 8, 8, 8, 8) for p in (small[1], small[0],
+                                                                     flat)])
+    check("ssd_grid_plane_multi", "odd grid width, k=3", 
+          [ssd_grid_plane_multi(s_src, s_planes, s_grid, 17)],
+          [ssd_grid_plane_multi_ref(s_src, s_planes, s_grid, 17)], f"grid={s_grid} k=3 R=8")
+    mr_mv, mr_idx, _ = motion.full_search_multi(
+        mr_src, mr_planes, pos, SEARCH_RANGE, grid=grid, metric="ssd",
+        grid_plane_multi_fn=ssd_grid_plane_multi_ref)
+    hp_mr, wp_mr = mr_planes.shape[1:]
+    mr_flat = mr_planes.reshape(-1, wp_mr)
+    mr_start = pos + mr_mv + SEARCH_RANGE
+    mr_offsets = torch.stack([mr_idx * hp_mr + mr_start[:, 0], mr_start[:, 1]], -1) \
+        .to(torch.int32).contiguous()
+    mr_win = motion.extract_windows(mr_flat, mr_offsets, 71)
+    check("refine_quarter_pel_fused", "1080p 510 64x64 windows at the searched MVs",
+          refine_quarter_pel_fused(mr_src, mr_win), refine_quarter_pel_fused_ref(mr_src, mr_win),
+          "n=510 b=64")
+    win16 = motion.extract_windows(p_padded, starts16, 23)
+    check("refine_quarter_pel_fused", "1080p 8160 16x16 tiles at the searched MVs",
+          refine_quarter_pel_fused(tiles16, win16), refine_quarter_pel_fused_ref(tiles16, win16),
+          "n=8160 b=16")
+    b16_win = motion.extract_windows(padded, mv_offsets(grid, SEARCH_RANGE, 12), 71)
+    b16_want = inter_ctu_fused_ref(src, b16_win, *qargs)
+    check("inter_ctu_fused", "1080p 510 windows at random MVs",
+          inter_ctu_fused(src, b16_win, *qargs), b16_want, "n=510")
+    check("inter_ctu_fused", "1080p batched, group 4 (510 % 4 = 2)",
+          inter_ctu_fused_batched(src, b16_win, *qargs, group=4), b16_want, "n=510 group=4")
+    b4_pred = ctu_mod.tile_frame(yuv_ref0.y, 64).contiguous()
+    b4_args = {}
+    for tu, tr_type in ((4, 1), (4, 0), (8, 0), (16, 0), (32, 0)):
+        tcfg = EncodeConfig(qp=32, tu=tu)
+        b4_args[(tu, tr_type)] = (*tcfg.quant_params(bool(tr_type)), *tcfg.dequant_params())
+        check("residual_pipeline_ctu", f"1080p tu={tu} {'DST' if tr_type else 'DCT'}",
+              residual_pipeline_ctu(b_src, b4_pred, *b4_args[(tu, tr_type)], tu=tu,
+                                    tr_type=tr_type),
+              residual_pipeline_ctu_ref(b_src, b4_pred, *b4_args[(tu, tr_type)], tu=tu,
+                                        tr_type=tr_type), "n=510")
     bad = {k: v for k, v in err.items() if v}
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
@@ -423,7 +564,11 @@ def main() -> int:
                "refine_qpel_costmap_dma": refine_qpel_costmap_dma,
                "base_grids_ctu": base_grids_ctu,
                "base_layout_decide": base_layout_decide,
-               "ssd_grid": ssd_grid}
+               "ssd_grid": ssd_grid,
+               "ssd_grid_plane_multi": ssd_grid_plane_multi,
+               "refine_quarter_pel_fused": refine_quarter_pel_fused,
+               "inter_ctu_fused": inter_ctu_fused,
+               "residual_pipeline_ctu": residual_pipeline_ctu}
     launches = dict.fromkeys(counted, 0)
 
     def drive(what, fn, need):
@@ -470,7 +615,7 @@ def main() -> int:
     cur_s, ref_s = bench_frames(128, 192, seed=5)
     on_card = encode_inter_frame(torch.as_tensor(cur_s, device=dev),
                                  torch.as_tensor(ref_s, device=dev), small_cfg)
-    on_cpu = encode_inter_frame(cur_s, ref_s, small_cfg)
+    on_cpu = encode_inter_frame(cur_s, ref_s, small_cfg, device="cpu")
     e = max_abs_err([on_card[k] for k in keys], [on_cpu[k] for k in keys])
     if e or abs(float(on_card["psnr_db"]) - float(on_cpu["psnr_db"])) > 1e-3:
         raise AssertionError("128x192 frame: the card differs from the CPU")
@@ -604,6 +749,80 @@ def main() -> int:
         raise AssertionError(f"select_pu_layout differs from select_pu_layout_pruned: {e}")
     log("RDO oracle: pred, choice and best64 equal to the pruned decision's")
 
+    # The multi-reference P frame on the multiref pan, and the luma P frame
+    # under the fused inter_impl values (B16) on bench content.
+    def differs(got, want) -> str:
+        """'' when every integer output is equal and psnr_db within 1e-3
+        dB, else what differs."""
+        if set(got) != set(want):
+            return f"keys {sorted(got)} != {sorted(want)}"
+        ints = [k for k in got if k != "psnr_db"]
+        e = max_abs_err([got[k] for k in ints], [want[k] for k in ints])
+        far = abs(float(got["psnr_db"]) - float(want["psnr_db"])) > 1e-3
+        return f"max_abs_err {e}, psnr_db {float(got['psnr_db'])} vs " \
+            f"{float(want['psnr_db'])}" if e or far else ""
+
+    mr_refs = torch.as_tensor(mr_refs_np, device=dev)
+    extra_paths = {
+        "multiref k=4 fused_dma": (
+            lambda config, tiers=Tier.ALL: encode_inter_frame_multiref(
+                mr_cur, mr_refs, config, tiers=tiers),
+            EncodeConfig(search_range=SEARCH_RANGE, qp=32, inter_impl="fused_dma"),
+            {"ssd_grid_plane_multi": 1, "inter_ctu_fused_dma": 1}),
+        "multiref k=2 fused_refine+pallas": (
+            lambda config, tiers=Tier.ALL: encode_inter_frame_multiref(
+                mr_cur, mr_refs[:2], config, tiers=tiers),
+            EncodeConfig(search_range=SEARCH_RANGE, qp=32, fused_refine=True,
+                         residual_impl="pallas"),
+            {"ssd_grid_plane_multi": 1, "refine_quarter_pel_fused": 1,
+             "residual_pipeline_ctu": 1}),
+        "luma P fused": (
+            lambda config, tiers=Tier.ALL: encode_inter_frame(cur, ref, config, tiers=tiers),
+            EncodeConfig(search_range=SEARCH_RANGE, qp=32, inter_impl="fused"),
+            {"ssd_grid_plane": 1, "inter_ctu_fused": 1}),
+        "luma P fused_batched": (
+            lambda config, tiers=Tier.ALL: encode_inter_frame(cur, ref, config, tiers=tiers),
+            EncodeConfig(search_range=SEARCH_RANGE, qp=32, inter_impl="fused_batched"),
+            {"ssd_grid_plane": 1, "inter_ctu_fused": 1}),
+    }
+    small_mr = multiref_pan(128, 192)
+    for name, (run, pcfg, need_p) in extra_paths.items():
+        got = drive(f"{name} path", lambda: run(pcfg), need_p)
+        want_shapes = {"recon": ((H, W), torch.uint8), "mvs": ((n, 2), torch.int32),
+                       "nnz": ((), torch.int32), "psnr_db": ((), torch.float32)}
+        want_shapes.update({"ref_idx": ((n,), torch.int32)} if "multiref" in name
+                           else {"sad": ((n,), torch.int32)})
+        if set(got) != set(want_shapes) or any(
+                (tuple(got[k].shape), got[k].dtype) != v for k, v in want_shapes.items()):
+            raise AssertionError(f"{name}: {[(k, tuple(v.shape), v.dtype) for k, v in got.items()]}")
+        if not np.isfinite(float(got["psnr_db"])):
+            raise AssertionError(f"{name}: psnr_db is not finite")
+        diff = differs(got, run(pcfg, Tier.REF))
+        if diff:
+            raise AssertionError(f"{name} differs from the plain path on the card: {diff}")
+        small_cfg_p = dataclasses.replace(pcfg, search_range=8)
+        if "multiref" in name:
+            k_p = 4 if "k=4" in name else 2
+            s_cur, s_refs = small_mr[0], small_mr[1][:k_p]
+            on_card = encode_inter_frame_multiref(torch.as_tensor(s_cur, device=dev),
+                                                  s_refs, small_cfg_p)
+            on_cpu = encode_inter_frame_multiref(s_cur, s_refs, small_cfg_p, device="cpu")
+            hist = torch.bincount(got["ref_idx"].long(), minlength=k_p).tolist()
+            if sum(c > 0 for c in hist) < 2:
+                raise AssertionError(f"{name}: ref_idx uses one reference only: {hist}")
+            chosen = f"ref_idx histogram {hist}"
+        else:
+            on_card = encode_inter_frame(torch.as_tensor(cur_s, device=dev), ref_s, small_cfg_p)
+            on_cpu = encode_inter_frame(cur_s, ref_s, small_cfg_p, device="cpu")
+            chosen = f"share of CTUs at mv (8, 12) qpel=" \
+                f"{float((got['mvs'] == torch.tensor([8, 12], device=dev)).all(-1).float().mean()):.4f}"
+        diff = differs(on_card, on_cpu)
+        if diff:
+            raise AssertionError(f"128x192 {name}: the card differs from the CPU: {diff}")
+        log(f"{name} path: psnr_db={float(got['psnr_db']):.4f} nnz={int(got['nnz'])} "
+            f"{chosen}; equal to the plain path on the card, and a 128x192 R=8 frame equal "
+            "to the plain path on the CPU")
+
     # ---- 5. timing -----------------------------------------------------------
     ms_main = median_ms(lambda: encode_inter_frame(cur, ref, cfg))
     ms_chain = median_ms(lambda: encode_inter_frame(cur, ref, cfg), calls=REPS)
@@ -629,8 +848,18 @@ def main() -> int:
                 float(encode_inter_frame(yuv_cur.y, yuv_ref0.y, rcfg)["psnr_db"]))
     log_rdo("pu_decision plain path", samples_ms(lambda: encode_inter_frame(
         yuv_cur.y, yuv_ref0.y, rdo_cfgs["pu_decision"], tiers=Tier.REF)))
+
+    def log_path(what, samples, reps=REPS):
+        ms_r = statistics.median(samples)
+        log(f"{tag} {what}: {ms_r:.3f} ms/frame (min {samples[0]:.3f}, max "
+            f"{samples[-1]:.3f} over {reps} samples), {n / ms_r * 1e3:.0f} CTU/s")
+
+    for name, (run, pcfg, _) in extra_paths.items():
+        log_path(f"{name} path", samples_ms(lambda: run(pcfg)))
+        reps = 3 if "multiref" in name else REPS
+        log_path(f"{name} plain path", samples_ms(lambda: run(pcfg, Tier.REF), reps=reps),
+                 reps)
     num = 2 * SEARCH_RANGE + 1
-    win16 = motion.extract_windows(p_padded, starts16, 23)
     times = {
         "ssd_grid_plane": (
             median_ms(lambda: ssd_grid_plane(src, plane, grid, num), calls=10),
@@ -659,12 +888,29 @@ def main() -> int:
         "ssd_grid": (
             median_ms(lambda: ssd_grid(*b8_r16, 33, 33), calls=10),
             median_ms(lambda: ssd_grid_ref(*b8_r16, 33, 33))),
+        "ssd_grid_plane_multi": (
+            median_ms(lambda: ssd_grid_plane_multi(mr_src, mr_view, grid, num), calls=10),
+            median_ms(lambda: ssd_grid_plane_multi_ref(mr_src, mr_view, grid, num), reps=3)),
+        "refine_quarter_pel_fused": (
+            median_ms(lambda: refine_quarter_pel_fused(mr_src, mr_win), calls=10),
+            median_ms(lambda: refine_quarter_pel_fused_ref(mr_src, mr_win))),
+        "inter_ctu_fused": (
+            median_ms(lambda: inter_ctu_fused(src, b16_win, *qargs), calls=10),
+            median_ms(lambda: inter_ctu_fused_ref(src, b16_win, *qargs))),
+        "residual_pipeline_ctu": (
+            median_ms(lambda: residual_pipeline_ctu(b_src, b4_pred, *b4_args[(8, 0)]),
+                      calls=10),
+            median_ms(lambda: residual_pipeline_ctu_ref(b_src, b4_pred, *b4_args[(8, 0)]))),
     }
     shapes_timed = {"refine_qpel_costmap": "8160 16x16 tiles, gathered windows",
                     "refine_qpel_costmap_dma": "8160 16x16 tiles at the searched MVs",
                     "base_grids_ctu": "510 CTUs, base 8",
                     "base_layout_decide": "510 CTUs, base 16, 26 PU lists",
-                    "ssd_grid": "8160 16x16 blocks, R=16"}
+                    "ssd_grid": "8160 16x16 blocks, R=16",
+                    "ssd_grid_plane_multi": "510 CTUs, k=4, R=32",
+                    "refine_quarter_pel_fused": "510 64x64 windows",
+                    "inter_ctu_fused": "510 windows",
+                    "residual_pipeline_ctu": "510 CTUs, 8x8 TUs"}
     b8_r32 = sub_block_windows(p_win, 16, SEARCH_RANGE)
     more = {
         "refine_qpel_costmap_dma 32640 8x8 tiles": (
@@ -685,6 +931,19 @@ def main() -> int:
         "base_layout_decide 510 CTUs, base 32": (
             median_ms(lambda: base_layout_decide(b_src, p_win, 32, lists32), calls=10),
             median_ms(lambda: base_layout_decide_ref(b_src, p_win, 32, lists32))),
+        "refine_quarter_pel_fused 8160 16x16 tiles": (
+            median_ms(lambda: refine_quarter_pel_fused(tiles16, win16), calls=10),
+            median_ms(lambda: refine_quarter_pel_fused_ref(tiles16, win16))),
+        "inter_ctu_fused_batched 510 windows, group 4": (
+            median_ms(lambda: inter_ctu_fused_batched(src, b16_win, *qargs, group=4),
+                      calls=10),
+            median_ms(lambda: inter_ctu_fused_ref(src, b16_win, *qargs))),
+        **{f"residual_pipeline_ctu 510 CTUs, tu={tu} {'DST' if tr else 'DCT'}": (
+            median_ms(lambda: residual_pipeline_ctu(b_src, b4_pred, *b4_args[(tu, tr)], tu=tu,
+                                                    tr_type=tr), calls=10),
+            median_ms(lambda: residual_pipeline_ctu_ref(b_src, b4_pred, *b4_args[(tu, tr)],
+                                                        tu=tu, tr_type=tr)))
+           for tu, tr in b4_args if (tu, tr) != (8, 0)},
     }
     for what, (k_ms, p_ms) in more.items():
         log(f"{tag} {what} at 1080p: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
@@ -709,12 +968,54 @@ def main() -> int:
                                "hevcasm_tpu/kernels/search_pallas.py:1045"),
         "ssd_grid": ("hevcasm_tpu_torch/csrc/ssd_grid.cu",
                      "hevcasm_tpu/kernels/search_pallas.py:359"),
+        "ssd_grid_plane_multi": ("hevcasm_tpu_torch/csrc/ssd_grid_plane.cu",
+                                 "hevcasm_tpu/kernels/search_pallas.py:624"),
+        "refine_quarter_pel_fused": ("hevcasm_tpu_torch/csrc/refine_fused.cu",
+                                     "hevcasm_tpu/kernels/interp_pallas.py:164"),
+        "inter_ctu_fused": ("hevcasm_tpu_torch/csrc/inter_fused.cu",
+                            "hevcasm_tpu/kernels/interp_pallas.py:551"),
+        "residual_pipeline_ctu": ("hevcasm_tpu_torch/csrc/residual_ctu.cu",
+                                  "hevcasm_tpu/kernels/residual_pallas.py:184"),
     }
-    kernels = [{"name": name, "route": "cuda", "source": src_path,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
-               for name, (src_path, replaces) in sources.items()]
+    # The least time for each timed call: bytes moved (inputs read once,
+    # outputs written once) and multiply-adds, from the shapes it was timed
+    # at.  SSD terms count as the correlation form's multiply-add.
+    n16 = tiles16.shape[0]
+    grid_terms = n * num * num * 4096
+    decide_adds = n * sum(len(pu) for pu in lists16) * num * num
+    costs = {
+        "ssd_grid_plane": (nbytes(src, plane) + n * num * num * 4, 2 * grid_terms),
+        "inter_ctu_fused_dma": (nbytes(src, padded, k2_offsets) + n * (4096 + 8 + 2 * 256),
+                                n * (refine_ops(64) + residual_ops(8))),
+        "bi_ctu_fused_dma": (nbytes(b_src, b_flat, b3_off0, b3_off1) + n * (4096 + 8 + 2 * 256),
+                             n * (2 * refine_ops(64) + residual_ops(8))),
+        "refine_qpel_costmap": (nbytes(tiles16, win16) + n16 * 64, n16 * refine_ops(16)),
+        "refine_qpel_costmap_dma": (nbytes(tiles16, p_padded, starts16) + n16 * (64 + 23 * 23),
+                                    n16 * refine_ops(16)),
+        "base_grids_ctu": (nbytes(b_src, p_win) + n * 64 * num * num * 4, 2 * grid_terms),
+        "base_layout_decide": (nbytes(b_src, p_win) + n * len(lists16) * 12,
+                               2 * grid_terms + decide_adds),
+        "ssd_grid": (nbytes(*b8_r16) + b8_r16[0].shape[0] * 33 * 33 * 4,
+                     2 * b8_r16[0].shape[0] * 33 * 33 * 256),
+        "ssd_grid_plane_multi": (nbytes(mr_src) + mr_view.shape[0] * mr_view[0].numel()
+                                 + n * 4 * num * num * 4, 4 * 2 * grid_terms),
+        "refine_quarter_pel_fused": (nbytes(mr_src, mr_win) + n * (4096 + 8),
+                                     n * refine_ops(64)),
+        "inter_ctu_fused": (nbytes(src, b16_win) + n * (4096 + 8 + 2 * 256),
+                            n * (refine_ops(64) + residual_ops(8))),
+        "residual_pipeline_ctu": (nbytes(b_src, b4_pred) + n * (4096 + 256),
+                                  n * residual_ops(8)),
+    }
+    kernels = []
+    for name, (src_path, replaces) in sources.items():
+        bound_ms, bound_by = bound(*costs[name])
+        kernels.append({"name": name, "route": "cuda", "source": src_path,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": err[name], "ms": times[name][0],
+                        "plain_ms": times[name][1], "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
+        log(f"{tag} {name}: bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+            f"{bound_ms / times[name][0]:.3f} of it")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card_kind, "count": torch.cuda.device_count()}}))

@@ -14,7 +14,7 @@
 //      shared buffers;
 //   4b. p1 = wrap16(acc >> 6) of reference 1's winner, and the prediction
 //      pred = clip((p0 + p1 + 64) >> 7, 0, 255) into shared memory;
-//   5-7. residual_core_8x8 (residual_core.cuh): 8x8 DCT, quantize, per-TU
+//   5-7. residual_core<8> (residual_core.cuh): 8x8 DCT, quantize, per-TU
 //      nnz and Exp-Golomb bits, dequantize, inverse DCT, add and clip.
 //
 // The shift is arithmetic on the unbiased accumulator (the TPU kernel
@@ -37,6 +37,8 @@
 #include "refine_core.cuh"
 
 namespace {
+
+constexpr int NTU = B / 8;    // 8x8 TUs per CTU side
 
 __global__ void __launch_bounds__(NT)
 bi_fused_kernel(const uint8_t* __restrict__ src,
@@ -86,7 +88,7 @@ bi_fused_kernel(const uint8_t* __restrict__ src,
   }
   __syncthreads();
 
-  residual_core_8x8(s_src, s_pred, reinterpret_cast<int*>(sm.hp), s_nnz, s_bits,
+  residual_core<8>(s_src, s_pred, reinterpret_cast<int*>(sm.hp), s_nnz, s_bits,
                     rec + static_cast<size_t>(i) * B * B,
                     nnz_out + static_cast<size_t>(i) * NTU * NTU,
                     bits_out + static_cast<size_t>(i) * NTU * NTU, qscale,

@@ -9,7 +9,7 @@
 //      offsets[i], 4 int16 horizontal passes, QPEL_SCORE of the 16
 //      candidates, first minimum in yf*4 + xf order;
 //   4. the winner is recomputed: pred = clip((acc + 2048) >> 12, 0, 255);
-//   5-7. residual_core_8x8 (residual_core.cuh): 8x8 DCT, quantize, per-TU
+//   5-7. residual_core<8> (residual_core.cuh): 8x8 DCT, quantize, per-TU
 //      nnz and Exp-Golomb bits, dequantize, inverse DCT, add and clip.
 //
 // What bounds it on the H100: per CTU about 0.7 M multiply-adds (the 16
@@ -24,6 +24,8 @@
 #include "refine_core.cuh"
 
 namespace {
+
+constexpr int NTU = B / 8;    // 8x8 TUs per CTU side
 
 __global__ void __launch_bounds__(NT)
 inter_fused_kernel(const uint8_t* __restrict__ src,
@@ -63,7 +65,7 @@ inter_fused_kernel(const uint8_t* __restrict__ src,
         clip3(0, 255, (winner_acc(sm, best, x, yg, yy) + 2048) >> 12));
   __syncthreads();
 
-  residual_core_8x8(s_src, s_pred, reinterpret_cast<int*>(sm.hp), s_nnz, s_bits,
+  residual_core<8>(s_src, s_pred, reinterpret_cast<int*>(sm.hp), s_nnz, s_bits,
                     rec + static_cast<size_t>(i) * B * B,
                     nnz_out + static_cast<size_t>(i) * NTU * NTU,
                     bits_out + static_cast<size_t>(i) * NTU * NTU, qscale,

@@ -1,9 +1,10 @@
 """Encode loop of the port: CTU tiling (ctu), motion search (motion), the
-inter-frame inner loop (loop), the PU-layout and TU-size decisions of the
+inter-frame inner loop and its multi-reference form (loop), the PU-layout and TU-size decisions of the
 RDO frame (partition) and the 4:2:0 P and B frames (video)."""
 
 from .ctu import tile_frame, untile_frame, pad_frame
-from .loop import EncodeConfig, config_from_fields, encode_inter_frame
+from .loop import (EncodeConfig, config_from_fields, encode_inter_frame,
+                   encode_inter_frame_multiref)
 from .partition import PU_LAYOUTS, select_pu_layout, select_pu_layout_pruned, select_tu_recon
 from .video import YuvFrame, chroma_qp, encode_b_frame_yuv, encode_inter_frame_yuv
 
@@ -14,6 +15,7 @@ __all__ = [
     "EncodeConfig",
     "config_from_fields",
     "encode_inter_frame",
+    "encode_inter_frame_multiref",
     "PU_LAYOUTS",
     "select_pu_layout",
     "select_pu_layout_pruned",

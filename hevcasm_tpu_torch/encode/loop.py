@@ -4,10 +4,16 @@
   full-search ME -> quarter-pel refine -> predict -> residual -> 8x8 DCT
   -> quantize -> dequantize -> IDCT + add -> recon
 
-``encode_inter_frame`` is the entry point.  With
+``encode_inter_frame`` is the entry point, and
+``encode_inter_frame_multiref`` its form with k reference planes.  With
 ``inter_impl="fused_dma"`` a CUDA frame runs on two hand-written kernels:
 K1 (kernels.search.ssd_grid_plane) scores the integer search and K2
-(kernels.inter_fused.inter_ctu_fused_dma) refines and codes each CTU.  The
+(kernels.inter_fused.inter_ctu_fused_dma) refines and codes each CTU;
+``"fused"`` / ``"fused_batched"`` run B16 (kernels.inter_fused.
+inter_ctu_fused) on gathered windows, ``fused_refine=True`` B11
+(refine_quarter_pel_fused) and ``residual_impl="pallas"`` B4
+(kernels.residual_ctu.residual_pipeline_ctu).  The multi-reference frame
+scores all k planes in B7 (kernels.search.ssd_grid_plane_multi).  The
 RDO frame (``pu_decision=True``, encode.partition) decides each CTU's PU
 layout in B15 (kernels.base_grids.base_layout_decide, or B14 base_grids_ctu
 when the "eighth" layout sets base 8; at R != 32, B8 kernels.search.ssd_grid
@@ -36,17 +42,18 @@ import torch
 
 from .. import registry
 from ..config import Tier
-# Importing the kernel modules registers K1, K2, B3, B8 and B12-B15.
-from ..kernels import base_grids, bi_fused, costmap, inter_fused, search  # noqa: F401
+# Importing the kernel modules registers K1, K2, B3, B4, B7, B8, B11 and
+# B12-B16.
+from ..kernels import base_grids, bi_fused, costmap, inter_fused, residual_ctu, search  # noqa: F401
 from ..ops.residual import residual_pipeline_frame
 from ..utils.psnr import psnr
-from ..utils.tensor import as_tensor
+from ..utils.tensor import as_tensor, entry_device
 from . import ctu as ctu_mod
 from . import motion
 from . import partition
 
 __all__ = ["EncodeConfig", "QUANT_SCALES", "DEQUANT_SCALES", "PU_LAYOUT_NAMES",
-           "config_from_fields", "encode_inter_frame"]
+           "config_from_fields", "encode_inter_frame", "encode_inter_frame_multiref"]
 
 QUANT_SCALES = (26214, 23302, 20560, 18396, 16384, 14564)
 DEQUANT_SCALES = (40, 45, 51, 57, 64, 72)
@@ -64,9 +71,11 @@ class EncodeConfig:
     ("auto" runs kernel K1 for a CUDA frame with the SSD metric, full
     search, 64x64 CTUs and R <= 32, else the grid search on gathered
     windows, which runs kernel B8 for a CUDA frame),
-    fused_refine / refine_impl / residual_impl (the staged path), and
-    inter_impl ("stages", or "fused_dma" for the K2 path; the B frame also
-    runs B3 under "fused" and "fused_batched").
+    fused_refine / refine_impl / residual_impl (the staged path: B11 for
+    fused_refine, B4 for residual_impl "pallas" at 64x64 CTUs and 8x8 DCT
+    TUs, the plain versions otherwise), and inter_impl ("stages", "fused_dma"
+    for the K2 path, "fused" / "fused_batched" for B16; the B frame runs B3
+    under all three).
     """
 
     ctu: int = 64
@@ -185,12 +194,6 @@ def _check_search(cfg: EncodeConfig) -> None:
         _not_ported("search_impl='mv'/'dma'", "ROADMAP B17 (search_mv / search_mv_dma)")
 
 
-def _check_residual(cfg: EncodeConfig, block: int, tr_type: int = 0) -> None:
-    """What _residual_pipeline runs for (n, block, block) stacks."""
-    if cfg.residual_impl == "pallas" and cfg.tu == 8 and block == 64 and tr_type == 0:
-        _not_ported("residual_impl='pallas'", "ROADMAP B4 (residual_pipeline_ctu)")
-
-
 def _check_rdo(cfg: EncodeConfig) -> None:
     """What encode_inter_frame runs under pu_decision / tu_sizes.  The PU
     decision ignores me_strategy, search_impl, inter_impl, refine_impl and
@@ -204,8 +207,6 @@ def _check_rdo(cfg: EncodeConfig) -> None:
         partition.base_for(cfg.pu_layouts)
     else:
         _check_search(cfg)
-    if not cfg.tu_sizes:
-        _check_residual(cfg, cfg.ctu)
 
 
 def _check_inter_core(cfg: EncodeConfig) -> None:
@@ -216,13 +217,6 @@ def _check_inter_core(cfg: EncodeConfig) -> None:
             "pu_decision/tu_sizes compose only with encode_inter_frame"
         )
     _check_search(cfg)
-    if cfg.inter_impl in ("fused", "fused_batched"):
-        _not_ported("inter_impl='fused'/'fused_batched'",
-                    "ROADMAP B16 (inter_ctu_fused / inter_ctu_fused_batched)")
-    if cfg.inter_impl != "fused_dma":
-        if cfg.fused_refine:
-            _not_ported("fused_refine=True", "ROADMAP B11 (refine_quarter_pel_fused)")
-        _check_residual(cfg, cfg.ctu)
 
 
 def _op(name: str, tiers: Tier):
@@ -264,13 +258,13 @@ def _integer_search(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid,
 def _residual_pipeline(src_blocks, pred_blocks, cfg: EncodeConfig, intra: bool,
                        luma: bool = True, tiers: Tier = Tier.ALL):
     """residual -> TU transform -> quant -> dequant -> inverse + add.
-    residual_impl 'mxu' runs ops.residual.residual_pipeline_frame, 'ref'
-    (and 'pallas' outside the 64x64-CTU / 8x8-DCT geometry, as in
-    hevcasm_tpu) the registry's residual_pipeline.  Returns (recon_blocks
-    (n, B, B) uint8, nnz () int32, cbf (n*(B/tu)^2,) bool)."""
+    residual_impl 'mxu' runs ops.residual.residual_pipeline_frame, 'pallas'
+    kernel B4 (the tiers' residual_pipeline_ctu) on 64x64 blocks with 8x8
+    DCT TUs, and 'ref' (and 'pallas' outside that geometry, as in
+    hevcasm_tpu) the plain residual_pipeline.  Returns (recon_blocks (n, B,
+    B) uint8, nnz () int32, cbf (n*(B/tu)^2,) bool)."""
     # HEVC uses the DST-VII for 4x4 intra luma TUs; chroma uses the DCT.
     tr_type = 1 if (intra and luma and cfg.tu == 4) else 0
-    _check_residual(cfg, src_blocks.shape[-1], tr_type)
     scale, shift, offset = cfg.quant_params(intra)
     dscale, dshift = cfg.dequant_params()
     if cfg.residual_impl == "mxu":
@@ -278,7 +272,13 @@ def _residual_pipeline(src_blocks, pred_blocks, cfg: EncodeConfig, intra: bool,
             src_blocks, pred_blocks, scale, shift, offset, dscale, dshift,
             tu=cfg.tu, tr_type=tr_type)
         return rec, nnz, cbf.reshape(-1)
-    return _op("residual_pipeline", tiers)(
+    if (cfg.residual_impl == "pallas" and cfg.tu == 8 and src_blocks.shape[-1] == 64
+            and tr_type == 0):
+        rec, nnz_tu = _op("residual_pipeline_ctu", tiers)(
+            src_blocks, pred_blocks, scale, shift, offset, dscale, dshift)
+        return rec, nnz_tu.sum(dtype=torch.int32), (nnz_tu > 0).reshape(-1)
+    # hevcasm_tpu runs its plain composition here on every device.
+    return _op("residual_pipeline", Tier.REF)(
         src_blocks, pred_blocks, scale, shift, offset, dscale, dshift,
         tu=cfg.tu, tr_type=tr_type,
     )
@@ -287,37 +287,54 @@ def _residual_pipeline(src_blocks, pred_blocks, cfg: EncodeConfig, intra: bool,
 def _inter_core(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid,
                 tiers: Tier = Tier.ALL):
     """Integer search + quarter-pel refine + residual at the configured
-    composition: K2 for inter_impl='fused_dma', else the staged path (which
-    also serves 'mega' when the yuv frame calls, as in hevcasm_tpu).
-    refine_impl 'mxu' and 'ref' both run the registry's refine_qpel: the
-    banded-matmul form of 'mxu' is a TPU layout device with the same
-    (pred, frac, cost).  src_ctus (n, B, B); ref_padded padded by
-    (R + PAD_L/PAD_R); pos (n, 2); grid (rows, cols).  Returns (rec_ctus
-    (n, B, B) uint8, mv_qpel (n, 2) int32, best (n,) int32, nnz () int32)."""
+    composition: K2 for inter_impl='fused_dma', B16 for 'fused' and
+    'fused_batched', else the staged path (which also serves 'mega' when
+    the yuv frame calls, as in hevcasm_tpu).  src_ctus (n, B, B); ref_padded
+    padded by (R + PAD_L/PAD_R); pos (n, 2); grid (rows, cols).  Returns
+    (rec_ctus (n, B, B) uint8, mv_qpel (n, 2) int32, best (n,) int32, nnz ()
+    int32)."""
     _check_inter_core(cfg)
-    r = cfg.search_range
     mv_int, best = _integer_search(src_ctus, ref_padded, pos, cfg, grid, tiers)
-    if cfg.inter_impl == "fused_dma":
-        start = (pos + mv_int + r).to(torch.int32).contiguous()
-        scale, shift, offset = cfg.quant_params(False)
-        dscale, dshift = cfg.dequant_params()
-        rec_ctus, frac, _, nnz_tu, _ = _op("inter_ctu_fused_dma", tiers)(
-            src_ctus, ref_padded, start, scale, shift, offset, dscale, dshift,
-            group=cfg.fused_group,
-        )
-        return rec_ctus, motion.qpel_mvs(mv_int, frac), best, nnz_tu.sum(dtype=torch.int32)
-    pred, mv_qpel, _ = motion.refine_quarter_pel(
-        src_ctus, ref_padded, pos, mv_int, r, refine_fn=_op("refine_qpel", tiers))
-    rec_ctus, nnz, _ = _residual_pipeline(src_ctus, pred, cfg, intra=False,
-                                          tiers=tiers)
+    start = (pos + mv_int + cfg.search_range).to(torch.int32).contiguous()
+    rec_ctus, mv_qpel, nnz = _refine_and_code(src_ctus, ref_padded, start, mv_int, cfg,
+                                              tiers)
     return rec_ctus, mv_qpel, best, nnz
 
 
-def _prepare_frame(cfg: EncodeConfig, cur, *refs):
+def _refine_and_code(src_ctus, plane, start, mv_int, cfg: EncodeConfig, tiers: Tier):
+    """Quarter-pel refinement and residual of every CTU at its refine-window
+    start (n, 2) int32 in ``plane``: K2 reading the windows from the plane
+    for inter_impl 'fused_dma', B16 on the gathered (n, B+7, B+7) windows
+    for 'fused' and 'fused_batched' (which differ only by the TPU kernel's
+    CTU groups), else the staged refine (B11 under fused_refine) + residual.
+    refine_impl 'mxu' and 'ref' give the same (pred, frac, cost): the
+    banded-matmul form of 'mxu' is a TPU layout device, and hevcasm_tpu runs
+    no kernel for either.  Returns (rec_ctus (n, B, B) uint8, mv_qpel (n, 2)
+    int32, nnz () int32)."""
+    impl = cfg.inter_impl
+    if impl in ("fused", "fused_batched", "fused_dma"):
+        qargs = (*cfg.quant_params(False), *cfg.dequant_params())
+        if impl == "fused_dma":
+            rec_ctus, frac, _, nnz_tu, _ = _op("inter_ctu_fused_dma", tiers)(
+                src_ctus, plane, start, *qargs, group=cfg.fused_group)
+        else:
+            win = motion.extract_windows(plane, start, cfg.ctu + motion.TAPS - 1)
+            rec_ctus, frac, _, nnz_tu, _ = _op("inter_ctu_fused", tiers)(src_ctus, win, *qargs)
+        return rec_ctus, motion.qpel_mvs(mv_int, frac), nnz_tu.sum(dtype=torch.int32)
+    win = motion.extract_windows(plane, start, cfg.ctu + motion.TAPS - 1)
+    refine = (_op("refine_quarter_pel_fused", tiers) if cfg.fused_refine
+              else _op("refine_qpel", Tier.REF))
+    pred, frac, _ = refine(src_ctus, win)
+    rec_ctus, nnz, _ = _residual_pipeline(src_ctus, pred, cfg, intra=False, tiers=tiers)
+    return rec_ctus, motion.qpel_mvs(mv_int, frac), nnz
+
+
+def _prepare_frame(cfg: EncodeConfig, cur, *refs, device=None):
     """Check that cur and the reference planes are (H, W) uint8 planes of
-    one shape, move them to cur's device, and tile cur into CTUs.  Returns
-    (cur, refs, src_ctus, pos, grid)."""
-    cur = as_tensor(cur)
+    one shape, put cur on its device (utils.tensor.entry_device) and the
+    references beside it, and tile cur into CTUs.  Returns (cur, refs,
+    src_ctus, pos, grid)."""
+    cur = as_tensor(cur, entry_device(cur, device))
     refs = tuple(as_tensor(ref, cur.device) for ref in refs)
     if cur.dim() != 2 or cur.dtype != torch.uint8 or any(
             ref.shape != cur.shape or ref.dtype != torch.uint8 for ref in refs):
@@ -355,13 +372,15 @@ def _decide_pu(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid, tiers: Tier):
 
 
 def encode_inter_frame(cur, ref, cfg: EncodeConfig = EncodeConfig(),
-                       tiers: Tier = Tier.ALL) -> dict:
+                       tiers: Tier = Tier.ALL, device=None) -> dict:
     """Encode one inter (P) frame against a reference plane.
 
-    cur, ref: (H, W) uint8 tensors (or numpy arrays) on one device, H and W
-    multiples of cfg.ctu.  ``tiers`` masks the implementations the
-    registry may pick: Tier.ALL runs the kernels on CUDA tensors,
-    Tier.REF the plain versions on any device.
+    cur, ref: (H, W) uint8 tensors or numpy arrays, H and W multiples of
+    cfg.ctu.  A tensor cur runs on its own device; a numpy cur on
+    ``device``, by default the CUDA card (with none, pass device="cpu").
+    ``tiers`` masks the implementations the registry may pick: Tier.ALL
+    runs the kernels on CUDA tensors, Tier.REF the plain versions on any
+    device.
 
     Returns {"recon": (H, W) uint8, "mvs": (n, 2) int32 quarter-pel,
     "sad": (n,) int32 best integer score, "nnz": () int32 coded
@@ -376,7 +395,7 @@ def encode_inter_frame(cur, ref, cfg: EncodeConfig = EncodeConfig(),
     rdo = cfg.pu_decision or bool(cfg.tu_sizes)
     if rdo:
         _check_rdo(cfg)
-    cur, (ref,), src_ctus, pos, grid = _prepare_frame(cfg, cur, ref)
+    cur, (ref,), src_ctus, pos, grid = _prepare_frame(cfg, cur, ref, device=device)
     ref_padded = _pad_reference(ref, cfg.search_range)
     out = {}
     if not rdo:
@@ -389,9 +408,11 @@ def encode_inter_frame(cur, ref, cfg: EncodeConfig = EncodeConfig(),
             out["pu_layout"] = choice
         else:
             mv_int, best = _integer_search(src_ctus, ref_padded, pos, cfg, grid, tiers)
+            # hevcasm_tpu refines with its (XLA) sweep here, whatever
+            # refine_impl and fused_refine say.
             pred, mv_qpel, _ = motion.refine_quarter_pel(
                 src_ctus, ref_padded, pos, mv_int, cfg.search_range,
-                refine_fn=_op("refine_qpel", tiers))
+                refine_fn=_op("refine_qpel", Tier.REF))
         if cfg.tu_sizes:
             rec_ctus, out["tu_choice"], nnz = partition.select_tu_recon(
                 src_ctus, pred, cfg, cfg.tu_sizes)
@@ -400,4 +421,58 @@ def encode_inter_frame(cur, ref, cfg: EncodeConfig = EncodeConfig(),
                                                   tiers=tiers)
     recon = ctu_mod.untile_frame(rec_ctus, *cur.shape)
     return {"recon": recon, "mvs": mv_qpel, **out, "sad": best, "nnz": nnz,
+            "psnr_db": psnr(cur, recon)}
+
+
+def encode_inter_frame_multiref(cur, refs, cfg: EncodeConfig = EncodeConfig(),
+                                tiers: Tier = Tier.ALL, device=None) -> dict:
+    """Encode one P frame against k reference planes, choosing each CTU's
+    reference (the counterpart of hevcasm_tpu's encode_inter_frame_multiref).
+
+    cur (H, W) uint8 and refs (k, H, W) uint8 (e.g. the last k
+    reconstructions), tensors or numpy arrays; devices as for
+    encode_inter_frame.  All k references are searched in one call
+    (motion.full_search_multi: kernel B7 on a CUDA frame with the SSD
+    metric, 64x64 CTUs and R <= 32, else one grid call), and the (ref, mv)
+    pair with the smallest integer score wins, the lower reference index on
+    a tie.  k == 1 gives encode_inter_frame's recon, mvs and nnz.
+    search_impl is ignored, as in hevcasm_tpu.  The refinement and residual
+    read the k padded planes stacked by rows, reference i's rows starting
+    at i * Hp: K2 from that plane under inter_impl 'fused_dma', B16 on the
+    (n, B+7, B+7) windows gathered from it under 'fused' / 'fused_batched',
+    else the staged refine + residual (which also serves 'mega').
+
+    Returns {"recon": (H, W) uint8, "mvs": (n, 2) int32 quarter-pel,
+    "ref_idx": (n,) int32, "nnz": () int32, "psnr_db": () float32}.
+    """
+    if cfg.me_strategy == "pyramid":
+        raise ValueError(
+            "encode_inter_frame_multiref searches exhaustively; "
+            "me_strategy='pyramid' is not honored here (use 'full')"
+        )
+    if cfg.pu_decision or cfg.tu_sizes:
+        raise ValueError(
+            "encode_inter_frame_multiref runs the fixed CTU/TU geometry; "
+            "pu_decision/tu_sizes compose only with encode_inter_frame"
+        )
+    if cfg.me_metric == "sad":
+        _not_ported("me_metric='sad'", "ROADMAP A.2 (ops/sad.py) and B9 (sad_grid kernel)")
+    cur = as_tensor(cur, entry_device(cur, device))
+    refs = as_tensor(refs, cur.device)
+    if refs.dim() != 3 or refs.shape[0] < 1:
+        raise ValueError(f"refs must be (k, H, W) with k >= 1, got {tuple(refs.shape)}")
+    cur, ref_planes, src_ctus, pos, grid = _prepare_frame(cfg, cur, *refs)
+    r = cfg.search_range
+    planes = torch.stack([_pad_reference(p, r) for p in ref_planes])    # (k, Hp, Wp)
+    mv_int, ref_idx, _ = motion.full_search_multi(
+        src_ctus, planes, pos, r, grid_fn=_op("ssd_grid", tiers), grid=grid,
+        metric=cfg.me_metric, grid_plane_multi_fn=_op("ssd_grid_plane_multi", tiers))
+    k, hp, wp = planes.shape
+    start = pos + mv_int + r
+    offsets = torch.stack([ref_idx * hp + start[:, 0], start[:, 1]], dim=-1)
+    rec_ctus, mv_qpel, nnz = _refine_and_code(
+        src_ctus, planes.reshape(k * hp, wp), offsets.to(torch.int32).contiguous(), mv_int,
+        cfg, tiers)
+    recon = ctu_mod.untile_frame(rec_ctus, *cur.shape)
+    return {"recon": recon, "mvs": mv_qpel, "ref_idx": ref_idx, "nnz": nnz,
             "psnr_db": psnr(cur, recon)}

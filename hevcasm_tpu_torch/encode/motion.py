@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.search import ssd_grid, ssd_grid_plane
+from ..kernels.search import MAX_RADIUS, ssd_grid, ssd_grid_plane, ssd_grid_plane_multi
 from ..ops.pred_inter import refine_qpel
 from ..utils.tensor import as_tensor, first_min
 
@@ -127,11 +127,17 @@ def full_search_slab(src_ctus, ref_padded, search_range: int,
 
 def full_search_multi(src_ctus, planes, positions, search_range: int,
                       grid_fn=ssd_grid, grid: tuple[int, int] | None = None,
-                      joint: bool = True):
+                      joint: bool = True, metric: str | None = None,
+                      grid_plane_multi_fn=ssd_grid_plane_multi):
     """Integer full search against k stacked reference planes (k, Hp, Wp),
-    each padded like full_search's ref_padded, in one grid call over the
-    k*n windows (the grid route of hevcasm_tpu.encode.motion.
-    full_search_multi; its TPU-only multi-plane kernel is not taken).
+    each padded like full_search's ref_padded.
+
+    With metric "ssd", 64x64 CTUs, 1 <= R <= 32 and the grid given, the
+    multi-plane route runs, as hevcasm_tpu's does on its accelerator:
+    ``grid_plane_multi_fn`` (kernel B7 on a CUDA frame, its plain version
+    on the CPU) scores every CTU against the k planes, reading the windows
+    from them.  Otherwise one ``grid_fn`` call scores the k*n gathered
+    windows.  Both give the same grids.
 
     joint: (mv (n, 2), ref_idx (n,), best (n,)), the first minimum over
     (ref, dy, dx) in that order.  joint=False: per reference, (mv (k, n, 2),
@@ -144,17 +150,24 @@ def full_search_multi(src_ctus, planes, positions, search_range: int,
     r = search_range
     num = 2 * r + 1
     size = b + 2 * r
-    if grid is not None and size % b == 0:
-        wins = [extract_aligned_windows(p, (PAD_L, PAD_L), grid, b, size) for p in planes]
+    if metric == "ssd" and b == 64 and 1 <= r <= MAX_RADIUS and grid is not None:
+        # Each plane's window of CTU (r, c) starts at [64r, 64c] of the
+        # plane cut to exactly R of padding: a view, no copy.
+        gr, gc = grid
+        sub = planes[:, PAD_L:PAD_L + gr * b + 2 * r, PAD_L:PAD_L + gc * b + 2 * r]
+        scores = grid_plane_multi_fn(src_ctus, sub, grid, num).reshape(n, k, num * num)
     else:
-        wins = [extract_windows(p, positions + PAD_L, size) for p in planes]
-    scores = grid_fn(src_ctus.repeat(k, 1, 1), torch.cat(wins), num, num)
-    scores = scores.reshape(k, n, num * num)
+        if grid is not None and size % b == 0:
+            wins = [extract_aligned_windows(p, (PAD_L, PAD_L), grid, b, size) for p in planes]
+        else:
+            wins = [extract_windows(p, positions + PAD_L, size) for p in planes]
+        scores = grid_fn(src_ctus.repeat(k, 1, 1), torch.cat(wins), num, num)
+        scores = scores.reshape(k, n, num * num).transpose(0, 1)    # (n, k, num^2)
     if joint:
-        best, best_score = first_min(scores.transpose(0, 1).reshape(n, k * num * num))
+        best, best_score = first_min(scores.reshape(n, k * num * num))
         return (_mv_from_index(best % (num * num), num, r),
                 best // (num * num), best_score)
-    best, best_score = first_min(scores)
+    best, best_score = first_min(scores.transpose(0, 1))
     return _mv_from_index(best, num, r), best_score
 
 

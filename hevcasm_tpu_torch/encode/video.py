@@ -9,11 +9,14 @@ references.
 * A B frame searches each reference on its own, refines each, and combines
   the int16 (acc >> 6) intermediates as (r0 + r1 + 64) >> 7.
 
-With ``inter_impl="fused_dma"`` a CUDA frame's luma runs on the kernels: K1
-(search, once per reference), K2 (the P frame's refine + residual) and B3
+A CUDA frame's luma runs on the kernels: K1 (the search, once per
+reference; a B frame under search_impl "grid" scores both references in
+one call of B7), the P frame's refine + residual as loop._inter_core runs
+it (K2, B16, B11, B4), and under inter_impl "fused*" B3
 (kernels.bi_fused.bi_ctu_fused_dma, the B frame's two refinements, combine
-and residual).  Chroma is plain PyTorch on every device.  Every path gives
-the same integers as hevcasm_tpu.
+and residual), else the staged B path with B4 under residual_impl
+"pallas".  Chroma is plain PyTorch on every device.  Every path gives the
+same integers as hevcasm_tpu.
 """
 
 from __future__ import annotations
@@ -26,12 +29,11 @@ import torch
 from ..config import Tier
 from ..ops.pred_inter import pred_uni, pred_uni_16
 from ..utils.psnr import psnr
-from ..utils.tensor import as_tensor
+from ..utils.tensor import as_tensor, entry_device
 from . import ctu as ctu_mod
 from . import motion
-from .loop import (EncodeConfig, _check_residual, _inter_core, _not_ported, _op,
-                   _pad_reference, _prepare_frame, _residual_pipeline,
-                   _search_impl_resolved)
+from .loop import (EncodeConfig, _inter_core, _not_ported, _op, _pad_reference,
+                   _prepare_frame, _residual_pipeline, _search_impl_resolved)
 
 __all__ = ["YuvFrame", "chroma_qp", "encode_inter_frame_yuv", "encode_b_frame_yuv"]
 
@@ -69,6 +71,11 @@ def _chroma_cfg(cfg: EncodeConfig) -> EncodeConfig:
 
 
 def _as_yuv(frame, device=None) -> YuvFrame:
+    """The frame's planes as tensors on ``device``, or, with none given, on
+    the device an entry point runs on for its luma (utils.tensor.
+    entry_device: a tensor's own, else the CUDA card)."""
+    if device is None:
+        device = entry_device(frame[0])
     return YuvFrame(*(as_tensor(p, device) for p in frame))
 
 
@@ -103,17 +110,18 @@ def _chroma_residual(cur_plane, pred_blocks, cfg: EncodeConfig, intra: bool,
 
 
 def encode_inter_frame_yuv(cur, ref, cfg: EncodeConfig = EncodeConfig(),
-                           tiers: Tier = Tier.ALL) -> dict:
+                           tiers: Tier = Tier.ALL, device=None) -> dict:
     """One P frame over 4:2:0 planes: luma ME + refine + residual at the
     cfg-selected composition (loop._inter_core), chroma MC from the luma
     MVs, and the chroma residual at 4x4 TUs.
 
-    cur, ref: YuvFrame (or 3-tuples) of uint8 tensors or numpy arrays on
-    one device.  Returns {"recon": YuvFrame, "mvs": (n, 2) int32
+    cur, ref: YuvFrame (or 3-tuples) of uint8 tensors or numpy arrays.  A
+    tensor cur.y runs on its own device, numpy planes on ``device``, by
+    default the CUDA card (with none, pass device="cpu").  Returns {"recon": YuvFrame, "mvs": (n, 2) int32
     quarter-pel, "nnz": () int32 over the three planes, "psnr_y",
     "psnr_cb", "psnr_cr": () float32}."""
     _chroma_cfg(cfg)  # its guards, before any work
-    cur = _as_yuv(cur)
+    cur = _as_yuv(cur, None if device is None else entry_device(cur[0], device))
     ref = _as_yuv(ref, cur.y.device)
     cur_y, (ref_y,), src_ctus, pos, grid = _prepare_frame(cfg, cur.y, ref.y)
     rec_y_ctus, mv_qpel, _, nnz_y = _inter_core(
@@ -145,16 +153,16 @@ def _check_b_luma(cfg: EncodeConfig) -> None:
     whatever me_strategy says, and ignores pu_decision and tu_sizes."""
     if cfg.me_metric == "sad":
         _not_ported("me_metric='sad'", "ROADMAP A.2 (ops/sad.py) and B9 (sad_grid kernel)")
-    if not _b_fused(cfg):
-        _check_residual(cfg, cfg.ctu)
 
 
 def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
                   qparams=None, tiers: Tier = Tier.ALL):
     """The B frame's luma: per-reference integer search (K1 per reference
-    where the slab route resolves, else one full_search_multi grid call),
-    then B3 under inter_impl 'fused*' (64x64 CTUs, 8x8 TUs) or the staged
-    refine + pred_uni_16 + combine + residual.  Returns (rec_y_ctus,
+    where the slab route resolves, else one full_search_multi call: B7 on a
+    CUDA frame with the SSD metric, 64x64 CTUs and R <= 32), then B3 under
+    inter_impl 'fused*' (64x64 CTUs, 8x8 TUs) or the staged refine +
+    pred_uni_16 + combine + residual, whose refinement is the plain sweep
+    whatever refine_impl and fused_refine say, as in hevcasm_tpu.  Returns (rec_y_ctus,
     [mv0_qpel, mv1_qpel], nnz () int32, bits () int32 or None)."""
     if qparams is not None:
         _not_ported("traced quantizer parameters (rate control)",
@@ -170,7 +178,8 @@ def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
     else:
         mv_ints, _ = motion.full_search_multi(
             src_ctus, planes, pos, r, grid_fn=_op("ssd_grid", tiers), grid=grid,
-            joint=False)
+            joint=False, metric=cfg.me_metric,
+            grid_plane_multi_fn=_op("ssd_grid_plane_multi", tiers))
     scale, shift, offset = cfg.quant_params(False)
     dscale, dshift = cfg.dequant_params()
 
@@ -187,7 +196,7 @@ def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
         return (rec_y_ctus, mvs, nnz_tu.sum(dtype=torch.int32),
                 bits_tu.sum(dtype=torch.int32))
 
-    refine = _op("refine_qpel", tiers)
+    refine = _op("refine_qpel", Tier.REF)
     mvs, preds16 = [], []
     for plane, mv_int in zip(planes, mv_ints):
         win = motion.extract_windows(plane, pos + mv_int + r, cfg.ctu + motion.TAPS - 1)
@@ -201,18 +210,18 @@ def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
 
 
 def encode_b_frame_yuv(cur, ref0, ref1, cfg: EncodeConfig = EncodeConfig(),
-                       tiers: Tier = Tier.ALL) -> dict:
+                       tiers: Tier = Tier.ALL, device=None) -> dict:
     """One B frame over 4:2:0 planes: independent integer search against
     both references, quarter-pel refinement of each, the combining mean
     (r0 + r1 + 64) >> 7 on luma and on chroma (with the same MV pair), and
     the residual of each plane.
 
     cur, ref0, ref1: YuvFrame (or 3-tuples) of uint8 tensors or numpy
-    arrays on one device.  Returns {"recon": YuvFrame, "mvs0", "mvs1":
+    arrays; devices as for encode_inter_frame_yuv.  Returns {"recon": YuvFrame, "mvs0", "mvs1":
     (n, 2) int32 quarter-pel, "nnz": () int32 over the three planes,
     "psnr_y": () float32}."""
     _chroma_cfg(cfg)  # its guards, before any work
-    cur = _as_yuv(cur)
+    cur = _as_yuv(cur, None if device is None else entry_device(cur[0], device))
     ref0 = _as_yuv(ref0, cur.y.device)
     ref1 = _as_yuv(ref1, cur.y.device)
     cur_y, (ref0_y, ref1_y), src_ctus, pos, grid = _prepare_frame(

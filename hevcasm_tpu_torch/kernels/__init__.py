@@ -2,10 +2,17 @@
 version (tier REF).
 
 * search       K1 ``ssd_grid_plane``: exact SSD grids of every CTU, windows
-               read from the padded reference plane; B8 ``ssd_grid``: exact
-               SSD grids of square blocks against given windows.
+               read from the padded reference plane; B7
+               ``ssd_grid_plane_multi``: the same against k planes; B8
+               ``ssd_grid``: exact SSD grids of square blocks against given
+               windows.
 * inter_fused  K2 ``inter_ctu_fused_dma``: quarter-pel refinement fused with
-               the 8x8 residual pipeline.
+               the 8x8 residual pipeline, windows read from the plane; B16
+               ``inter_ctu_fused`` / ``inter_ctu_fused_batched``: the same on
+               gathered windows; B11 ``refine_quarter_pel_fused``: the
+               refinement alone, blocks of 8 to 64.
+* residual_ctu B4 ``residual_pipeline_ctu``: the TU residual pipeline of
+               64x64 CTUs at 4x4 (DCT or DST-VII) to 32x32 TUs.
 * bi_fused     B3 ``bi_ctu_fused_dma``: both references' refinements, the
                bi-prediction combine and the 8x8 residual pipeline.
 * costmap      B12 ``refine_qpel_costmap`` and B13

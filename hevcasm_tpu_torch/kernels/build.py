@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load", "check"]
+__all__ = ["NVCC_FLAGS", "build", "load", "check", "on_card"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -31,11 +31,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argument types (pointers and the stream as void*,
-# sizes and parameters as int).  Every entry returns a cudaError_t as int.
+# sizes and parameters as int, strides that may pass 2^31 as long long).
+# Every entry returns a cudaError_t as int.
 _ENTRIES = {
     # src, plane, out, n, gc, plane_h, plane_w, radius, device, stream
     "hevc_ssd_grid_plane": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # src, planes, out, n, k, gc, plane_stride, row_stride, radius, device, stream
+    "hevc_ssd_grid_plane_multi": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P],
+    # src, pred, rec, nnz, n, tu, tr_type, qscale, qshift, qoffset, dscale,
+    # dshift, device, stream
+    "hevc_residual_ctu": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # src, windows, tile_stride, row_stride, pred, frac, cost, n, b, device, stream
+    "hevc_refine_fused": [_P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P],
     # src, windows, win_stride, row_stride, win_h, win_w, out, n, b, num_dy,
     # num_dx, device, stream
     "hevc_ssd_grid": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P],
@@ -127,6 +136,16 @@ def load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def on_card(what: str, *tensors) -> "torch.device":
+    """The one CUDA device the tensors a wrapper launches on lie on; raise
+    ValueError if they lie elsewhere or on several."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: tensors on {[str(t.device) for t in tensors]}; "
+                         "need one CUDA device")
+    return dev
 
 
 def check(err: int, what: str) -> None:

@@ -72,14 +72,6 @@ def _check_plane(src: torch.Tensor, plane: torch.Tensor, offsets: torch.Tensor) 
     return b
 
 
-def _on_card(what: str, *tensors: torch.Tensor) -> torch.device:
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"{what}: tensors on {[str(t.device) for t in tensors]}; "
-                         "need one CUDA device")
-    return dev
-
-
 def refine_qpel_costmap_ref(src_blocks, windows) -> torch.Tensor:
     """Plain version: ops.pred_inter.qpel_costmap on the given windows."""
     src = as_tensor(src_blocks)
@@ -96,7 +88,7 @@ def refine_qpel_costmap(src_blocks, windows) -> torch.Tensor:
     windows = as_tensor(windows, src.device)
     if src.device.type == "cpu":
         return refine_qpel_costmap_ref(src, windows)
-    dev = _on_card("refine_qpel_costmap", src, windows)
+    dev = build.on_card("refine_qpel_costmap", src, windows)
     if src.dtype != torch.uint8 or windows.dtype != torch.uint8:
         raise TypeError("refine_qpel_costmap: src_blocks and windows must be uint8")
     if not src.is_contiguous() or windows.stride(-1) != 1:
@@ -137,7 +129,7 @@ def refine_qpel_costmap_dma(src_blocks, plane, offsets, group: int | None = None
     offsets = as_tensor(offsets, src.device)
     if src.device.type == "cpu":
         return refine_qpel_costmap_dma_ref(src, plane, offsets)
-    dev = _on_card("refine_qpel_costmap_dma", src, plane, offsets)
+    dev = build.on_card("refine_qpel_costmap_dma", src, plane, offsets)
     if src.dtype != torch.uint8 or plane.dtype != torch.uint8 \
             or offsets.dtype != torch.int32:
         raise TypeError("refine_qpel_costmap_dma: src_blocks and plane must be "

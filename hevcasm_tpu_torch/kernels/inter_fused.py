@@ -1,23 +1,47 @@
-"""Kernel K2: quarter-pel refinement fused with the 8x8 residual pipeline.
+"""Kernels K2, B16 and B11: the quarter-pel refinement, fused with the 8x8
+residual pipeline (K2, B16) or alone (B11).
 
 ``inter_ctu_fused_dma`` replaces the TPU kernel
 ``hevcasm_tpu/kernels/interp_pallas.py`` ``inter_ctu_fused_dma``
 (``_inter_kernel_dma`` -> ``_group_body`` ->
-``residual_pallas.residual_core_stacked``).  The CUDA source is
-``csrc/inter_fused.cu``; its header says what bounds it on the card.
-Beside it stands the plain PyTorch version, ``inter_ctu_fused_dma_ref``.
+``residual_pallas.residual_core_stacked``); ``inter_ctu_fused`` and
+``inter_ctu_fused_batched`` the TPU kernels of those names
+(``_inter_kernel``, ``_inter_kernel_group``); ``refine_quarter_pel_fused``
+the TPU kernel of that name (``_kernel`` -> ``_refine_core``).  The CUDA
+sources are ``csrc/inter_fused.cu`` (K2, and B16, which launches K2's kernel
+on the gathered windows) and ``csrc/refine_fused.cu`` (B11); their headers
+say what bounds them on the card.  Beside each stands its plain PyTorch
+version (``*_ref``).
 
-Contract, for n CTUs of 64x64 and 8x8 TUs: src_ctus (n, 64, 64) uint8;
-ref_plane (Hp, Wp) uint8; offsets (n, 2) int32, the [y, x] top-left of each
-CTU's 71x71 refine window in the plane (a start past the plane's end is
-clamped so the window fits); the quantizer parameters are ints inside the
-ranges the HEVC reference asserts.  Returns (rec (n, 64, 64) uint8,
-frac (n,) int32 = yf*4 + xf, cost (n,) int32 QPEL_SCORE of the winner,
-nnz (n, 8, 8) int32 coded coefficients per TU, bits (n, 8, 8) int32
-Exp-Golomb bit costs per TU).
+Contracts, for n CTUs of 64x64 and 8x8 TUs:
+
+* ``inter_ctu_fused_dma(src_ctus, ref_plane, offsets, qscale, qshift,
+  qoffset, dscale, dshift)``: src_ctus (n, 64, 64) uint8; ref_plane (Hp,
+  Wp) uint8; offsets (n, 2) int32, the [y, x] top-left of each CTU's 71x71
+  refine window in the plane (a start past the plane's end is clamped so
+  the window fits); the quantizer parameters are ints inside the ranges the
+  HEVC reference asserts.  Returns (rec (n, 64, 64) uint8, frac (n,) int32
+  = yf*4 + xf, cost (n,) int32 QPEL_SCORE of the winner, nnz (n, 8, 8)
+  int32 coded coefficients per TU, bits (n, 8, 8) int32 Exp-Golomb bit
+  costs per TU).
+* ``inter_ctu_fused(src_ctus, windows, ...)``: the same outputs from
+  gathered windows (n, >= 71, >= 71) uint8 at the integer MV, of which the
+  top-left 71x71 is read.  ``inter_ctu_fused_batched(..., group)`` is the
+  same function (the TPU kernel's CTU groups are a grid-step device; the
+  port ignores ``group``).  The TPU kernels take (72, 128) slabs; only
+  their top-left 71x71 is ever used, so the port takes any window of at
+  least that size.
+* ``refine_quarter_pel_fused(src, windows)``: src (n, b, b) uint8 with b in
+  {8, 16, 32, 64}, windows (n, >= b+7, >= b+7) uint8 at the integer MV (the
+  top-left (b+7)^2 is read).  Returns (pred (n, b, b) uint8, frac (n,)
+  int32 = yf*4 + xf, cost (n,) int32).  It is also the KERNEL tier of the
+  registry's ``refine_qpel`` op, as JAX registers it as that op's PALLAS
+  tier.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -30,11 +54,14 @@ from ..ops.residual import bits_egk, residual_levels
 from ..utils.tensor import as_tensor
 from . import build
 
-__all__ = ["inter_ctu_fused_dma", "inter_ctu_fused_dma_ref"]
+__all__ = ["inter_ctu_fused_dma", "inter_ctu_fused_dma_ref", "inter_ctu_fused",
+           "inter_ctu_fused_ref", "inter_ctu_fused_batched", "inter_ctu_fused_batched_ref",
+           "refine_quarter_pel_fused", "refine_quarter_pel_fused_ref", "REFINE_BLOCKS"]
 
 CTU = 64
 TU = 8
 WIN = CTU + TAPS - 1
+REFINE_BLOCKS = (8, 16, 32, 64)       # block sides B11 takes
 
 
 def _check(src: torch.Tensor, plane: torch.Tensor, offsets: torch.Tensor,
@@ -46,9 +73,28 @@ def _check(src: torch.Tensor, plane: torch.Tensor, offsets: torch.Tensor,
                          f"got {tuple(plane.shape)}")
     if offsets.shape != (src.shape[0], 2):
         raise ValueError(f"offsets must be ({src.shape[0]}, 2), got {tuple(offsets.shape)}")
+    _check_quant(qscale, qshift, qoffset, dshift)
+
+
+def _check_quant(qscale, qshift, qoffset, dshift) -> None:
     check_quant_params(qscale, qshift, qoffset)
     if not 1 <= int(dshift) <= 31:
         raise ValueError(f"dshift={dshift} outside [1, 31]")
+
+
+def _check_windows(src: torch.Tensor, windows: torch.Tensor, sizes: tuple[int, ...],
+                   what: str) -> int:
+    if src.dim() != 3 or src.shape[1] != src.shape[2] or src.shape[1] not in sizes:
+        raise ValueError(f"{what}: src must be (n, b, b) with b in {sizes}, "
+                         f"got {tuple(src.shape)}")
+    b = src.shape[1]
+    if windows.dim() != 3 or windows.shape[0] != src.shape[0] \
+            or min(windows.shape[1:]) < b + TAPS - 1:
+        raise ValueError(f"{what}: windows must be ({src.shape[0]}, >= {b + TAPS - 1}, "
+                         f">= {b + TAPS - 1}), got {tuple(windows.shape)}")
+    return b
+
+
 
 
 def residual_8x8(src, pred, qscale, qshift, qoffset, dscale, dshift):
@@ -121,7 +167,123 @@ def inter_ctu_fused_dma(src_ctus, ref_plane, offsets, qscale, qshift,
     return rec, frac, cost, nnz, bits
 
 
+def inter_ctu_fused_ref(src_ctus, windows, qscale, qshift, qoffset, dscale, dshift):
+    """Plain version: ops.pred_inter.refine_qpel on each window's top-left
+    71x71, then the REF residual pipeline with nnz and Exp-Golomb bits per
+    8x8 TU."""
+    src = as_tensor(src_ctus)
+    windows = as_tensor(windows, src.device)
+    _check_windows(src, windows, (CTU,), "inter_ctu_fused")
+    _check_quant(qscale, qshift, qoffset, dshift)
+    pred, frac, cost = refine_qpel(src, windows[:, :WIN, :WIN])
+    rec, nnz, bits = residual_8x8(src, pred, qscale, qshift, qoffset, dscale, dshift)
+    return rec, frac, cost, nnz, bits
+
+
+@functools.lru_cache(maxsize=8)
+def _window_offsets(n: int, wh: int, device: torch.device) -> torch.Tensor:
+    """(n, 2) int32 [i * wh, 0]: window i's top-left row in a stack of n
+    windows of wh rows viewed as one plane.  Cached, so a frame's call
+    launches nothing but the kernel."""
+    rows = torch.arange(n, dtype=torch.int32, device=device) * wh
+    return torch.stack([rows, torch.zeros_like(rows)], dim=-1)
+
+
+def inter_ctu_fused(src_ctus, windows, qscale, qshift, qoffset, dscale, dshift):
+    """Fused refine + residual on gathered windows.  CPU tensors run the
+    plain version; CUDA tensors launch K2's kernel with the contiguous
+    window stack viewed as a plane of n * Wh rows, CTU i's window at offset
+    (i * Wh, 0) (and raise if it cannot be built or launched)."""
+    src = as_tensor(src_ctus)
+    windows = as_tensor(windows, src.device)
+    if src.device.type == "cpu":
+        return inter_ctu_fused_ref(src, windows, qscale, qshift, qoffset, dscale, dshift)
+    dev = build.on_card("inter_ctu_fused", src, windows)
+    if src.dtype != torch.uint8 or windows.dtype != torch.uint8:
+        raise TypeError("inter_ctu_fused: src_ctus and windows must be uint8")
+    if not (src.is_contiguous() and windows.is_contiguous()):
+        raise ValueError("inter_ctu_fused: inputs must be contiguous")
+    _check_windows(src, windows, (CTU,), "inter_ctu_fused")
+    _check_quant(qscale, qshift, qoffset, dshift)
+    n, wh, ww = windows.shape
+    if n * wh >= 2 ** 31:
+        raise ValueError(f"inter_ctu_fused: {n} windows of {wh} rows pass 2^31 rows")
+    offsets = _window_offsets(n, wh, dev)
+    k = CTU // TU
+    rec = torch.empty((n, CTU, CTU), dtype=torch.uint8, device=dev)
+    frac = torch.empty((n,), dtype=torch.int32, device=dev)
+    cost = torch.empty((n,), dtype=torch.int32, device=dev)
+    nnz = torch.empty((n, k, k), dtype=torch.int32, device=dev)
+    bits = torch.empty((n, k, k), dtype=torch.int32, device=dev)
+    lib = build.load()
+    err = lib.hevc_inter_fused(
+        src.data_ptr(), windows.data_ptr(), offsets.data_ptr(), rec.data_ptr(),
+        frac.data_ptr(), cost.data_ptr(), nnz.data_ptr(), bits.data_ptr(), n,
+        n * wh, ww, int(qscale), int(qshift), int(qoffset), int(dscale), int(dshift),
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "inter_ctu_fused")
+    inter_ctu_fused.launches += 1
+    return rec, frac, cost, nnz, bits
+
+
+def inter_ctu_fused_batched_ref(src_ctus, windows, qscale, qshift, qoffset, dscale,
+                                dshift, group: int = 6):
+    """Plain version: inter_ctu_fused_ref; ``group`` is accepted and ignored."""
+    return inter_ctu_fused_ref(src_ctus, windows, qscale, qshift, qoffset, dscale, dshift)
+
+
+def inter_ctu_fused_batched(src_ctus, windows, qscale, qshift, qoffset, dscale, dshift,
+                            group: int = 6):
+    """inter_ctu_fused, for any n and ``group`` (accepted and ignored): the
+    launch is inter_ctu_fused's and is counted there."""
+    return inter_ctu_fused(src_ctus, windows, qscale, qshift, qoffset, dscale, dshift)
+
+
+def refine_quarter_pel_fused_ref(src, windows):
+    """Plain version: ops.pred_inter.refine_qpel on each window's top-left
+    (b+7)^2."""
+    src = as_tensor(src)
+    windows = as_tensor(windows, src.device)
+    b = _check_windows(src, windows, REFINE_BLOCKS, "refine_quarter_pel_fused")
+    return refine_qpel(src, windows[:, :b + TAPS - 1, :b + TAPS - 1])
+
+
+def refine_quarter_pel_fused(src, windows):
+    """(pred, frac, cost).  CPU tensors run the plain version; CUDA tensors
+    launch the kernel (and raise if it cannot be built or launched)."""
+    src = as_tensor(src)
+    windows = as_tensor(windows, src.device)
+    if src.device.type == "cpu":
+        return refine_quarter_pel_fused_ref(src, windows)
+    dev = build.on_card("refine_quarter_pel_fused", src, windows)
+    if src.dtype != torch.uint8 or windows.dtype != torch.uint8:
+        raise TypeError("refine_quarter_pel_fused: src and windows must be uint8")
+    if not src.is_contiguous() or windows.stride(2) != 1 or windows.stride(1) >= 2 ** 31:
+        raise ValueError("refine_quarter_pel_fused: src must be contiguous and "
+                         "windows rows contiguous")
+    b = _check_windows(src, windows, REFINE_BLOCKS, "refine_quarter_pel_fused")
+    n = src.shape[0]
+    pred = torch.empty((n, b, b), dtype=torch.uint8, device=dev)
+    frac = torch.empty((n,), dtype=torch.int32, device=dev)
+    cost = torch.empty((n,), dtype=torch.int32, device=dev)
+    lib = build.load()
+    err = lib.hevc_refine_fused(
+        src.data_ptr(), windows.data_ptr(), windows.stride(0), windows.stride(1),
+        pred.data_ptr(), frac.data_ptr(), cost.data_ptr(), n, b, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "refine_quarter_pel_fused")
+    refine_quarter_pel_fused.launches += 1
+    return pred, frac, cost
+
+
 inter_ctu_fused_dma.launches = 0
+inter_ctu_fused.launches = 0
+refine_quarter_pel_fused.launches = 0
 
 registry.register("inter_ctu_fused_dma", Tier.REF, inter_ctu_fused_dma_ref)
 registry.register("inter_ctu_fused_dma", Tier.KERNEL, inter_ctu_fused_dma)
+registry.register("inter_ctu_fused", Tier.REF, inter_ctu_fused_ref)
+registry.register("inter_ctu_fused", Tier.KERNEL, inter_ctu_fused)
+registry.register("refine_quarter_pel_fused", Tier.REF, refine_quarter_pel_fused_ref)
+registry.register("refine_quarter_pel_fused", Tier.KERNEL, refine_quarter_pel_fused)
+registry.register("refine_qpel", Tier.KERNEL, refine_quarter_pel_fused)

@@ -1,11 +1,13 @@
-"""Kernels K1 and B8: exact SSD grids, windows read from the plane (K1) or
-given (B8).
+"""Kernels K1, B7 and B8: exact SSD grids, windows read from one plane
+(K1), from each of k planes (B7), or given (B8).
 
 ``ssd_grid_plane`` replaces the TPU kernel
 ``hevcasm_tpu/kernels/search_pallas.py`` ``ssd_grid_plane`` (body
-``_kernel_slab``), and ``ssd_grid`` the TPU kernel ``ssd_grid`` of the same
-file.  The CUDA sources are ``csrc/ssd_grid_plane.cu`` and
-``csrc/ssd_grid.cu``; their headers say what bounds them on the card.
+``_kernel_slab``), ``ssd_grid_plane_multi`` the TPU kernel
+``ssd_grid_plane_multi`` (``_kernel_slab_multi``), and ``ssd_grid`` the TPU
+kernel ``ssd_grid`` of the same file.  K1 and B7 are two C entries of
+``csrc/ssd_grid_plane.cu``, B8 is ``csrc/ssd_grid.cu``; their headers say
+what bounds them on the card.
 Beside each stands its plain PyTorch version (``*_ref``), which the CPU
 tests use and which the kernel is held against on the card.
 
@@ -17,6 +19,11 @@ Contracts:
   left, so the window of CTU (r, c) is plane[64r : 64r + 64 + 2R, 64c : 64c
   + 64 + 2R].  Returns (n, 2R+1, 2R+1) int32 exact SSD grids in [dy, dx]
   order, for 1 <= R <= 32 and any grid.
+* ``ssd_grid_plane_multi(src, planes, grid, num)``: K1 against each of k
+  planes (k, Hp, Wp), each padded and sized as K1's plane (rows contiguous,
+  any plane and row stride, so a view of larger padded planes serves);
+  returns (n, k, 2R+1, 2R+1) int32 in [dy, dx] order.  The TPU kernel takes
+  R = 32 and an even grid width only; the port takes K1's range.
 * ``ssd_grid(src, window, num_dy, num_dx)``: src (n, b, b) uint8, window
   (n, >= b + num_dy - 1, >= b + num_dx - 1) uint8 -> (n, num_dy, num_dx)
   int32, ``out[i, dy, dx] = sum (window[i, dy + y, dx + x] - src[i, y,
@@ -34,7 +41,8 @@ from ..ops.ssd import ssd_grid as ssd_grid_ref
 from ..utils.tensor import as_tensor
 from . import build
 
-__all__ = ["ssd_grid_plane", "ssd_grid_plane_ref", "ssd_grid", "ssd_grid_ref",
+__all__ = ["ssd_grid_plane", "ssd_grid_plane_ref", "ssd_grid_plane_multi",
+           "ssd_grid_plane_multi_ref", "ssd_grid", "ssd_grid_ref",
            "MAX_RADIUS", "GRID_BLOCKS", "MAX_WINDOW"]
 
 CTU = 64
@@ -105,6 +113,52 @@ def ssd_grid_plane(src_ctus, plane, grid: tuple[int, int],
     return out
 
 
+def _check_planes(src: torch.Tensor, planes: torch.Tensor,
+                  grid: tuple[int, int], num: int) -> int:
+    if planes.dim() != 3 or planes.shape[0] < 1:
+        raise ValueError(f"planes must be (k, Hp, Wp) with k >= 1, got {tuple(planes.shape)}")
+    return _check_geometry(src, planes[0], grid, num)
+
+
+def ssd_grid_plane_multi_ref(src_ctus, planes, grid: tuple[int, int],
+                             num: int) -> torch.Tensor:
+    """Plain version: K1's plain version for each plane, stacked on axis 1."""
+    src = as_tensor(src_ctus)
+    planes = as_tensor(planes, src.device)
+    _check_planes(src, planes, grid, num)
+    return torch.stack([ssd_grid_plane_ref(src, p, grid, num) for p in planes], dim=1)
+
+
+def ssd_grid_plane_multi(src_ctus, planes, grid: tuple[int, int],
+                         num: int) -> torch.Tensor:
+    """Exact SSD grids (n, k, num, num) int32 against k planes.  CPU tensors
+    run the plain version; CUDA tensors launch the kernel (and raise if it
+    cannot be built or launched)."""
+    src = as_tensor(src_ctus)
+    planes = as_tensor(planes, src.device)
+    if src.device.type == "cpu":
+        return ssd_grid_plane_multi_ref(src, planes, grid, num)
+    if src.device.type != "cuda" or planes.device != src.device:
+        raise ValueError(f"ssd_grid_plane_multi: tensors on {src.device} and "
+                         f"{planes.device}; need one CUDA device")
+    if src.dtype != torch.uint8 or planes.dtype != torch.uint8:
+        raise TypeError("ssd_grid_plane_multi: src_ctus and planes must be uint8")
+    if not src.is_contiguous() or planes.stride(2) != 1 or planes.stride(1) >= 2 ** 31:
+        raise ValueError("ssd_grid_plane_multi: src_ctus must be contiguous and "
+                         "plane rows contiguous")
+    r = _check_planes(src, planes, grid, num)
+    n, k = src.shape[0], planes.shape[0]
+    out = torch.empty((n, k, num, num), dtype=torch.int32, device=src.device)
+    lib = build.load()
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    err = lib.hevc_ssd_grid_plane_multi(
+        src.data_ptr(), planes.data_ptr(), out.data_ptr(), n, k, grid[1],
+        planes.stride(0), planes.stride(1), r, src.device.index or 0, stream)
+    build.check(err, "ssd_grid_plane_multi")
+    ssd_grid_plane_multi.launches += 1
+    return out
+
+
 def ssd_grid(src, window, num_dy: int, num_dx: int) -> torch.Tensor:
     """Exact SSD grids (n, num_dy, num_dx) int32 of blocks against their
     windows.  CPU tensors run the plain version (ops.ssd.ssd_grid); CUDA
@@ -146,8 +200,11 @@ def ssd_grid(src, window, num_dy: int, num_dx: int) -> torch.Tensor:
 
 
 ssd_grid_plane.launches = 0
+ssd_grid_plane_multi.launches = 0
 ssd_grid.launches = 0
 
 registry.register("ssd_grid_plane", Tier.REF, ssd_grid_plane_ref)
 registry.register("ssd_grid_plane", Tier.KERNEL, ssd_grid_plane)
+registry.register("ssd_grid_plane_multi", Tier.REF, ssd_grid_plane_multi_ref)
+registry.register("ssd_grid_plane_multi", Tier.KERNEL, ssd_grid_plane_multi)
 registry.register("ssd_grid", Tier.KERNEL, ssd_grid)

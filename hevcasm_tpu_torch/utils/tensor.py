@@ -19,6 +19,19 @@ def as_tensor(x, device: torch.device | None = None) -> torch.Tensor:
     return torch.as_tensor(a, device=device)
 
 
+def entry_device(x, device=None) -> torch.device:
+    """The device an entry point runs on for its first input ``x``: a
+    tensor's own (the caller chose it); for anything else ``device``, by
+    default the CUDA card.  Raises RuntimeError when that is a CUDA device
+    and there is none: the CPU runs only when the caller asks for it."""
+    if isinstance(x, torch.Tensor):
+        return x.device
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to encode on the CPU")
+    return dev
+
+
 def first_min(costs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(index, value) of the first minimum along the last axis: the minimum
     value, then the smallest index among the entries equal to it.  The

@@ -15,11 +15,13 @@ import torch
 from hevcasm_tpu_torch import Tier
 from hevcasm_tpu_torch.encode import ctu as ctu_mod
 from hevcasm_tpu_torch.encode import motion
-from hevcasm_tpu_torch.encode.loop import EncodeConfig, encode_inter_frame
+from hevcasm_tpu_torch.encode.loop import (EncodeConfig, encode_inter_frame,
+                                           encode_inter_frame_multiref)
 from hevcasm_tpu_torch.encode.video import (YuvFrame, encode_b_frame_yuv,
                                             encode_inter_frame_yuv)
 from hevcasm_tpu_torch.encode import partition
-from hevcasm_tpu_torch.kernels import base_grids, bi_fused, costmap, inter_fused, search
+from hevcasm_tpu_torch.kernels import (base_grids, bi_fused, costmap, inter_fused,
+                                       residual_ctu, search)
 
 pytestmark = pytest.mark.cuda
 
@@ -69,6 +71,63 @@ def test_k1_rejects_what_it_does_not_take(cuda):
         search.ssd_grid_plane(src.to(torch.int16), plane, (1, 2), 17)
     with pytest.raises(ValueError, match="contiguous"):
         search.ssd_grid_plane(src, plane[:, :-1], (1, 2), 17)
+
+
+# ---- B7: ssd_grid_plane_multi ------------------------------------------------
+
+@pytest.mark.parametrize("grid,r,k", [((2, 2), 32, 3), ((3, 5), 8, 2), ((1, 1), 1, 4),
+                                      ((2, 3), 17, 1), ((17, 30), 32, 4)])
+def test_b7_matches_plain(cuda, grid, r, k):
+    rng = np.random.default_rng(sum(grid) + r + k)
+    gr, gc = grid
+    planes = random_u8(rng, (k, gr * 64 + 2 * r, gc * 64 + 2 * r), cuda)
+    src = random_u8(rng, (gr * gc, 64, 64), cuda)
+    before = search.ssd_grid_plane_multi.launches
+    got = search.ssd_grid_plane_multi(src, planes, grid, 2 * r + 1)
+    assert search.ssd_grid_plane_multi.launches == before + 1
+    assert_bit_equal([got], [search.ssd_grid_plane_multi_ref(src, planes, grid, 2 * r + 1)])
+    assert_bit_equal([got[:, -1]], [search.ssd_grid_plane(src, planes[-1].contiguous(), grid,
+                                                          2 * r + 1)])
+
+
+def test_b7_reads_a_view_of_larger_planes(cuda):
+    # full_search_multi passes the loop's padded planes cut to R of padding.
+    rng = np.random.default_rng(7)
+    planes = random_u8(rng, (3, 2 * 64 + 2 * 8 + 7, 3 * 64 + 2 * 8 + 7), cuda)
+    view = planes[:, 3:3 + 2 * 64 + 16, 3:3 + 3 * 64 + 16]
+    src = random_u8(rng, (6, 64, 64), cuda)
+    got = search.ssd_grid_plane_multi(src, view, (2, 3), 17)
+    assert_bit_equal([got], [search.ssd_grid_plane_multi_ref(src, view.contiguous(), (2, 3),
+                                                             17)])
+
+
+def test_b7_rejects_what_it_does_not_take(cuda):
+    src = torch.zeros((2, 64, 64), dtype=torch.uint8, device=cuda)
+    planes = torch.zeros((2, 64 + 16, 128 + 16), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        search.ssd_grid_plane_multi(src, planes.to(torch.int16), (1, 2), 17)
+    with pytest.raises(ValueError, match="contiguous"):
+        search.ssd_grid_plane_multi(src, planes.transpose(1, 2), (1, 2), 17)
+    with pytest.raises(ValueError, match="smaller"):
+        search.ssd_grid_plane_multi(src, planes[:, :-1], (1, 2), 17)
+
+
+@pytest.mark.parametrize("joint", [True, False])
+def test_full_search_multi_launches_b7_and_matches_the_grid_route(cuda, joint):
+    rng = np.random.default_rng(3)
+    refs = random_u8(rng, (3, 128, 192), cuda)
+    cur = random_u8(rng, (128, 192), cuda)
+    src = ctu_mod.tile_frame(cur, 64).contiguous()
+    planes = torch.stack([ctu_mod.pad_frame(p, 11, 12, 11, 12) for p in refs])
+    pos = motion.ctu_positions(2, 3, 64, cuda)
+    before = (search.ssd_grid_plane_multi.launches, search.ssd_grid.launches)
+    got = motion.full_search_multi(src, planes, pos, 8, grid=(2, 3), joint=joint,
+                                   metric="ssd")
+    assert (search.ssd_grid_plane_multi.launches, search.ssd_grid.launches) == \
+        (before[0] + 1, before[1])
+    want = motion.full_search_multi(src, planes, pos, 8, grid_fn=search.ssd_grid_ref,
+                                    grid=(2, 3), joint=joint)       # the grid route
+    assert_bit_equal(got, want)
 
 
 # ---- B8: ssd_grid ------------------------------------------------------------
@@ -157,6 +216,111 @@ def test_k2_rejects_what_it_does_not_take(cuda):
         inter_fused.inter_ctu_fused_dma(src, plane, offsets.long(), *qargs)
     with pytest.raises(ValueError, match="shift"):
         inter_fused.inter_ctu_fused_dma(src, plane, offsets, qargs[0], 15, *qargs[2:])
+
+
+# ---- B16: inter_ctu_fused and inter_ctu_fused_batched -------------------------
+
+@pytest.mark.parametrize("seed,r,qp,h,w,extra", [
+    (13, 8, 32, 128, 192, 0), (2, 32, 22, 256, 320, 57), (9, 32, 51, 1088, 1920, 0)])
+def test_b16_matches_plain(cuda, seed, r, qp, h, w, extra):
+    src, plane, offsets, qargs = k2_case(seed, r, qp, h, w, cuda)
+    wide = ctu_mod.pad_frame(plane, 0, extra, 0, extra)
+    win = motion.extract_windows(wide, offsets, 71 + extra)
+    before = inter_fused.inter_ctu_fused.launches
+    got = inter_fused.inter_ctu_fused(src, win, *qargs)
+    assert inter_fused.inter_ctu_fused.launches == before + 1
+    assert_bit_equal(got, inter_fused.inter_ctu_fused_ref(src, win, *qargs))
+    assert_bit_equal(got, inter_fused.inter_ctu_fused_dma(src, plane, offsets, *qargs))
+    for group in (4, 7):                                 # n % group != 0 for 6 and 510
+        batched = inter_fused.inter_ctu_fused_batched(src, win, *qargs, group=group)
+        assert_bit_equal(batched, got)
+    assert inter_fused.inter_ctu_fused.launches == before + 3
+
+
+def test_b16_rejects_what_it_does_not_take(cuda):
+    src, plane, offsets, qargs = k2_case(1, 8, 32, 128, 192, cuda)
+    win = motion.extract_windows(plane, offsets, 71)
+    with pytest.raises(TypeError):
+        inter_fused.inter_ctu_fused(src, win.to(torch.int16), *qargs)
+    with pytest.raises(ValueError, match="contiguous"):
+        inter_fused.inter_ctu_fused(src, win.transpose(1, 2), *qargs)
+    with pytest.raises(ValueError, match="windows"):
+        inter_fused.inter_ctu_fused(src, win[:, :70].contiguous(), *qargs)
+
+
+# ---- B11: refine_quarter_pel_fused ---------------------------------------------
+
+@pytest.mark.parametrize("b,n,extra", [(8, 37, 0), (16, 21, 3), (32, 5, 0), (64, 6, 9),
+                                       (64, 510, 0), (16, 8160, 0)])
+def test_b11_matches_plain(cuda, b, n, extra):
+    rng = np.random.default_rng(b + n + extra)
+    src = random_u8(rng, (n, b, b), cuda)
+    win = random_u8(rng, (n, b + 7 + extra, b + 7 + 2 * extra), cuda)
+    before = inter_fused.refine_quarter_pel_fused.launches
+    got = inter_fused.refine_quarter_pel_fused(src, win)
+    assert inter_fused.refine_quarter_pel_fused.launches == before + 1
+    assert_bit_equal(got, inter_fused.refine_quarter_pel_fused_ref(src, win))
+
+
+@pytest.mark.parametrize("b", [8, 16, 32, 64])
+def test_b11_constant_windows_take_the_first_fraction(cuda, b):
+    rng = np.random.default_rng(b)
+    src = random_u8(rng, (9, b, b), cuda)
+    win = torch.full((9, b + 7, b + 7), 97, dtype=torch.uint8, device=cuda)
+    got = inter_fused.refine_quarter_pel_fused(src, win)
+    assert int(got[1].abs().max()) == 0 and bool((got[0] == 97).all())
+    assert_bit_equal(got, inter_fused.refine_quarter_pel_fused_ref(src, win))
+
+
+def test_b11_rejects_what_it_does_not_take(cuda):
+    src = torch.zeros((2, 16, 16), dtype=torch.uint8, device=cuda)
+    win = torch.zeros((2, 23, 23), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        inter_fused.refine_quarter_pel_fused(src, win.to(torch.int16))
+    with pytest.raises(ValueError, match="b in"):
+        inter_fused.refine_quarter_pel_fused(src[:, :12, :12].contiguous(), win)
+    with pytest.raises(ValueError, match="contiguous"):
+        inter_fused.refine_quarter_pel_fused(src, win.transpose(1, 2))
+
+
+# ---- B4: residual_pipeline_ctu ---------------------------------------------------
+
+@pytest.mark.parametrize("tu,tr_type,qp,n", [(4, 0, 32, 7), (4, 1, 27, 7), (8, 0, 32, 7),
+                                             (16, 0, 22, 7), (32, 0, 37, 7), (32, 0, 4, 3),
+                                             (8, 0, 51, 510), (32, 0, 32, 510)])
+def test_b4_matches_plain(cuda, tu, tr_type, qp, n):
+    rng = np.random.default_rng(tu + qp + n)
+    src = random_u8(rng, (n, 64, 64), cuda)
+    pred = random_u8(rng, (n, 64, 64), cuda)
+    cfg = EncodeConfig(qp=qp, tu=tu)
+    qargs = (*cfg.quant_params(bool(tr_type)), *cfg.dequant_params())
+    before = residual_ctu.residual_pipeline_ctu.launches
+    got = residual_ctu.residual_pipeline_ctu(src, pred, *qargs, tu=tu, tr_type=tr_type)
+    assert residual_ctu.residual_pipeline_ctu.launches == before + 1
+    assert_bit_equal(got, residual_ctu.residual_pipeline_ctu_ref(src, pred, *qargs, tu=tu,
+                                                                  tr_type=tr_type))
+
+
+def test_b4_matches_k2s_residual_stage(cuda):
+    # B4 at 8x8 TUs and K2 share residual_core.cuh: the same CTUs coded
+    # against the prediction K2 picks give the same recon and nnz.
+    src, plane, offsets, qargs = k2_case(5, 8, 32, 128, 192, cuda)
+    rec, frac, _, nnz, _ = inter_fused.inter_ctu_fused_dma(src, plane, offsets, *qargs)
+    pred, frac_b11, _ = inter_fused.refine_quarter_pel_fused(
+        src, motion.extract_windows(plane, offsets, 71))
+    assert torch.equal(frac, frac_b11)
+    assert_bit_equal(residual_ctu.residual_pipeline_ctu(src, pred, *qargs), (rec, nnz))
+
+
+def test_b4_rejects_what_it_does_not_take(cuda):
+    src = torch.zeros((2, 64, 64), dtype=torch.uint8, device=cuda)
+    qargs = (*EncodeConfig().quant_params(False), *EncodeConfig().dequant_params())
+    with pytest.raises(TypeError):
+        residual_ctu.residual_pipeline_ctu(src, src.to(torch.int16), *qargs)
+    with pytest.raises(ValueError, match="DST"):
+        residual_ctu.residual_pipeline_ctu(src, src, *qargs, tu=8, tr_type=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        residual_ctu.residual_pipeline_ctu(src, src.transpose(1, 2), *qargs)
 
 
 # ---- B3: bi_ctu_fused_dma ----------------------------------------------------
@@ -376,7 +540,7 @@ def test_card_matches_cpu(cuda, h, w, r, impl):
                                  torch.as_tensor(ref, device=cuda), cfg)
     assert search.ssd_grid_plane.launches == before[0] + 1
     assert inter_fused.inter_ctu_fused_dma.launches == before[1] + (impl == "fused_dma")
-    on_cpu = encode_inter_frame(cur, ref, cfg, tiers=Tier.REF)
+    on_cpu = encode_inter_frame(cur, ref, cfg, tiers=Tier.REF, device="cpu")
     for k in ("recon", "mvs", "sad", "nnz"):
         assert torch.equal(on_card[k].cpu(), on_cpu[k]), k
     assert abs(float(on_card["psnr_db"]) - float(on_cpu["psnr_db"])) <= 1e-3
@@ -391,7 +555,7 @@ def test_grid_search_runs_b8_and_matches_cpu(cuda, r, kw):
                                  torch.as_tensor(ref, device=cuda), cfg)
     assert (search.ssd_grid.launches, search.ssd_grid_plane.launches) == \
         (before[0] + 1, before[1])
-    on_cpu = encode_inter_frame(cur, ref, cfg)
+    on_cpu = encode_inter_frame(cur, ref, cfg, device="cpu")
     for k in ("recon", "mvs", "sad", "nnz"):
         assert torch.equal(on_card[k].cpu(), on_cpu[k]), k
     assert abs(float(on_card["psnr_db"]) - float(on_cpu["psnr_db"])) <= 1e-3
@@ -468,7 +632,7 @@ def test_rdo_frame_on_card_matches_plain_and_cpu(cuda, r, variant):
     assert got == want
     plain = encode_inter_frame(torch.as_tensor(cur, device=cuda),
                                torch.as_tensor(ref, device=cuda), cfg, tiers=Tier.REF)
-    on_cpu = encode_inter_frame(cur, ref, cfg)
+    on_cpu = encode_inter_frame(cur, ref, cfg, device="cpu")
     assert set(on_card) == set(plain) == set(on_cpu)
     for other in (plain, on_cpu):
         for k in on_card:
@@ -476,3 +640,124 @@ def test_rdo_frame_on_card_matches_plain_and_cpu(cuda, r, variant):
                 assert abs(float(on_card[k]) - float(other[k])) <= 1e-3
             else:
                 assert torch.equal(on_card[k].cpu(), other[k].cpu()), k
+
+
+# ---- the multi-reference P frame and the fused configurations ---------------------
+
+def counts():
+    return {"k1": search.ssd_grid_plane, "b7": search.ssd_grid_plane_multi,
+            "b8": search.ssd_grid, "k2": inter_fused.inter_ctu_fused_dma,
+            "b16": inter_fused.inter_ctu_fused, "b11": inter_fused.refine_quarter_pel_fused,
+            "b4": residual_ctu.residual_pipeline_ctu, "b3": bi_fused.bi_ctu_fused_dma}
+
+
+def launched(fn):
+    """fn()'s result and the launches of every kernel during it."""
+    before = {k: f.launches for k, f in counts().items()}
+    out = fn()
+    return out, {k: f.launches - before[k] for k, f in counts().items() if f.launches > before[k]}
+
+
+def assert_same_outputs(got, want):
+    assert set(got) == set(want)
+    for k in got:
+        if k.startswith("psnr"):
+            assert abs(float(got[k]) - float(want[k])) <= 1e-3, k
+        elif k == "recon" and isinstance(got[k], tuple):
+            for a, b in zip(got[k], want[k]):
+                assert torch.equal(a.cpu(), b.cpu())
+        else:
+            assert torch.equal(got[k].cpu(), want[k].cpu()), k
+
+
+def multiref_frames(h, w, seed=5):
+    """cur and three references: cur moved by (1, -2) with noise on its
+    right half, the panned reference, and cur moved by (-2, 3) with noise
+    on its left half, so the left CTUs pick reference 0 and the right ones
+    reference 2."""
+    cur, ref = pan_frames(h, w)
+    noise = np.random.default_rng(seed).integers(-40, 41, cur.shape)
+    left = np.roll(cur, (1, -2), (0, 1)).astype(np.int32)
+    left[:, w // 2:] += noise[:, w // 2:]
+    right = np.roll(cur, (-2, 3), (0, 1)).astype(np.int32)
+    right[:, :w // 2] += noise[:, :w // 2]
+    refs = [np.clip(p, 0, 255).astype(np.uint8) for p in (left, ref, right)]
+    return cur, np.stack(refs)
+
+
+MULTIREF = {
+    "stages": (dict(), {"b7": 1}),
+    "fused": (dict(inter_impl="fused"), {"b7": 1, "b16": 1}),
+    "fused_batched": (dict(inter_impl="fused_batched", fused_group=4), {"b7": 1, "b16": 1}),
+    "fused_dma": (dict(inter_impl="fused_dma"), {"b7": 1, "k2": 1}),
+    "fused_refine+pallas": (dict(fused_refine=True, residual_impl="pallas"),
+                            {"b7": 1, "b11": 1, "b4": 1}),
+    "mega": (dict(inter_impl="mega"), {"b7": 1}),
+}
+
+
+@pytest.mark.parametrize("r", [8, 32])
+@pytest.mark.parametrize("variant", list(MULTIREF))
+def test_multiref_on_card_matches_plain_and_cpu(cuda, r, variant):
+    cur, refs = multiref_frames(128, 192)
+    kw, want = MULTIREF[variant]
+    cfg = EncodeConfig(search_range=r, qp=32, **kw)
+    on_card, got = launched(lambda: encode_inter_frame_multiref(cur, refs, cfg))
+    assert got == want
+    assert on_card["recon"].device.type == "cuda"
+    plain = encode_inter_frame_multiref(cur, refs, cfg, tiers=Tier.REF)
+    on_cpu = encode_inter_frame_multiref(cur, refs, cfg, device="cpu")
+    assert_same_outputs(on_card, plain)
+    assert_same_outputs(on_card, on_cpu)
+    assert len(torch.unique(on_card["ref_idx"])) > 1
+
+
+FUSED = {
+    "fused": (dict(inter_impl="fused"), {"k1": 1, "b16": 1}),
+    "fused_batched": (dict(inter_impl="fused_batched", fused_group=4), {"k1": 1, "b16": 1}),
+    "fused_refine": (dict(fused_refine=True), {"k1": 1, "b11": 1}),
+    "pallas": (dict(residual_impl="pallas"), {"k1": 1, "b4": 1}),
+}
+
+
+@pytest.mark.parametrize("variant", list(FUSED))
+@pytest.mark.parametrize("kind", ["luma", "P"])
+def test_fused_configurations_on_card_match_plain_and_cpu(cuda, kind, variant):
+    kw, want = FUSED[variant]
+    cfg = EncodeConfig(search_range=8, qp=32, **kw)
+    if kind == "luma":
+        cur, ref = pan_frames(128, 192)
+        frames = ((torch.as_tensor(cur, device=cuda), torch.as_tensor(ref, device=cuda)),
+                  (torch.as_tensor(cur), torch.as_tensor(ref)))
+        run = encode_inter_frame
+    else:
+        ref0, cur, _ = yuv_clip(128, 192, cuda)
+        frames = ((cur, ref0), tuple(YuvFrame(*(p.cpu() for p in f)) for f in (cur, ref0)))
+        run = encode_inter_frame_yuv
+    on_card, got = launched(lambda: run(*frames[0], cfg))
+    assert got == want
+    assert_same_outputs(on_card, run(*frames[0], cfg, tiers=Tier.REF))
+    assert_same_outputs(on_card, run(*frames[1], cfg))
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(residual_impl="pallas"), {"k1": 2, "b4": 1}),
+    (dict(search_impl="grid"), {"b7": 1}),
+    (dict(search_impl="grid", inter_impl="fused"), {"b7": 1, "b3": 1}),
+])
+def test_b_frame_on_card_runs_b4_and_b7(cuda, kw, want):
+    ref0, cur, ref1 = yuv_clip(128, 192, cuda)
+    cfg = EncodeConfig(search_range=8, qp=32, **kw)
+    on_card, got = launched(lambda: encode_b_frame_yuv(cur, ref0, ref1, cfg))
+    assert got == want
+    assert_same_outputs(on_card, encode_b_frame_yuv(cur, ref0, ref1, cfg, tiers=Tier.REF))
+    cpu = [YuvFrame(*(p.cpu() for p in f)) for f in (cur, ref0, ref1)]
+    assert_same_outputs(on_card, encode_b_frame_yuv(*cpu, cfg))
+
+
+def test_numpy_input_runs_on_the_card_by_default(cuda):
+    cur, ref = pan_frames(128, 192)
+    cfg = EncodeConfig(search_range=8, qp=32)
+    out = encode_inter_frame(cur, ref, cfg)
+    assert out["recon"].device.type == "cuda"
+    assert_same_outputs(out, encode_inter_frame(cur, ref, cfg, device="cpu"))

@@ -1,8 +1,10 @@
-"""Kernel K2 of hevcasm_tpu_torch (inter_ctu_fused_dma: quarter-pel refine
-fused with the 8x8 residual pipeline): its plain version against the JAX
-kernel in interpret mode on the CPU, all five outputs, with refine windows
-at offset 0 and at the maximum.  The kernel itself is held against its
-plain version in test_torch_cuda.py."""
+"""Kernels K2, B16 and B11 of hevcasm_tpu_torch (inter_ctu_fused_dma and
+inter_ctu_fused[_batched]: quarter-pel refine fused with the 8x8 residual
+pipeline, windows read from the plane or gathered; refine_quarter_pel_fused:
+the refinement alone): their plain versions against the JAX kernels in
+interpret mode on the CPU, every output, with refine windows at offset 0
+and at the maximum.  The kernels themselves are held against their plain
+versions in test_torch_cuda.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -12,8 +14,12 @@ import torch
 from hevcasm_tpu.encode import EncodeConfig as JaxConfig
 from hevcasm_tpu.encode import ctu as jctu
 from hevcasm_tpu.encode import motion as jmotion
+from hevcasm_tpu.kernels.interp_pallas import inter_ctu_fused as jax_fused
+from hevcasm_tpu.kernels.interp_pallas import inter_ctu_fused_batched as jax_fused_batched
 from hevcasm_tpu.kernels.interp_pallas import inter_ctu_fused_dma as jax_fused_dma
+from hevcasm_tpu.kernels.interp_pallas import refine_quarter_pel_fused as jax_refine_fused
 
+from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode import motion as tmotion
 from hevcasm_tpu_torch.encode.loop import EncodeConfig
 from hevcasm_tpu_torch.kernels import inter_fused
@@ -93,3 +99,76 @@ def test_k2_wrapper_checks():
         inter_fused.inter_ctu_fused_dma(src, plane, offsets[:-1], *qargs)
     with pytest.raises(ValueError, match="src_ctus"):
         inter_fused.inter_ctu_fused_dma(src[:, :32], plane, offsets, *qargs)
+
+
+NAMES = ("rec", "frac", "cost", "nnz", "bits")
+
+
+def assert_equal_outputs(got, want, names=NAMES):
+    for name, g, w in zip(names, got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype and g.shape == w.shape, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+def slabs(plane, offsets):
+    """The (72, 128) slabs hevcasm_tpu's loop gathers for B16, from the
+    plane padded so that no gather clamps (tests/test_inter_fused.py)."""
+    padded = np.pad(plane, ((0, 9), (0, 121)), mode="edge")
+    return np.stack([padded[y:y + 72, x:x + 128] for y, x in offsets])
+
+
+@pytest.mark.parametrize("seed,r,qp", [(13, 8, 32), (21, 32, 22)])
+def test_plain_b16_matches_jax_kernels(seed, r, qp):
+    src, plane, offsets, qargs = case(seed, r, qp, content="random" if r == 32 else "shift")
+    win = slabs(plane, offsets)
+    want = jax_fused(jnp.asarray(src), jnp.asarray(win), *qargs)
+    assert_equal_outputs(inter_fused.inter_ctu_fused(src, win, *qargs), want)
+    # The port takes the used 71x71 windows as they are, too.
+    assert_equal_outputs(inter_fused.inter_ctu_fused(src, win[:, :71, :71], *qargs), want)
+    for group in (4, 6):                                # n = 6: a remainder, then exact
+        theirs = jax_fused_batched(jnp.asarray(src), jnp.asarray(win), *qargs, group=group)
+        assert_equal_outputs(inter_fused.inter_ctu_fused_batched(src, win, *qargs,
+                                                                 group=group), theirs)
+
+
+def test_b16_wrapper_checks_and_registry():
+    src, plane, offsets, qargs = case(1, 8)
+    win = slabs(plane, offsets)
+    before = inter_fused.inter_ctu_fused.launches
+    inter_fused.inter_ctu_fused_batched(src, win, *qargs, group=4)
+    assert inter_fused.inter_ctu_fused.launches == before    # CPU: the plain version
+    with pytest.raises(ValueError, match="windows"):
+        inter_fused.inter_ctu_fused(src, win[:, :70], *qargs)
+    with pytest.raises(ValueError, match="src"):
+        inter_fused.inter_ctu_fused(src[:, :32, :32], win, *qargs)
+    with pytest.raises(ValueError, match="shift"):
+        inter_fused.inter_ctu_fused(src, win, qargs[0], 30, *qargs[2:])
+    for op in ("inter_ctu_fused", "refine_quarter_pel_fused"):
+        assert registry.tiers_of(op) == Tier.REF | Tier.KERNEL, op
+    assert registry.get("inter_ctu_fused", Tier.REF) is inter_fused.inter_ctu_fused_ref
+
+
+@pytest.mark.parametrize("b,n,extra", [(8, 5, 0), (16, 4, 3), (32, 3, 0), (64, 2, 9)])
+def test_plain_b11_matches_jax_kernel(b, n, extra):
+    rng = np.random.default_rng(b + n)
+    base = rng.integers(0, 256, (n, b + 32, b + 32), dtype=np.uint8)
+    src = base[:, 3:3 + b, 2:2 + b].copy()               # a (-1, -2) shift, so fractions
+    win = base[:, :b + 7 + extra, :b + 7 + extra].copy()  # do work
+    want = jax_refine_fused(jnp.asarray(src), jnp.asarray(win))
+    got = inter_fused.refine_quarter_pel_fused(src, win)
+    assert_equal_outputs(got, want, ("pred", "frac", "cost"))
+
+
+def test_b11_wrapper_checks():
+    src = np.zeros((2, 12, 12), np.uint8)
+    with pytest.raises(ValueError, match="b in"):
+        inter_fused.refine_quarter_pel_fused(src, np.zeros((2, 19, 19), np.uint8))
+    with pytest.raises(ValueError, match="windows"):
+        inter_fused.refine_quarter_pel_fused(np.zeros((2, 16, 16), np.uint8),
+                                             np.zeros((2, 22, 23), np.uint8))
+    before = inter_fused.refine_quarter_pel_fused.launches
+    pred, frac, cost = inter_fused.refine_quarter_pel_fused(
+        np.zeros((2, 16, 16), np.uint8), np.zeros((2, 23, 23), np.uint8))
+    assert inter_fused.refine_quarter_pel_fused.launches == before
+    assert tuple(pred.shape) == (2, 16, 16) and frac.tolist() == [0, 0]

@@ -239,7 +239,11 @@ def test_registry_dispatch_on_this_machine():
     from hevcasm_tpu_torch.kernels import search
 
     assert registry.tiers_of("ssd_grid_plane") == Tier.REF | Tier.KERNEL
-    assert registry.tiers_of("residual_pipeline") == Tier.REF
+    # B4 and B11 are also the KERNEL tiers of residual_pipeline and
+    # refine_qpel, as hevcasm_tpu registers them as those ops' PALLAS tiers.
+    assert registry.tiers_of("residual_pipeline") == Tier.REF | Tier.KERNEL
+    assert registry.tiers_of("refine_qpel") == Tier.REF | Tier.KERNEL
+    assert registry.tiers_of("quantize") == Tier.REF
     assert registry.get("ssd_grid_plane", Tier.REF) is search.ssd_grid_plane_ref
     table = registry.populate()
     assert set(table) == set(registry.ops())

@@ -86,7 +86,7 @@ def assert_matches(ours, theirs, extra=()):
 def test_rdo_frame_matches_jax(r, variant):
     cur, ref = frames()
     kw = dict(search_range=r, **VARIANTS[variant])
-    ours = encode_inter_frame(cur, ref, EncodeConfig(qp=32, **kw))
+    ours = encode_inter_frame(cur, ref, EncodeConfig(qp=32, **kw), device="cpu")
     # hevcasm_tpu drops tu_choice when pu_decision is on; the port keeps it.
     extra = ("tu_choice",) if variant == "pu+tu" else ()
     assert_matches(ours, jax_result((r, variant), cur, ref, **kw), extra)
@@ -99,7 +99,7 @@ def test_rdo_frame_matches_jax(r, variant):
 def test_pu_plus_tu_choice_is_the_tu_selection_of_the_pu_prediction():
     cur, ref = frames()
     cfg = EncodeConfig(search_range=8, qp=32, **VARIANTS["pu+tu"])
-    ours = encode_inter_frame(cur, ref, cfg)
+    ours = encode_inter_frame(cur, ref, cfg, device="cpu")
     src = ctu_mod.tile_frame(torch.as_tensor(cur), 64)
     pos = motion.ctu_positions(2, 3, 64)
     rp = ctu_mod.pad_frame(torch.as_tensor(ref), 11, 12, 11, 12)
@@ -118,13 +118,14 @@ def test_pu_plus_tu_choice_is_the_tu_selection_of_the_pu_prediction():
 def test_pu_decision_ignores_the_other_implementation_fields(kwargs):
     cur, ref = frames()
     kw = dict(search_range=8, pu_decision=True, **kwargs)
-    ours = encode_inter_frame(cur, ref, EncodeConfig(qp=32, **kw))
+    ours = encode_inter_frame(cur, ref, EncodeConfig(qp=32, **kw), device="cpu")
     if "fused_refine" in kwargs:      # hevcasm_tpu's default-config result stands in
         theirs = jax_result((8, "pu"), cur, ref, search_range=8, **VARIANTS["pu"])
     else:
         theirs = jax_result((8, "pu", tuple(kwargs.items())), cur, ref, **kw)
     assert_matches(ours, theirs)
-    plain = encode_inter_frame(cur, ref, EncodeConfig(qp=32, search_range=8, pu_decision=True))
+    plain = encode_inter_frame(cur, ref, EncodeConfig(qp=32, search_range=8, pu_decision=True),
+                               device="cpu")
     for k in ours:
         assert torch.equal(ours[k], plain[k]), k
 
@@ -136,7 +137,7 @@ def test_pu_decision_ignores_the_other_implementation_fields(kwargs):
 def test_tu_sizes_refine_with_the_sweep_whatever_the_fields_say(kwargs):
     cur, ref = frames()
     kw = dict(search_range=8, **kwargs)
-    ours = encode_inter_frame(cur, ref, EncodeConfig(qp=32, **kw))
+    ours = encode_inter_frame(cur, ref, EncodeConfig(qp=32, **kw), device="cpu")
     assert_matches(ours, jax_result((8, "tu", tuple(kwargs.items())), cur, ref, **kw))
 
 
@@ -148,14 +149,14 @@ def test_tu_sizes_other_than_8_with_a_fused_inter_impl_raise_in_both_packages():
     with pytest.raises(ValueError, match="hardwires 8x8"):
         jax_encode(jnp.asarray(cur), jnp.asarray(ref), JaxConfig(**kw))
     with pytest.raises(ValueError, match="hardwires 8x8"):
-        encode_inter_frame(cur, ref, EncodeConfig(**kw))
+        encode_inter_frame(cur, ref, EncodeConfig(**kw), device="cpu")
 
 
 @pytest.mark.parametrize("kind,want", [("halves", "2NxN"), ("quadrants", None)])
 def test_split_motion_frames_match_jax(kind, want):
     cur, ref = split_motion(kind)
     kw = dict(search_range=8, pu_decision=True)
-    ours = encode_inter_frame(cur, ref, EncodeConfig(qp=32, **kw))
+    ours = encode_inter_frame(cur, ref, EncodeConfig(qp=32, **kw), device="cpu")
     assert_matches(ours, jax_result(kind, cur, ref, **kw))
     chosen = EncodeConfig().pu_layouts[int(ours["pu_layout"][0])]
     assert chosen == want if want else chosen != "2Nx2N"
@@ -168,7 +169,7 @@ def test_whole_ctu_layout_alone_raises_value_error():
     cur, ref = frames(64, 64)
     with pytest.raises(ValueError, match="up to 32"):
         encode_inter_frame(cur, ref, EncodeConfig(search_range=8, pu_decision=True,
-                                                  pu_layouts=("2Nx2N",)))
+                                                  pu_layouts=("2Nx2N",)), device="cpu")
 
 
 def test_empty_layouts_raise_value_error_in_both_packages():
@@ -178,7 +179,7 @@ def test_empty_layouts_raise_value_error_in_both_packages():
                    JaxConfig(search_range=8, pu_decision=True, pu_layouts=()))
     with pytest.raises(ValueError):
         encode_inter_frame(cur, ref, EncodeConfig(search_range=8, pu_decision=True,
-                                                  pu_layouts=()))
+                                                  pu_layouts=()), device="cpu")
 
 
 def test_unknown_layout_raises_value_error_in_both_packages():
@@ -187,15 +188,27 @@ def test_unknown_layout_raises_value_error_in_both_packages():
             config(pu_layouts=("2Nx2N", "64x8"))
 
 
+def test_pu_decision_codes_through_b4_under_residual_impl_pallas():
+    # The 64x64 CTUs with 8x8 DCT TUs take kernel B4's route (its plain
+    # version on the CPU); the integers are those of the default residual.
+    cur, ref = frames()
+    kw = dict(qp=32, search_range=8, pu_decision=True)
+    ours = encode_inter_frame(cur, ref, EncodeConfig(residual_impl="pallas", **kw),
+                              device="cpu")
+    plain = encode_inter_frame(cur, ref, EncodeConfig(**kw), device="cpu")
+    assert set(ours) == set(plain)
+    for k in ours:
+        assert torch.equal(ours[k], plain[k]), k
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(pu_decision=True, residual_impl="pallas"), "ROADMAP B4"),
     (dict(pu_decision=True, me_metric="sad"), "ROADMAP A.2"),
     (dict(tu_sizes=TUS, search_impl="mv"), "ROADMAP B17"),
 ])
 def test_rdo_configurations_not_ported_name_their_roadmap_item(kwargs, item):
     cur, ref = frames(64, 64)
     with pytest.raises(NotImplementedError, match=item):
-        encode_inter_frame(cur, ref, EncodeConfig(qp=32, **kwargs))
+        encode_inter_frame(cur, ref, EncodeConfig(qp=32, **kwargs), device="cpu")
 
 
 def test_cli_info_lists_the_partition_kernels(capsys):

@@ -1,8 +1,8 @@
 """Integer motion search of hevcasm_tpu_torch against hevcasm_tpu on the CPU:
-the plain versions of kernels K1 (ssd_grid_plane) and B8 (ssd_grid)
-against the JAX kernels in interpret mode and against the JAX SSD grid on
-gathered windows, and the search functions of encode.motion with their
-first-minimum tie-break.  The kernels themselves are held against their
+the plain versions of kernels K1 (ssd_grid_plane), B7
+(ssd_grid_plane_multi) and B8 (ssd_grid) against the JAX kernels in
+interpret mode and against the JAX SSD grid on gathered windows, and the
+search functions of encode.motion with their first-minimum tie-break.  The kernels themselves are held against their
 plain versions in test_torch_cuda.py."""
 
 import numpy as np
@@ -14,6 +14,7 @@ from hevcasm_tpu.encode import motion as jmotion
 from hevcasm_tpu.kernels import xla_opt
 from hevcasm_tpu.kernels.search_pallas import ssd_grid as jax_ssd_grid
 from hevcasm_tpu.kernels.search_pallas import ssd_grid_plane as jax_ssd_grid_plane
+from hevcasm_tpu.kernels.search_pallas import ssd_grid_plane_multi as jax_ssd_grid_plane_multi
 
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode import ctu as tctu
@@ -168,3 +169,60 @@ def test_first_min_takes_the_smallest_index():
     costs = torch.tensor([[5, 3, 3, 9], [7, 7, 7, 7], [4, 2, 8, 2]], dtype=torch.int32)
     idx, val = first_min(costs)
     assert idx.tolist() == [1, 0, 1] and val.tolist() == [3, 7, 2]
+
+
+def test_plain_b7_matches_jax_kernel(rng):
+    # tests/test_search_pallas.py's geometry: 2x2 CTUs, k = 3, R = 32.
+    gr, gc, k = 2, 2, 3
+    planes = rng.integers(0, 256, (k, gr * 64 + 64, gc * 64 + 64), dtype=np.uint8)
+    src = rng.integers(0, 256, (gr * gc, 64, 64), dtype=np.uint8)
+    want = np.asarray(jax_ssd_grid_plane_multi(src, jnp.asarray(planes), (gr, gc), 65))
+    got = search.ssd_grid_plane_multi(src, planes, (gr, gc), 65)   # CPU: the plain version
+    assert got.dtype == torch.int32 and tuple(got.shape) == (4, 3, 65, 65)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_b7_wrapper_checks_and_registry(rng):
+    src = torch.as_tensor(rng.integers(0, 256, (6, 64, 64), dtype=np.uint8))
+    planes = torch.zeros((2, 2 * 64 + 16, 3 * 64 + 16), dtype=torch.uint8)
+    before = search.ssd_grid_plane_multi.launches
+    got = search.ssd_grid_plane_multi(src, planes, (2, 3), 17)
+    assert search.ssd_grid_plane_multi.launches == before
+    assert torch.equal(got[:, 1], search.ssd_grid_plane(src, planes[1], (2, 3), 17))
+    with pytest.raises(ValueError, match="planes"):
+        search.ssd_grid_plane_multi(src, planes[0], (2, 3), 17)
+    with pytest.raises(ValueError, match="smaller"):
+        search.ssd_grid_plane_multi(src, planes[:, :-1], (2, 3), 17)
+    assert registry.tiers_of("ssd_grid_plane_multi") == Tier.REF | Tier.KERNEL
+    assert registry.get("ssd_grid_plane_multi", Tier.REF) is search.ssd_grid_plane_multi_ref
+
+
+@pytest.mark.parametrize("r,metric", [(8, "ssd"), (32, "ssd"), (8, None)])
+@pytest.mark.parametrize("joint", [True, False])
+def test_full_search_multi_matches_jax(rng, r, metric, joint):
+    # metric "ssd" takes the port's multi-plane route (B7's plain version
+    # here), None the grid route; hevcasm_tpu on the CPU takes its grid
+    # route.  One reference equals another by construction, so the joint
+    # first minimum must take the lower index on the tie.
+    from hevcasm_tpu import registry as jregistry
+
+    grid, k = (2, 3), 3
+    h, w = 64 * grid[0], 64 * grid[1]
+    cur = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    refs = [np.roll(cur, (2, -3), (0, 1)), rng.integers(0, 256, (h, w), dtype=np.uint8)]
+    refs.append(refs[0].copy())
+    pl, pr = r + jmotion.PAD_L, r + jmotion.PAD_R
+    planes = np.stack([np.pad(p, ((pl, pr), (pl, pr)), mode="edge") for p in refs])
+    src = tctu.tile_frame(torch.as_tensor(cur), 64)
+    pos = jmotion.ctu_positions(*grid, 64)
+    want = jmotion.full_search_multi(jnp.asarray(src.numpy()), jnp.asarray(planes), pos, r,
+                                     grid_fn=jregistry.get("ssd_grid"), grid=grid,
+                                     joint=joint, metric="ssd")
+    got = tmotion.full_search_multi(src, torch.as_tensor(planes), np.asarray(pos), r,
+                                    grid=grid, joint=joint, metric=metric)
+    assert len(got) == len(want) == (3 if joint else 2)
+    for g, w_ in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    if joint:
+        assert not (got[1] == 2).any(), "a tie must go to the lower reference"

@@ -61,8 +61,8 @@ def run_port(kind, w=W, **kw):
     ref0, cur, ref1 = clip(w)
     cfg = EncodeConfig(**kw)
     if kind == "P":
-        return encode_inter_frame_yuv(cur, ref0, cfg)
-    return encode_b_frame_yuv(YuvFrame(*cur), ref0, ref1, cfg)
+        return encode_inter_frame_yuv(cur, ref0, cfg, device="cpu")
+    return encode_b_frame_yuv(YuvFrame(*cur), ref0, ref1, cfg, device="cpu")
 
 
 _JAX_CACHE = {}
@@ -137,13 +137,47 @@ def test_literal_defaults_match_jax(entry):
     residual) runs every entry point of the slice."""
     if entry == "luma":
         ref0, cur, _ = clip()
-        ours = encode_inter_frame(cur[0], ref0[0])
+        ours = encode_inter_frame(cur[0], ref0[0], device="cpu")
         theirs = jax_encode(jnp.asarray(cur[0]), jnp.asarray(ref0[0]), JaxConfig())
         for k in ("recon", "mvs", "sad", "nnz"):
             np.testing.assert_array_equal(ours[k].numpy(), np.asarray(theirs[k]), err_msg=k)
         assert abs(float(ours["psnr_db"]) - float(theirs["psnr_db"])) <= PSNR_TOL_DB
     else:
         assert_matches(entry, run_port(entry), jax_result(entry))
+
+
+@pytest.mark.parametrize("kind,kw", [
+    # B16 on the P frame's luma (B3 serves the B frame under "fused").
+    ("P", dict(search_range=8, qp=27, inter_impl="fused")),
+    ("P", dict(search_range=8, qp=27, inter_impl="fused_batched", fused_group=4)),
+    # B11 on the P frame's luma; the B frame refines with the sweep.
+    ("P", dict(search_range=8, qp=27, fused_refine=True)),
+    # B4 on the 64x64 luma CTUs; chroma's 4x4 TUs take the plain pipeline.
+    ("P", dict(search_range=8, qp=27, residual_impl="pallas")),
+    ("B", dict(search_range=8, qp=27, residual_impl="pallas")),
+    ("B", dict(search_range=8, qp=27, inter_impl="stages", residual_impl="pallas",
+               fused_refine=True)),
+    # The grid search of both references in one call: the port's
+    # multi-plane route (B7's plain version here).
+    ("B", dict(search_range=8, qp=27, search_impl="grid")),
+    ("B", dict(search_range=8, qp=27, search_impl="grid", inter_impl="fused_dma")),
+])
+def test_ported_kernel_configurations_match_jax(kind, kw):
+    assert_matches(kind, run_port(kind, **kw), jax_result(kind, **kw))
+
+
+def test_yuv_numpy_input_needs_a_card_or_an_explicit_cpu():
+    ref0, cur, ref1 = clip()
+    cfg = EncodeConfig(search_range=8)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            encode_inter_frame_yuv(cur, ref0, cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            encode_b_frame_yuv(cur, ref0, ref1, cfg)
+    tensors = YuvFrame(*(torch.as_tensor(p) for p in cur))
+    out = encode_inter_frame_yuv(tensors, ref0, cfg)      # cur's planes decide
+    assert all(p.device.type == "cpu" for p in out["recon"])
+    assert_matches("P", out, jax_result("P", search_range=8))
 
 
 @pytest.mark.parametrize("kind,kw", [
@@ -165,13 +199,8 @@ def test_rejected_configurations_raise_like_jax(kind, kw):
 
 
 @pytest.mark.parametrize("kind,kw,item", [
-    ("P", dict(search_range=8, inter_impl="fused"), "ROADMAP B16"),
-    ("P", dict(search_range=8, inter_impl="fused_batched"), "ROADMAP B16"),
     ("P", dict(search_range=8, me_metric="sad"), "ROADMAP A.2"),
     ("P", dict(search_range=8, me_strategy="pyramid"), "ROADMAP A.3"),
-    ("P", dict(search_range=8, fused_refine=True), "ROADMAP B11"),
-    ("P", dict(search_range=8, residual_impl="pallas"), "ROADMAP B4"),
-    ("B", dict(search_range=8, residual_impl="pallas"), "ROADMAP B4"),
     ("B", dict(search_range=8, me_metric="sad"), "ROADMAP A.2"),
 ])
 def test_unported_configurations_name_their_roadmap_item(kind, kw, item):
