@@ -26,7 +26,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
             at the searched MVs and on the 8160 16x16 tiles; B16 on 510
             windows at random MVs, unbatched and in groups of 4 (which do
             not divide 510); B4 on 510 CTUs at 4x4 TUs with the DST-VII and
-            the DCT, and at 8, 16 and 32.
+            the DCT, and at 8, 16 and 32.  The search configurations'
+            kernels: B9 on the pyramid's shapes (510 16x16 decimated blocks
+            at num 17, 510 CTUs at num 7), the full search (510 CTUs, R =
+            32) and the PU decision's 8160 16x16 blocks at R = 32; B17
+            (both entries) and B19 at 1080p R = 32 on bench content, on
+            the multiref pan's reference 0 and on two independent noise
+            planes (on these two most minima must be non-zero and differ
+            between CTUs, and on the noise most MVs too), and on a constant
+            plane, where every candidate ties and the answer is (-32, -32);
+            B19 also at R = 8 on an odd grid width.
 4. main     the paths below, each with every launch count set to 0 just
             before it and read just after.  With
             EncodeConfig(search_range=32, qp=32, inter_impl="fused_dma"):
@@ -49,7 +58,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
             fused_refine=True and residual_impl="pallas" B7, B11 and B4;
             its ref_idx must use more than one reference.  The luma P frame
             under inter_impl "fused" and "fused_batched" must launch K1 and
-            B16.  Each frame must equal its plain path on the card
+            B16.  The search configurations, which must launch exactly the
+            kernels named and no other: the luma P frame (bench content,
+            fused_dma) under search_impl "dma" (B17 dma + K2) and "mv" (B17
+            + K2), under inter_impl "mega" (B19 alone), under me_metric
+            "sad" (B9 + K2), under me_strategy "pyramid" with SSD (B8 twice
+            + K2) and with SAD (B9 twice + K2); pu_decision with SAD on the
+            structured pan's luma (B9 + B13); the yuv B frame with SAD (B9 +
+            B3).  Each frame must equal its plain path on the card
             (pu_layout, tu_choice and ref_idx included), and 128x192 frames
             of each must equal the plain path on the CPU.
 5. timing   CUDA-event medians over 20 samples after warm-up: each path per
@@ -64,11 +80,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
             The multi-reference and fused paths, with min and max too (the
             plain multi-reference path, ~0.3 s a frame, over 3 samples),
             and B7 (its plain version over 3 samples), B11, B16 and B4 (at
-            each TU size).  Each kernel's bound is computed from the shapes
-            it was timed at: the larger of the bytes it must move (each
-            input read once, each output written once) at 3.35 TB/s and its
-            multiply-adds (2 operations each, in the form the int8 tensor
-            cores could run) at 1,979 TOP/s, the H100 SXM's published rates.
+            each TU size).  The search configurations' frames with min and
+            max, the mega frame and the fused_dma frame in turns, and B9,
+            B17 (both entries) and B19.  Each kernel's bound is computed
+            from the shapes it was timed at: the larger of the bytes it must
+            move (each input read once, each output written once) at 3.35
+            TB/s and its multiply-adds (2 operations each, in the form the
+            int8 tensor cores could run) at 1,979 TOP/s, the H100 SXM's
+            published rates.  B9's |a - b| is no product, so its operations
+            are the fewest CUDA-core instructions its terms need (packed,
+            four terms an instruction) at the cores' issue rate
+            (INT_INSTR_PER_S and SAD_TERMS_PER_INSTR below).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -166,11 +188,25 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12        # H100 SXM int8 tensor cores, dense
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+# The CUDA cores' instruction rate, for work the tensor cores cannot run:
+# each SM issues at most one 32-thread instruction a clock from each of its
+# 4 schedulers (NVIDIA's Hopper architecture white paper), 128 thread
+# instructions a clock, on 132 SMs at the 1.98 GHz boost clock that the
+# data sheet's 67 TFLOP/s float32 implies (132 x 128 lanes x 2 x 1.98 GHz).
+INT_INSTR_PER_S = 132 * 128 * 1.98e9
+# The most SAD terms one thread instruction can do: PTX's packed
+# vabsdiff4 with .add (PTX ISA, "SIMD video instructions") adds the
+# absolute differences of four byte pairs to an accumulator, against one
+# term for the scalar sad; B9's own design takes three (subtract, absolute
+# value, add), so this bound is the card's and not the design's.
+SAD_TERMS_PER_INSTR = 4
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S) -> tuple[float, str]:
     """The least time (ms) the card could take for a function that must
-    move ``nbytes`` and do ``ops`` operations, and which of the two bounds
-    it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    move ``nbytes`` and do ``ops`` operations at ``ops_per_s``, and which of
+    the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -251,11 +287,14 @@ def main() -> int:
         inter_ctu_fused, inter_ctu_fused_batched, inter_ctu_fused_dma,
         inter_ctu_fused_dma_ref, inter_ctu_fused_ref, refine_quarter_pel_fused,
         refine_quarter_pel_fused_ref)
+    from hevcasm_tpu_torch.kernels.mega import encode_ctu_mega, encode_ctu_mega_ref
     from hevcasm_tpu_torch.kernels.residual_ctu import (
         residual_pipeline_ctu, residual_pipeline_ctu_ref)
+    from hevcasm_tpu_torch.kernels.sad import sad_grid, sad_grid_ref
     from hevcasm_tpu_torch.kernels.search import (
-        ssd_grid, ssd_grid_plane, ssd_grid_plane_multi, ssd_grid_plane_multi_ref,
-        ssd_grid_plane_ref, ssd_grid_ref)
+        search_mv, search_mv_dma, search_mv_dma_ref, search_mv_ref, ssd_grid,
+        ssd_grid_plane, ssd_grid_plane_multi, ssd_grid_plane_multi_ref, ssd_grid_plane_ref,
+        ssd_grid_ref)
 
     # ---- 1. device -----------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -277,7 +316,8 @@ def main() -> int:
                          "refine_qpel_costmap", "refine_qpel_costmap_dma",
                          "base_grids_ctu", "base_layout_decide", "ssd_grid",
                          "ssd_grid_plane_multi", "refine_quarter_pel_fused",
-                         "inter_ctu_fused", "residual_pipeline_ctu"), 0)
+                         "inter_ctu_fused", "residual_pipeline_ctu", "sad_grid",
+                         "search_mv", "search_mv_dma", "encode_ctu_mega"), 0)
 
     def search_inputs(cur, ref, r):
         """K1 operands as full_search_slab builds them."""
@@ -552,6 +592,95 @@ def main() -> int:
                                     tr_type=tr_type),
               residual_pipeline_ctu_ref(b_src, b4_pred, *b4_args[(tu, tr_type)], tu=tu,
                                         tr_type=tr_type), "n=510")
+
+    # B9, B17 and B19: the search configurations' kernels.
+    def check_b9(what, blocks, windows, num):
+        return check("sad_grid", what, [sad_grid(blocks, windows, num, num)],
+                     [sad_grid_ref(blocks, windows, num, num)],
+                     f"blocks={tuple(blocks.shape)} windows={tuple(windows.shape)}")[0]
+
+    # The pyramid's two levels on the structured pan: the 4x-decimated CTUs
+    # against the decimated reference padded by R/4 = 8, then the CTUs at
+    # +-3 around coarse MVs in [-29, 29].
+    b9_src_c = motion._downsample4(b_src).contiguous()
+    b9_ref_c = ctu_mod.pad_frame(motion._downsample4(yuv_ref0.y), 8, 8, 8, 8)
+    b9_win_c = motion.extract_aligned_windows(b9_ref_c, (0, 0), grid, 16, 32)
+    check_b9("1080p pyramid coarse level, 510 16x16 blocks", b9_src_c, b9_win_c, 17)
+    mv_c = torch.as_tensor(np.random.default_rng(13).integers(-29, 30, (grid[0] * grid[1], 2)),
+                           device=dev)
+    b9_win_f = motion.extract_windows(p_padded, pos + mv_c - 3 + SEARCH_RANGE + motion.PAD_L, 70)
+    check_b9("1080p pyramid fine level, 510 CTUs", b_src, b9_win_f, 7)
+    check_b9("1080p full search, 510 CTUs, R=32", b_src, p_win, 65)
+    b8_r32 = sub_block_windows(p_win, 16, SEARCH_RANGE)
+    check_b9("1080p PU decision, 8160 16x16 blocks, R=32", *b8_r32, 65)
+    c_sad = check_b9("constant windows (all candidates tie)", b_src, flat_win, 65)
+    if not bool((c_sad == c_sad[:, :1, :1]).all()):
+        raise AssertionError("B9 constant windows: the candidates do not tie")
+
+    def win128_of(plane, g):
+        """search_mv's operand: the gathered 128x128 windows at R = 32."""
+        return motion.extract_aligned_windows(plane, (motion.PAD_L, motion.PAD_L), g, 64,
+                                              128).contiguous()
+
+    def nontrivial(what, mv, best, vary_mv):
+        """Fail unless most minima are non-zero and differ between CTUs
+        (and, with vary_mv, most MVs too), so that a kernel which mis-sums
+        the candidates that do not win cannot pass."""
+        n_ = best.shape[0]
+        zero = float((best == 0).float().mean())
+        mvs, mins = len(torch.unique(mv, dim=0)), len(torch.unique(best))
+        log(f"{what}: share of CTUs at best 0 {zero:.4f}, {mvs} distinct MVs, "
+            f"{mins} distinct minima of {n_} CTUs")
+        if zero > 0.5 or mins < n_ // 2 or (vary_mv and mvs < n_ // 2):
+            raise AssertionError(f"{what}: the search on this content is trivial")
+
+    # Bench content (and the structured pan's luma) is a pure integer shift,
+    # so most CTUs match exactly.  The multiref pan's reference 0 is noisy
+    # outside its own quarter of the frame: non-zero minima, one MV.  Two
+    # independent noise planes: non-zero minima at MVs that differ between
+    # CTUs.
+    rnd = np.random.default_rng(14)
+    rnd_src = ctu_mod.tile_frame(torch.as_tensor(
+        rnd.integers(0, 256, (H, W), dtype=np.uint8), device=dev), 64).contiguous()
+    rnd_padded = ctu_mod.pad_frame(torch.as_tensor(
+        rnd.integers(0, 256, (H, W), dtype=np.uint8), device=dev), pl, pr, pl, pr)
+    s_pos = motion.ctu_positions(*s_grid, 64, dev)
+    # (what, src, padded plane, positions, CTU grid, R, check): the constant
+    # plane's frame is 128x192, the grid of s_grid.
+    b17_cases = [
+        ("1080p bench content", src, padded, pos, grid, SEARCH_RANGE, None),
+        ("1080p multiref pan, reference 0", mr_src, mr_planes[0], pos, grid, SEARCH_RANGE,
+         "minima"),
+        ("1080p independent noise planes", rnd_src, rnd_padded, pos, grid, SEARCH_RANGE,
+         "minima and MVs"),
+        ("odd grid width", s_src, s_padded, s_pos, s_grid, 8, None),
+        ("constant plane (all candidates and fractions tie)", c_src, c_padded,
+         motion.ctu_positions(*s_grid, 64, dev), s_grid, SEARCH_RANGE, "ties"),
+    ]
+    for what, src_i, plane_i, pos_i, grid_i, r, kind in b17_cases:
+        shape = f"n={src_i.shape[0]} R={r}"
+        outs = []
+        if r == SEARCH_RANGE:           # B17 runs at R = 32 only, as the loop does
+            win_i = win128_of(plane_i, grid_i)
+            outs.append(check("search_mv", what, search_mv(src_i, win_i, 65),
+                              search_mv_ref(src_i, win_i, 65), shape))
+            outs.append(check("search_mv_dma", what,
+                              search_mv_dma(src_i, plane_i, pos_i, r),
+                              search_mv_dma_ref(src_i, plane_i, pos_i, r), shape))
+        mega_out = check("encode_ctu_mega", what,
+                         encode_ctu_mega(src_i, plane_i, pos_i, r, *qargs),
+                         encode_ctu_mega_ref(src_i, plane_i, pos_i, r, *qargs), shape)
+        outs.append((mega_out[1], mega_out[3]))
+        for name, (mv_i, best_i) in zip(("B17 search_mv", "B17 search_mv_dma",
+                                         "B19 encode_ctu_mega")[-len(outs):], outs):
+            if kind == "ties" and not bool((mv_i == -r).all()):
+                raise AssertionError(f"{name} constant plane: the first minimum is not (-R, -R)")
+            if kind in ("minima", "minima and MVs"):
+                nontrivial(f"{name} {what}", mv_i, best_i, kind == "minima and MVs")
+        if kind == "ties" and bool(mega_out[2].any()):
+            raise AssertionError("B19 constant plane: the first fraction did not win")
+    win128 = win128_of(padded, grid)
+
     bad = {k: v for k, v in err.items() if v}
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
@@ -568,12 +697,17 @@ def main() -> int:
                "ssd_grid_plane_multi": ssd_grid_plane_multi,
                "refine_quarter_pel_fused": refine_quarter_pel_fused,
                "inter_ctu_fused": inter_ctu_fused,
-               "residual_pipeline_ctu": residual_pipeline_ctu}
+               "residual_pipeline_ctu": residual_pipeline_ctu,
+               "sad_grid": sad_grid,
+               "search_mv": search_mv,
+               "search_mv_dma": search_mv_dma,
+               "encode_ctu_mega": encode_ctu_mega}
     launches = dict.fromkeys(counted, 0)
 
-    def drive(what, fn, need):
+    def drive(what, fn, need, exact=False):
         """Run one path with every launch count set to 0 just before it;
-        fail unless each kernel in ``need`` ran at least that often."""
+        fail unless each kernel in ``need`` ran at least that often (with
+        ``exact``, exactly that often, and no other kernel at all)."""
         torch.cuda.synchronize()
         for wrapper in counted.values():
             wrapper.launches = 0
@@ -584,6 +718,8 @@ def main() -> int:
         if any(got[name] < least for name, least in need.items()):
             raise AssertionError(f"{what}: a kernel of the path was not launched "
                                  f"as often as {need}: {got}")
+        if exact and {k: v for k, v in got.items() if v} != need:
+            raise AssertionError(f"{what}: launched {got}, not exactly {need}")
         for name in launches:
             launches[name] += got[name]
         return out
@@ -823,6 +959,81 @@ def main() -> int:
             f"{chosen}; equal to the plain path on the card, and a 128x192 R=8 frame equal "
             "to the plain path on the CPU")
 
+    # The search configurations: the luma P frame on bench content, the PU
+    # decision on the structured pan's luma, the B frame on the structured
+    # pan; each must launch exactly its kernels.
+    def search_path(kind):
+        def run(config, tiers=Tier.ALL, small=False):
+            if kind == "luma":
+                frames = (cur_s, ref_s) if small else (cur, ref)
+                return encode_inter_frame(*frames, config, tiers=tiers,
+                                          device="cpu" if small else None)
+            if kind == "rdo":
+                frames = [torch.as_tensor(f[0]) for f in small_pan[:2]] if small else \
+                    (yuv_cur.y, yuv_ref0.y)
+                return encode_inter_frame(*frames, config, tiers=tiers)
+            frames = small_yuv_cpu if small else yuv_frames
+            return encode_b_frame_yuv(*frames, config, tiers=tiers)
+        return run
+
+    small_yuv_cpu = [YuvFrame(*(torch.as_tensor(p) for p in f))
+                     for f in structured_pan(128, 192, seed=5)]
+    fused = dict(search_range=SEARCH_RANGE, qp=32, inter_impl="fused_dma")
+    search_paths = {
+        "luma P search_impl=dma": ("luma", EncodeConfig(**fused, search_impl="dma"),
+                                   {"search_mv_dma": 1, "inter_ctu_fused_dma": 1}),
+        "luma P search_impl=mv": ("luma", EncodeConfig(**fused, search_impl="mv"),
+                                  {"search_mv": 1, "inter_ctu_fused_dma": 1}),
+        "luma P mega": ("luma", EncodeConfig(search_range=SEARCH_RANGE, qp=32,
+                                             inter_impl="mega"), {"encode_ctu_mega": 1}),
+        "luma P sad": ("luma", EncodeConfig(**fused, me_metric="sad"),
+                       {"sad_grid": 1, "inter_ctu_fused_dma": 1}),
+        "luma P pyramid": ("luma", EncodeConfig(**fused, me_strategy="pyramid"),
+                           {"ssd_grid": 2, "inter_ctu_fused_dma": 1}),
+        "luma P pyramid sad": ("luma", EncodeConfig(**fused, me_strategy="pyramid",
+                                                    me_metric="sad"),
+                               {"sad_grid": 2, "inter_ctu_fused_dma": 1}),
+        "RDO pu_decision sad": ("rdo", EncodeConfig(search_range=SEARCH_RANGE, qp=32,
+                                                    pu_decision=True, me_metric="sad"),
+                                {"sad_grid": 1, "refine_qpel_costmap_dma": 1}),
+        "yuv B sad": ("B", EncodeConfig(**fused, me_metric="sad"),
+                      {"sad_grid": 1, "bi_ctu_fused_dma": 1}),
+    }
+    for name, (kind, pcfg, need_p) in search_paths.items():
+        run = search_path(kind)
+        got = drive(f"{name} path", lambda: run(pcfg), need_p, exact=True)
+        check_out = yuv_differs if kind == "B" else differs
+        recon = got["recon"][0] if kind == "B" else got["recon"]
+        mvs = got["mvs0"] if kind == "B" else got["mvs"]
+        if tuple(recon.shape) != (H, W) or recon.dtype != torch.uint8 \
+                or tuple(mvs.shape) != (n, 2) or mvs.dtype != torch.int32:
+            raise AssertionError(f"{name}: recon {tuple(recon.shape)} {recon.dtype}, "
+                                 f"mvs {tuple(mvs.shape)} {mvs.dtype}")
+        psnrs = [float(v) for k, v in got.items() if k.startswith("psnr")]
+        if not all(np.isfinite(v) for v in psnrs):
+            raise AssertionError(f"{name}: psnr {psnrs} is not finite")
+        diff = check_out(got, run(pcfg, Tier.REF))
+        if diff:
+            raise AssertionError(f"{name} differs from the plain path on the card: {diff}")
+        # search_impl "mv"/"dma" cover R = 32 only (EncodeConfig's guard).
+        small_cfg_p = pcfg if pcfg.search_impl in ("mv", "dma") else \
+            dataclasses.replace(pcfg, search_range=8)
+        on_cpu = run(small_cfg_p, small=True)
+        if kind == "B":
+            on_card = encode_b_frame_yuv(*[YuvFrame(*(p.to(dev) for p in f))
+                                           for f in small_yuv_cpu], small_cfg_p)
+        elif kind == "rdo":
+            on_card = encode_inter_frame(*[torch.as_tensor(f[0], device=dev)
+                                           for f in small_pan[:2]], small_cfg_p)
+        else:
+            on_card = encode_inter_frame(torch.as_tensor(cur_s, device=dev), ref_s, small_cfg_p)
+        diff = check_out(on_card, on_cpu)
+        if diff:
+            raise AssertionError(f"128x192 {name}: the card differs from the CPU: {diff}")
+        log(f"{name} path: psnr {', '.join(f'{v:.4f}' for v in psnrs)} "
+            f"nnz={int(got['nnz'])}; equal to the plain path on the card, and a 128x192 "
+            f"R={small_cfg_p.search_range} frame equal to the plain path on the CPU")
+
     # ---- 5. timing -----------------------------------------------------------
     ms_main = median_ms(lambda: encode_inter_frame(cur, ref, cfg))
     ms_chain = median_ms(lambda: encode_inter_frame(cur, ref, cfg), calls=REPS)
@@ -859,6 +1070,15 @@ def main() -> int:
         reps = 3 if "multiref" in name else REPS
         log_path(f"{name} plain path", samples_ms(lambda: run(pcfg, Tier.REF), reps=reps),
                  reps)
+    for name, (kind, pcfg, _) in search_paths.items():
+        log_path(f"{name} path", samples_ms(lambda: search_path(kind)(pcfg)))
+    # The one-kernel inner loop beside the two-kernel one, in turns.
+    mega_cfg = search_paths["luma P mega"][1]
+    for _ in range(2):
+        log_path("luma P fused_dma path (beside mega)",
+                 samples_ms(lambda: encode_inter_frame(cur, ref, cfg)))
+        log_path("luma P mega path (beside fused_dma)",
+                 samples_ms(lambda: encode_inter_frame(cur, ref, mega_cfg)))
     num = 2 * SEARCH_RANGE + 1
     times = {
         "ssd_grid_plane": (
@@ -901,6 +1121,18 @@ def main() -> int:
             median_ms(lambda: residual_pipeline_ctu(b_src, b4_pred, *b4_args[(8, 0)]),
                       calls=10),
             median_ms(lambda: residual_pipeline_ctu_ref(b_src, b4_pred, *b4_args[(8, 0)]))),
+        "sad_grid": (
+            median_ms(lambda: sad_grid(b_src, p_win, num, num), calls=10),
+            median_ms(lambda: sad_grid_ref(b_src, p_win, num, num))),
+        "search_mv": (
+            median_ms(lambda: search_mv(src, win128, num), calls=10),
+            median_ms(lambda: search_mv_ref(src, win128, num))),
+        "search_mv_dma": (
+            median_ms(lambda: search_mv_dma(src, padded, pos, SEARCH_RANGE), calls=10),
+            median_ms(lambda: search_mv_dma_ref(src, padded, pos, SEARCH_RANGE))),
+        "encode_ctu_mega": (
+            median_ms(lambda: encode_ctu_mega(src, padded, pos, SEARCH_RANGE, *qargs), calls=10),
+            median_ms(lambda: encode_ctu_mega_ref(src, padded, pos, SEARCH_RANGE, *qargs))),
     }
     shapes_timed = {"refine_qpel_costmap": "8160 16x16 tiles, gathered windows",
                     "refine_qpel_costmap_dma": "8160 16x16 tiles at the searched MVs",
@@ -910,8 +1142,8 @@ def main() -> int:
                     "ssd_grid_plane_multi": "510 CTUs, k=4, R=32",
                     "refine_quarter_pel_fused": "510 64x64 windows",
                     "inter_ctu_fused": "510 windows",
-                    "residual_pipeline_ctu": "510 CTUs, 8x8 TUs"}
-    b8_r32 = sub_block_windows(p_win, 16, SEARCH_RANGE)
+                    "residual_pipeline_ctu": "510 CTUs, 8x8 TUs",
+                    "sad_grid": "510 CTUs, R=32, the full search"}
     more = {
         "refine_qpel_costmap_dma 32640 8x8 tiles": (
             median_ms(lambda: refine_qpel_costmap_dma(tiles8, p_padded, starts8), calls=10),
@@ -944,6 +1176,15 @@ def main() -> int:
             median_ms(lambda: residual_pipeline_ctu_ref(b_src, b4_pred, *b4_args[(tu, tr)],
                                                         tu=tu, tr_type=tr)))
            for tu, tr in b4_args if (tu, tr) != (8, 0)},
+        "sad_grid 510 16x16 decimated blocks, num 17 (pyramid coarse level)": (
+            median_ms(lambda: sad_grid(b9_src_c, b9_win_c, 17, 17), calls=10),
+            median_ms(lambda: sad_grid_ref(b9_src_c, b9_win_c, 17, 17))),
+        "sad_grid 510 CTUs, num 7 (pyramid fine level)": (
+            median_ms(lambda: sad_grid(b_src, b9_win_f, 7, 7), calls=10),
+            median_ms(lambda: sad_grid_ref(b_src, b9_win_f, 7, 7))),
+        "sad_grid 8160 16x16 blocks, R=32 (PU decision)": (
+            median_ms(lambda: sad_grid(*b8_r32, 65, 65), calls=10),
+            median_ms(lambda: sad_grid_ref(*b8_r32, 65, 65))),
     }
     for what, (k_ms, p_ms) in more.items():
         log(f"{tag} {what} at 1080p: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
@@ -976,6 +1217,14 @@ def main() -> int:
                             "hevcasm_tpu/kernels/interp_pallas.py:551"),
         "residual_pipeline_ctu": ("hevcasm_tpu_torch/csrc/residual_ctu.cu",
                                   "hevcasm_tpu/kernels/residual_pallas.py:184"),
+        "sad_grid": ("hevcasm_tpu_torch/csrc/sad_grid.cu",
+                     "hevcasm_tpu/kernels/sad_pallas.py:57"),
+        "search_mv": ("hevcasm_tpu_torch/csrc/search_mv.cu",
+                      "hevcasm_tpu/kernels/search_pallas.py:856"),
+        "search_mv_dma": ("hevcasm_tpu_torch/csrc/search_mv.cu",
+                          "hevcasm_tpu/kernels/search_pallas.py:1381"),
+        "encode_ctu_mega": ("hevcasm_tpu_torch/csrc/mega.cu",
+                            "hevcasm_tpu/kernels/mega_pallas.py:143"),
     }
     # The least time for each timed call: bytes moved (inputs read once,
     # outputs written once) and multiply-adds, from the shapes it was timed
@@ -1005,6 +1254,12 @@ def main() -> int:
                             n * (refine_ops(64) + residual_ops(8))),
         "residual_pipeline_ctu": (nbytes(b_src, b4_pred) + n * (4096 + 256),
                                   n * residual_ops(8)),
+        "sad_grid": (nbytes(b_src, p_win) + n * num * num * 4,
+                     grid_terms / SAD_TERMS_PER_INSTR, INT_INSTR_PER_S),
+        "search_mv": (nbytes(src, win128) + n * 12, 2 * grid_terms),
+        "search_mv_dma": (nbytes(src, padded, pos) + n * 12, 2 * grid_terms),
+        "encode_ctu_mega": (nbytes(src, padded, pos) + n * (4096 + 12 + 4 + 256),
+                            2 * grid_terms + n * (refine_ops(64) + residual_ops(8))),
     }
     kernels = []
     for name, (src_path, replaces) in sources.items():

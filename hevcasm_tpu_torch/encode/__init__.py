@@ -1,6 +1,7 @@
-"""Encode loop of the port: CTU tiling (ctu), motion search (motion), the
-inter-frame inner loop and its multi-reference form (loop), the PU-layout and TU-size decisions of the
-RDO frame (partition) and the 4:2:0 P and B frames (video)."""
+"""Encode loop of the port: CTU tiling (ctu), motion search (motion: the
+full and the pyramid search, by SSD or SAD), the inter-frame inner loop
+and its multi-reference form (loop), the PU-layout and TU-size decisions of
+the RDO frame (partition) and the 4:2:0 P and B frames (video)."""
 
 from .ctu import tile_frame, untile_frame, pad_frame
 from .loop import (EncodeConfig, config_from_fields, encode_inter_frame,

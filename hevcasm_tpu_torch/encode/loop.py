@@ -12,8 +12,14 @@ K1 (kernels.search.ssd_grid_plane) scores the integer search and K2
 ``"fused"`` / ``"fused_batched"`` run B16 (kernels.inter_fused.
 inter_ctu_fused) on gathered windows, ``fused_refine=True`` B11
 (refine_quarter_pel_fused) and ``residual_impl="pallas"`` B4
-(kernels.residual_ctu.residual_pipeline_ctu).  The multi-reference frame
-scores all k planes in B7 (kernels.search.ssd_grid_plane_multi).  The
+(kernels.residual_ctu.residual_pipeline_ctu).  ``inter_impl="mega"`` runs
+the whole inner loop in B19 (kernels.mega.encode_ctu_mega).  The integer
+search runs B17 (kernels.search.search_mv / search_mv_dma, the first
+minimum in the kernel) under ``search_impl="mv"`` / ``"dma"``, B9
+(kernels.sad.sad_grid) under ``me_metric="sad"``, and B8 or B9 at both
+levels of ``me_strategy="pyramid"`` (motion.pyramid_search).  The
+multi-reference frame scores all k planes in B7
+(kernels.search.ssd_grid_plane_multi), or in B9 under the SAD metric.  The
 RDO frame (``pu_decision=True``, encode.partition) decides each CTU's PU
 layout in B15 (kernels.base_grids.base_layout_decide, or B14 base_grids_ctu
 when the "eighth" layout sets base 8; at R != 32, B8 kernels.search.ssd_grid
@@ -28,10 +34,9 @@ Quantizer parameters follow the HM convention for 8-bit video:
             offset such that the added rounding = (85 or 171) << (shift - 9)
   inverse:  scale = DEQUANT_SCALES[qp%6] << (qp//6), shift = log2(TU) - 1
 
-Each entry point accepts what hevcasm_tpu's accepts: a configuration it
-rejects raises the same exception type, and one that would run a module or
-kernel not ported yet raises NotImplementedError naming the ROADMAP item
-that ports it.
+Each entry point accepts what hevcasm_tpu's accepts, and a configuration
+it rejects raises the same exception type (ValueError where hevcasm_tpu
+stops on a bare assert).  Every value of every EncodeConfig field runs.
 """
 
 from __future__ import annotations
@@ -42,9 +47,10 @@ import torch
 
 from .. import registry
 from ..config import Tier
-# Importing the kernel modules registers K1, K2, B3, B4, B7, B8, B11 and
-# B12-B16.
-from ..kernels import base_grids, bi_fused, costmap, inter_fused, residual_ctu, search  # noqa: F401
+# Importing the kernel modules registers K1, K2, B3, B4, B7-B9, B11-B17
+# and B19.
+from ..kernels import (base_grids, bi_fused, costmap, inter_fused, mega,  # noqa: F401
+                       residual_ctu, sad, search)
 from ..ops.residual import residual_pipeline_frame
 from ..utils.psnr import psnr
 from ..utils.tensor import as_tensor, entry_device
@@ -67,15 +73,17 @@ class EncodeConfig:
     """Every field, default and guard of ``hevcasm_tpu``'s EncodeConfig.
 
     The implementation fields name interchangeable ways to compute the
-    same integers: me_metric / me_strategy (integer search), search_impl
-    ("auto" runs kernel K1 for a CUDA frame with the SSD metric, full
-    search, 64x64 CTUs and R <= 32, else the grid search on gathered
-    windows, which runs kernel B8 for a CUDA frame),
-    fused_refine / refine_impl / residual_impl (the staged path: B11 for
-    fused_refine, B4 for residual_impl "pallas" at 64x64 CTUs and 8x8 DCT
-    TUs, the plain versions otherwise), and inter_impl ("stages", "fused_dma"
-    for the K2 path, "fused" / "fused_batched" for B16; the B frame runs B3
-    under all three).
+    same integers: search_impl ("auto" runs kernel K1 for a CUDA frame
+    with the SSD metric, full search, 64x64 CTUs and R <= 32, else the
+    grid search on gathered windows, which runs kernel B8, or B9 for the
+    SAD metric, on a CUDA frame; "mv" / "dma" run B17), fused_refine /
+    refine_impl / residual_impl (the staged path: B11 for fused_refine, B4
+    for residual_impl "pallas" at 64x64 CTUs and 8x8 DCT TUs, the plain
+    versions otherwise), and inter_impl ("stages", "fused_dma" for the K2
+    path, "fused" / "fused_batched" for B16, "mega" for B19; the B frame
+    runs B3 under the three fused values).  me_metric and me_strategy
+    choose the search itself ("sad" scores |a - b|; "pyramid" searches a
+    4x-decimated level first); they change the MVs.
     """
 
     ctu: int = 64
@@ -179,44 +187,14 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: {item}")
 
 
-# The checks below mirror, per entry point, what hevcasm_tpu would run for a
-# configuration: they raise ValueError where it raises, and
-# NotImplementedError (naming the ROADMAP item) only where it would run a
-# module or kernel that is not ported yet.  Each runs before any work.
-
-def _check_search(cfg: EncodeConfig) -> None:
-    """What _integer_search runs."""
-    if cfg.me_strategy == "pyramid":
-        _not_ported("me_strategy='pyramid'", "ROADMAP A.3 (motion.pyramid_search)")
-    if cfg.me_metric == "sad":
-        _not_ported("me_metric='sad'", "ROADMAP A.2 (ops/sad.py) and B9 (sad_grid kernel)")
-    if cfg.search_impl in ("mv", "dma"):
-        _not_ported("search_impl='mv'/'dma'", "ROADMAP B17 (search_mv / search_mv_dma)")
-
-
-def _check_rdo(cfg: EncodeConfig) -> None:
-    """What encode_inter_frame runs under pu_decision / tu_sizes.  The PU
-    decision ignores me_strategy, search_impl, inter_impl, refine_impl and
-    fused_refine; tu_sizes alone searches by _integer_search and refines
-    with the 'mxu' sweep whatever refine_impl, fused_refine and inter_impl
-    say."""
-    if cfg.pu_decision:
-        if cfg.me_metric == "sad":
-            _not_ported("me_metric='sad' with pu_decision",
-                        "ROADMAP A.2 (ops/sad.py) and B9 (sad_grid kernel)")
-        partition.base_for(cfg.pu_layouts)
-    else:
-        _check_search(cfg)
-
-
 def _check_inter_core(cfg: EncodeConfig) -> None:
-    """What _inter_core runs; it serves the fixed CTU/TU geometry only."""
+    """What _inter_core rejects before any work, as hevcasm_tpu does: it
+    serves the fixed CTU/TU geometry only."""
     if cfg.pu_decision or cfg.tu_sizes:
         raise ValueError(
             "this entry point runs the fixed CTU/TU geometry; "
             "pu_decision/tu_sizes compose only with encode_inter_frame"
         )
-    _check_search(cfg)
 
 
 def _op(name: str, tiers: Tier):
@@ -244,15 +222,32 @@ def _search_impl_resolved(cfg: EncodeConfig, device: torch.device) -> str:
 
 def _integer_search(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid,
                     tiers: Tier = Tier.ALL):
-    """Integer-pel ME (me_strategy='full'): returns (mv_int (n, 2) int32,
-    best (n,) int32), the same for every search_impl."""
+    """Integer-pel ME by cfg.me_strategy and cfg.me_metric: the pyramid
+    search (both levels in the metric's grid scorer, B8 or B9), or the full
+    search by the resolved search_impl: 'slab' (K1), 'dma' (B17 reading the
+    windows from ref_padded), 'mv' (B17 on the gathered windows) or 'grid'
+    (the metric's grid scorer on the gathered windows).  Returns (mv_int
+    (n, 2) int32, best (n,) int32), the same for every search_impl."""
     r = cfg.search_range
+    grid_fn = motion.grid_metric_fn(cfg.me_metric, tiers)
+    if cfg.me_strategy == "pyramid":
+        # The coarse level decimates the unpadded reference.
+        pl = r + motion.PAD_L
+        ref = ref_padded[pl:pl + grid[0] * cfg.ctu, pl:pl + grid[1] * cfg.ctu]
+        return motion.pyramid_search(src_ctus, ref, ref_padded, pos, r, grid_fn=grid_fn,
+                                     grid=grid)
     impl = _search_impl_resolved(cfg, src_ctus.device)
     if impl == "slab":
         return motion.full_search_slab(src_ctus, ref_padded, r, grid,
                                        grid_plane_fn=_op("ssd_grid_plane", tiers))
-    return motion.full_search(src_ctus, ref_padded, pos, r,
-                              grid_fn=_op("ssd_grid", tiers), grid=grid)
+    if impl == "dma":
+        return _op("search_mv_dma", tiers)(src_ctus, ref_padded, pos, r)
+    if impl == "mv":
+        b = src_ctus.shape[-1]
+        win = motion.extract_aligned_windows(ref_padded, (motion.PAD_L, motion.PAD_L), grid,
+                                             b, b + 2 * r)
+        return _op("search_mv", tiers)(src_ctus, win, 2 * r + 1)
+    return motion.full_search(src_ctus, ref_padded, pos, r, grid_fn=grid_fn, grid=grid)
 
 
 def _residual_pipeline(src_blocks, pred_blocks, cfg: EncodeConfig, intra: bool,
@@ -366,7 +361,7 @@ def _decide_pu(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid, tiers: Tier):
         win = motion.extract_windows(ref_padded, pos + motion.PAD_L, size)
     return partition.select_pu_layout_pruned(
         src_ctus, ref_padded, pos, win, r, partition.mv_lambda(cfg.qp), cfg.pu_layouts,
-        _op("ssd_grid", tiers), grid=grid, metric=cfg.me_metric,
+        motion.grid_metric_fn(cfg.me_metric, tiers), grid=grid, metric=cfg.me_metric,
         decide_fn=_op("base_layout_decide", tiers), grids_fn=_op("base_grids_ctu", tiers),
         costmap_dma_fn=_op("refine_qpel_costmap_dma", tiers))
 
@@ -382,23 +377,32 @@ def encode_inter_frame(cur, ref, cfg: EncodeConfig = EncodeConfig(),
     runs the kernels on CUDA tensors, Tier.REF the plain versions on any
     device.
 
+    Every configuration runs: me_metric "ssd" or "sad", me_strategy "full"
+    or "pyramid", every search_impl and inter_impl ("mega": kernel B19, the
+    search, refinement and residual of each CTU in one launch, at
+    search_range 8, 16, 24 or 32), the PU decision and the TU-size
+    selection.
+
     Returns {"recon": (H, W) uint8, "mvs": (n, 2) int32 quarter-pel,
-    "sad": (n,) int32 best integer score, "nnz": () int32 coded
-    coefficients, "psnr_db": () float32}.  With pu_decision=True, "mvs" is
-    each CTU's top-left PU MV, "sad" the whole-CTU best integer SSD and
-    "pu_layout" (n,) int32 the chosen index into cfg.pu_layouts; with
-    tu_sizes, "tu_choice" (n,) int32 indexes cfg.tu_sizes and "nnz" counts
-    coded TUs.
+    "sad": (n,) int32 best integer score (SSD or SAD by cfg.me_metric),
+    "nnz": () int32 coded coefficients, "psnr_db": () float32}.  With
+    pu_decision=True, "mvs" is each CTU's top-left PU MV, "sad" the
+    whole-CTU best integer score and "pu_layout" (n,) int32 the chosen
+    index into cfg.pu_layouts; with tu_sizes, "tu_choice" (n,) int32
+    indexes cfg.tu_sizes and "nnz" counts coded TUs.
     """
-    if cfg.inter_impl == "mega":      # EncodeConfig rejects it with pu_decision/tu_sizes
-        _not_ported("inter_impl='mega'", "ROADMAP B19 (encode_ctu_mega)")
     rdo = cfg.pu_decision or bool(cfg.tu_sizes)
-    if rdo:
-        _check_rdo(cfg)
+    if cfg.pu_decision:
+        partition.base_for(cfg.pu_layouts)
     cur, (ref,), src_ctus, pos, grid = _prepare_frame(cfg, cur, ref, device=device)
     ref_padded = _pad_reference(ref, cfg.search_range)
     out = {}
-    if not rdo:
+    if cfg.inter_impl == "mega":      # EncodeConfig rejects it with pu_decision/tu_sizes
+        rec_ctus, mv_int, frac, best, nnz_tu = _op("encode_ctu_mega", tiers)(
+            src_ctus, ref_padded, pos, cfg.search_range, *cfg.quant_params(False),
+            *cfg.dequant_params())
+        mv_qpel, nnz = motion.qpel_mvs(mv_int, frac), nnz_tu.sum(dtype=torch.int32)
+    elif not rdo:
         rec_ctus, mv_qpel, best, nnz = _inter_core(src_ctus, ref_padded, pos, cfg, grid, tiers)
     else:
         if cfg.pu_decision:
@@ -435,7 +439,8 @@ def encode_inter_frame_multiref(cur, refs, cfg: EncodeConfig = EncodeConfig(),
     (motion.full_search_multi: kernel B7 on a CUDA frame with the SSD
     metric, 64x64 CTUs and R <= 32, else one grid call), and the (ref, mv)
     pair with the smallest integer score wins, the lower reference index on
-    a tie.  k == 1 gives encode_inter_frame's recon, mvs and nnz.
+    a tie.  k == 1 gives encode_inter_frame's recon, mvs and nnz.  Under
+    me_metric="sad" the one grid call runs B9 on a CUDA frame.
     search_impl is ignored, as in hevcasm_tpu.  The refinement and residual
     read the k padded planes stacked by rows, reference i's rows starting
     at i * Hp: K2 from that plane under inter_impl 'fused_dma', B16 on the
@@ -455,8 +460,6 @@ def encode_inter_frame_multiref(cur, refs, cfg: EncodeConfig = EncodeConfig(),
             "encode_inter_frame_multiref runs the fixed CTU/TU geometry; "
             "pu_decision/tu_sizes compose only with encode_inter_frame"
         )
-    if cfg.me_metric == "sad":
-        _not_ported("me_metric='sad'", "ROADMAP A.2 (ops/sad.py) and B9 (sad_grid kernel)")
     cur = as_tensor(cur, entry_device(cur, device))
     refs = as_tensor(refs, cur.device)
     if refs.dim() != 3 or refs.shape[0] < 1:
@@ -465,8 +468,9 @@ def encode_inter_frame_multiref(cur, refs, cfg: EncodeConfig = EncodeConfig(),
     r = cfg.search_range
     planes = torch.stack([_pad_reference(p, r) for p in ref_planes])    # (k, Hp, Wp)
     mv_int, ref_idx, _ = motion.full_search_multi(
-        src_ctus, planes, pos, r, grid_fn=_op("ssd_grid", tiers), grid=grid,
-        metric=cfg.me_metric, grid_plane_multi_fn=_op("ssd_grid_plane_multi", tiers))
+        src_ctus, planes, pos, r, grid_fn=motion.grid_metric_fn(cfg.me_metric, tiers),
+        grid=grid, metric=cfg.me_metric,
+        grid_plane_multi_fn=_op("ssd_grid_plane_multi", tiers))
     k, hp, wp = planes.shape
     start = pos + mv_int + r
     offsets = torch.stack([ref_idx * hp + start[:, 0], start[:, 1]], dim=-1)

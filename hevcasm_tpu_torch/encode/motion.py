@@ -1,11 +1,12 @@
-"""Motion estimation: full-search integer ME and quarter-pel refinement,
-the counterpart of ``hevcasm_tpu.encode.motion``.
+"""Motion estimation: full-search and pyramid integer ME and quarter-pel
+refinement, the counterpart of ``hevcasm_tpu.encode.motion``.
 
 Every CTU of a frame searches in one batched call:
 
-  1. integer full search: the exact SSD of each CTU against every
-     displacement in [-R, R]^2, then the first minimum in row-major
-     [dy, dx] order;
+  1. integer search: the exact SSD or SAD of each CTU against every
+     displacement in [-R, R]^2 (full search), or at a 4x-decimated level
+     and then in a +-3 grid around its upscaled winner (pyramid search),
+     keeping the first minimum in row-major [dy, dx] order;
   2. quarter-pel refinement: the 16 (yf, xf) luma interpolations at the
      best integer MV, scored by QPEL_SCORE (ops.pred_inter.refine_qpel).
 """
@@ -14,25 +15,38 @@ from __future__ import annotations
 
 import torch
 
+from .. import registry
+from ..config import Tier
+from ..kernels.sad import sad_grid
 from ..kernels.search import MAX_RADIUS, ssd_grid, ssd_grid_plane, ssd_grid_plane_multi
 from ..ops.pred_inter import refine_qpel
-from ..utils.tensor import as_tensor, first_min
+from ..utils.tensor import (PAD_L, PAD_R, TAPS, as_tensor, extract_windows, first_min,
+                            mv_from_index)
+from . import ctu as ctu_mod
 
 __all__ = [
     "TAPS", "PAD_L", "PAD_R",
+    "grid_metric_fn",
     "ctu_positions",
     "extract_windows",
     "extract_aligned_windows",
     "full_search",
     "full_search_slab",
     "full_search_multi",
+    "pyramid_search",
     "refine_quarter_pel",
     "qpel_mvs",
 ]
 
-TAPS = 8
-PAD_L = TAPS // 2 - 1  # 3
-PAD_R = TAPS // 2      # 4
+
+def grid_metric_fn(metric: str, tiers: Tier = Tier.ALL):
+    """The grid scorer of a metric name among ``tiers``: "sad" the registry's
+    sad_grid (kernel B9 for CUDA tensors), "ssd" its ssd_grid (B8)."""
+    op = {"sad": "sad_grid", "ssd": "ssd_grid"}[metric]
+    fn = registry.get(op, tiers)
+    if fn is None:
+        raise RuntimeError(f"no implementation of {op!r} in tiers {tiers!r}")
+    return fn
 
 
 def ctu_positions(grid_rows: int, grid_cols: int, ctu: int,
@@ -42,23 +56,6 @@ def ctu_positions(grid_rows: int, grid_cols: int, ctu: int,
     c = torch.arange(grid_cols, dtype=torch.int32, device=device) * ctu
     yy, xx = torch.meshgrid(r, c, indexing="ij")
     return torch.stack([yy.reshape(-1), xx.reshape(-1)], dim=-1)
-
-
-def extract_windows(plane: torch.Tensor, positions: torch.Tensor,
-                    size: int | tuple[int, int]) -> torch.Tensor:
-    """Gather a (sy, sx) window at each top-left position of a 2-D plane.
-
-    Returns (n, sy, sx).  A start that would reach past the plane is
-    clamped so the window fits, as ``jax.lax.dynamic_slice`` does."""
-    sy, sx = (size, size) if isinstance(size, int) else size
-    plane = as_tensor(plane)
-    positions = as_tensor(positions, plane.device).long()
-    hp, wp = plane.shape
-    y0 = positions[:, 0].clamp(0, hp - sy)
-    x0 = positions[:, 1].clamp(0, wp - sx)
-    rows = y0[:, None] + torch.arange(sy, device=plane.device)
-    cols = x0[:, None] + torch.arange(sx, device=plane.device)
-    return plane[rows[:, :, None], cols[:, None, :]]
 
 
 def extract_aligned_windows(plane: torch.Tensor, origin: tuple[int, int],
@@ -75,10 +72,6 @@ def extract_aligned_windows(plane: torch.Tensor, origin: tuple[int, int],
     a = plane[oy : oy + (gr - 1) * tile + size, ox : ox + (gc - 1) * tile + size]
     win = a.unfold(0, size, tile).unfold(1, size, tile)   # (gr, gc, size, size)
     return win.reshape(gr * gc, size, size)
-
-
-def _mv_from_index(best: torch.Tensor, num: int, r: int) -> torch.Tensor:
-    return torch.stack([best // num - r, best % num - r], dim=-1).to(torch.int32)
 
 
 def full_search(src_ctus, ref_padded, positions, search_range: int,
@@ -103,7 +96,7 @@ def full_search(src_ctus, ref_padded, positions, search_range: int,
         win = extract_windows(ref_padded, positions + PAD_L, size)
     scores = grid_fn(src_ctus, win, num, num)              # (n, num, num)
     best, best_score = first_min(scores.reshape(scores.shape[0], -1))
-    return _mv_from_index(best, num, r), best_score
+    return mv_from_index(best, num, r), best_score
 
 
 def full_search_slab(src_ctus, ref_padded, search_range: int,
@@ -122,7 +115,7 @@ def full_search_slab(src_ctus, ref_padded, search_range: int,
                        PAD_L : PAD_L + gc * b + 2 * r].contiguous()
     scores = grid_plane_fn(src_ctus, plane, grid, num)
     best, best_score = first_min(scores.reshape(scores.shape[0], -1))
-    return _mv_from_index(best, num, r), best_score
+    return mv_from_index(best, num, r), best_score
 
 
 def full_search_multi(src_ctus, planes, positions, search_range: int,
@@ -165,10 +158,58 @@ def full_search_multi(src_ctus, planes, positions, search_range: int,
         scores = scores.reshape(k, n, num * num).transpose(0, 1)    # (n, k, num^2)
     if joint:
         best, best_score = first_min(scores.reshape(n, k * num * num))
-        return (_mv_from_index(best % (num * num), num, r),
+        return (mv_from_index(best % (num * num), num, r),
                 best // (num * num), best_score)
     best, best_score = first_min(scores.transpose(0, 1))
-    return _mv_from_index(best, num, r), best_score
+    return mv_from_index(best, num, r), best_score
+
+
+def _downsample4(x: torch.Tensor) -> torch.Tensor:
+    """4x box decimation with rounding, (v + 8) >> 4, over the trailing two
+    axes."""
+    h, w = x.shape[-2] // 4, x.shape[-1] // 4
+    v = x.to(torch.int32).reshape(*x.shape[:-2], h, 4, w, 4).sum(dim=(-3, -1))
+    return ((v + 8) >> 4).to(torch.uint8)
+
+
+def pyramid_search(src_ctus, ref_plane, ref_padded, positions, search_range: int,
+                   grid_fn=sad_grid, fine_range: int = 3,
+                   grid: tuple[int, int] | None = None):
+    """Two-level integer search over the same +-R window as full_search.
+
+    Level 0: the 4x-decimated CTUs against the decimated reference, edge
+    padded by R/4, over every displacement in +-R/4; its first minimum,
+    times 4 and clipped to +-(R - fine_range), is the coarse MV.  Level 1:
+    the full-resolution CTUs over a +-fine_range grid around it.  Both grids
+    run in ``grid_fn``.
+
+    src_ctus (n, B, B) uint8; ref_plane (H, W) the unpadded reference;
+    ref_padded it padded as full_search takes it; positions (n, 2); grid the
+    (rows, cols) of the CTU grid, which selects the reshape-based coarse
+    windows when their span is tile-aligned.  Returns (mv (n, 2) int32,
+    best (n,) int32 the fine level's score)."""
+    b = src_ctus.shape[-1]
+    r = search_range
+    rc, bc = r // 4, b // 4
+
+    src_c = _downsample4(src_ctus)                                 # (n, B/4, B/4)
+    ref_c = _downsample4(as_tensor(ref_plane, src_ctus.device))    # (H/4, W/4)
+    ref_c_pad = ctu_mod.pad_frame(ref_c, rc, rc, rc, rc)            # edge padding
+    if grid is not None and (bc + 2 * rc) % bc == 0:
+        win_c = extract_aligned_windows(ref_c_pad, (0, 0), grid, bc, bc + 2 * rc)
+    else:
+        win_c = extract_windows(ref_c_pad, positions // 4, bc + 2 * rc)
+    num_c = 2 * rc + 1
+    idx_c, _ = first_min(grid_fn(src_c, win_c, num_c, num_c).reshape(src_c.shape[0], -1))
+    mv_c = mv_from_index(idx_c, num_c, rc) * 4
+
+    f = fine_range
+    mv_c = mv_c.clamp(-r + f, r - f)               # keeps the fine grid in range
+    win_f = extract_windows(ref_padded, positions + mv_c - f + (r + PAD_L), b + 2 * f)
+    num_f = 2 * f + 1
+    scores = grid_fn(src_ctus, win_f, num_f, num_f)
+    idx_f, best = first_min(scores.reshape(scores.shape[0], -1))
+    return (mv_c + mv_from_index(idx_f, num_f, f)).to(torch.int32), best
 
 
 def refine_quarter_pel(src_ctus, ref_padded, positions, mv_int,

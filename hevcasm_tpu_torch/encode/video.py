@@ -11,8 +11,9 @@ references.
 
 A CUDA frame's luma runs on the kernels: K1 (the search, once per
 reference; a B frame under search_impl "grid" scores both references in
-one call of B7), the P frame's refine + residual as loop._inter_core runs
-it (K2, B16, B11, B4), and under inter_impl "fused*" B3
+one call of B7, and under me_metric "sad" in one call of B9), the P
+frame's search, refine and residual as loop._inter_core runs them (K1, B8,
+B9, K2, B16, B11, B4), and under inter_impl "fused*" B3
 (kernels.bi_fused.bi_ctu_fused_dma, the B frame's two refinements, combine
 and residual), else the staged B path with B4 under residual_impl
 "pallas".  Chroma is plain PyTorch on every device.  Every path gives the
@@ -148,18 +149,13 @@ def _b_fused(cfg: EncodeConfig) -> bool:
             and cfg.ctu == 64 and cfg.tu == 8)
 
 
-def _check_b_luma(cfg: EncodeConfig) -> None:
-    """What _b_frame_luma runs.  Like hevcasm_tpu it searches exhaustively
-    whatever me_strategy says, and ignores pu_decision and tu_sizes."""
-    if cfg.me_metric == "sad":
-        _not_ported("me_metric='sad'", "ROADMAP A.2 (ops/sad.py) and B9 (sad_grid kernel)")
-
-
 def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
                   qparams=None, tiers: Tier = Tier.ALL):
-    """The B frame's luma: per-reference integer search (K1 per reference
-    where the slab route resolves, else one full_search_multi call: B7 on a
-    CUDA frame with the SSD metric, 64x64 CTUs and R <= 32), then B3 under
+    """The B frame's luma: per-reference integer search, exhaustive
+    whatever me_strategy says, as in hevcasm_tpu (K1 per reference where
+    the slab route resolves, else one full_search_multi call: B7 on a CUDA
+    frame with the SSD metric, 64x64 CTUs and R <= 32, else one grid call of
+    the metric's scorer, B9 for SAD), then B3 under
     inter_impl 'fused*' (64x64 CTUs, 8x8 TUs) or the staged refine +
     pred_uni_16 + combine + residual, whose refinement is the plain sweep
     whatever refine_impl and fused_refine say, as in hevcasm_tpu.  Returns (rec_y_ctus,
@@ -167,7 +163,6 @@ def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
     if qparams is not None:
         _not_ported("traced quantizer parameters (rate control)",
                     "ROADMAP A.8 (encode/rate.py)")
-    _check_b_luma(cfg)
     r = cfg.search_range
     planes = torch.stack([_pad_reference(ref0_y, r), _pad_reference(ref1_y, r)])
     if _search_impl_resolved(cfg, src_ctus.device) == "slab":
@@ -177,8 +172,8 @@ def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
                    for p in planes]
     else:
         mv_ints, _ = motion.full_search_multi(
-            src_ctus, planes, pos, r, grid_fn=_op("ssd_grid", tiers), grid=grid,
-            joint=False, metric=cfg.me_metric,
+            src_ctus, planes, pos, r, grid_fn=motion.grid_metric_fn(cfg.me_metric, tiers),
+            grid=grid, joint=False, metric=cfg.me_metric,
             grid_plane_multi_fn=_op("ssd_grid_plane_multi", tiers))
     scale, shift, offset = cfg.quant_params(False)
     dscale, dshift = cfg.dequant_params()

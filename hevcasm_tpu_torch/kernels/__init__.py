@@ -5,7 +5,13 @@ version (tier REF).
                read from the padded reference plane; B7
                ``ssd_grid_plane_multi``: the same against k planes; B8
                ``ssd_grid``: exact SSD grids of square blocks against given
-               windows.
+               windows; B17 ``search_mv`` / ``search_mv_dma``: the exhaustive
+               SSD search with its first minimum taken in the kernel, on
+               gathered windows or read from the plane.
+* sad          B9 ``sad_grid``: exact SAD grids of square blocks against
+               given windows (B8's grid core with |d| for d^2).
+* mega         B19 ``encode_ctu_mega``: search, first minimum, quarter-pel
+               refinement and 8x8 residual of each CTU in one launch.
 * inter_fused  K2 ``inter_ctu_fused_dma``: quarter-pel refinement fused with
                the 8x8 residual pipeline, windows read from the plane; B16
                ``inter_ctu_fused`` / ``inter_ctu_fused_batched``: the same on

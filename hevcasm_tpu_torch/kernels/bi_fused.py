@@ -26,9 +26,8 @@ import torch
 
 from .. import registry
 from ..config import Tier
-from ..encode.motion import TAPS, extract_windows
 from ..ops.pred_inter import pred_uni_16, refine_qpel
-from ..utils.tensor import as_tensor
+from ..utils.tensor import TAPS, as_tensor, extract_windows
 from . import build
 from .inter_fused import CTU, TU, WIN, _check, residual_8x8
 

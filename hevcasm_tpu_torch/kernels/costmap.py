@@ -32,7 +32,7 @@ import torch
 from .. import registry
 from ..config import Tier
 from ..ops.pred_inter import KERNEL8, qpel_costmap
-from ..utils.tensor import as_tensor
+from ..utils.tensor import as_tensor, extract_windows
 from . import build
 
 __all__ = ["refine_qpel_costmap", "refine_qpel_costmap_ref",
@@ -108,10 +108,8 @@ def refine_qpel_costmap(src_blocks, windows) -> torch.Tensor:
 
 def refine_qpel_costmap_dma_ref(src_blocks, plane, offsets, group: int | None = None):
     """Plain version: gather each (b+7, b+7) window with
-    motion.extract_windows, then ops.pred_inter.qpel_costmap.  ``group`` is
+    utils.tensor.extract_windows, then ops.pred_inter.qpel_costmap.  ``group`` is
     accepted for signature parity and ignored."""
-    from ..encode.motion import extract_windows
-
     src = as_tensor(src_blocks)
     plane = as_tensor(plane, src.device)
     offsets = as_tensor(offsets, src.device)

@@ -41,17 +41,14 @@ Contracts, for n CTUs of 64x64 and 8x8 TUs:
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from .. import registry
 from ..config import Tier
-from ..encode.motion import TAPS, extract_windows
 from ..ops.pred_inter import refine_qpel
 from ..ops.quantize import check_quant_params
 from ..ops.residual import bits_egk, residual_levels
-from ..utils.tensor import as_tensor
+from ..utils.tensor import TAPS, as_tensor, extract_windows, stack_offsets
 from . import build
 
 __all__ = ["inter_ctu_fused_dma", "inter_ctu_fused_dma_ref", "inter_ctu_fused",
@@ -180,15 +177,6 @@ def inter_ctu_fused_ref(src_ctus, windows, qscale, qshift, qoffset, dscale, dshi
     return rec, frac, cost, nnz, bits
 
 
-@functools.lru_cache(maxsize=8)
-def _window_offsets(n: int, wh: int, device: torch.device) -> torch.Tensor:
-    """(n, 2) int32 [i * wh, 0]: window i's top-left row in a stack of n
-    windows of wh rows viewed as one plane.  Cached, so a frame's call
-    launches nothing but the kernel."""
-    rows = torch.arange(n, dtype=torch.int32, device=device) * wh
-    return torch.stack([rows, torch.zeros_like(rows)], dim=-1)
-
-
 def inter_ctu_fused(src_ctus, windows, qscale, qshift, qoffset, dscale, dshift):
     """Fused refine + residual on gathered windows.  CPU tensors run the
     plain version; CUDA tensors launch K2's kernel with the contiguous
@@ -208,7 +196,7 @@ def inter_ctu_fused(src_ctus, windows, qscale, qshift, qoffset, dscale, dshift):
     n, wh, ww = windows.shape
     if n * wh >= 2 ** 31:
         raise ValueError(f"inter_ctu_fused: {n} windows of {wh} rows pass 2^31 rows")
-    offsets = _window_offsets(n, wh, dev)
+    offsets = stack_offsets(n, wh, dev)
     k = CTU // TU
     rec = torch.empty((n, CTU, CTU), dtype=torch.uint8, device=dev)
     frac = torch.empty((n,), dtype=torch.int32, device=dev)

@@ -7,6 +7,7 @@ from .. import registry
 from ..config import Tier
 
 from .ssd import ssd, ssd_grid
+from .sad import sad, sad_multiref, sad_grid
 from .quantize import quantize, quantize_inverse, reconstruct
 from .transform import (
     forward_transform,
@@ -21,6 +22,9 @@ from .residual import residual_pipeline, residual_pipeline_frame
 _REF_OPS = {
     "ssd": ssd,
     "ssd_grid": ssd_grid,
+    "sad": sad,
+    "sad_multiref": sad_multiref,
+    "sad_grid": sad_grid,
     "quantize": quantize,
     "quantize_inverse": quantize_inverse,
     "reconstruct": reconstruct,
@@ -37,7 +41,7 @@ for _name, _fn in _REF_OPS.items():
     registry.register(_name, Tier.REF, _fn)
 
 __all__ = [
-    "ssd", "ssd_grid",
+    "ssd", "ssd_grid", "sad", "sad_multiref", "sad_grid",
     "quantize", "quantize_inverse", "reconstruct",
     "forward_transform", "inverse_transform", "inverse_transform_add",
     "add_residual",

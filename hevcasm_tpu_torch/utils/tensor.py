@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -32,6 +34,34 @@ def entry_device(x, device=None) -> torch.device:
     return dev
 
 
+TAPS = 8               # the luma interpolation filter's taps
+PAD_L = TAPS // 2 - 1  # 3: the rows/columns it reads before a block
+PAD_R = TAPS // 2      # 4: and after it
+
+
+def extract_windows(plane: torch.Tensor, positions: torch.Tensor,
+                    size: int | tuple[int, int]) -> torch.Tensor:
+    """Gather a (sy, sx) window at each top-left position of a 2-D plane.
+
+    Returns (n, sy, sx).  A start that would reach past the plane is
+    clamped so the window fits, as ``jax.lax.dynamic_slice`` does."""
+    sy, sx = (size, size) if isinstance(size, int) else size
+    plane = as_tensor(plane)
+    positions = as_tensor(positions, plane.device).long()
+    hp, wp = plane.shape
+    y0 = positions[:, 0].clamp(0, hp - sy)
+    x0 = positions[:, 1].clamp(0, wp - sx)
+    rows = y0[:, None] + torch.arange(sy, device=plane.device)
+    cols = x0[:, None] + torch.arange(sx, device=plane.device)
+    return plane[rows[:, :, None], cols[:, None, :]]
+
+
+def mv_from_index(index: torch.Tensor, num: int, r: int) -> torch.Tensor:
+    """(..., 2) int32 [dy, dx] in [-r, r] of a row-major index into a
+    (num, num) search grid."""
+    return torch.stack([index // num - r, index % num - r], dim=-1).to(torch.int32)
+
+
 def first_min(costs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(index, value) of the first minimum along the last axis: the minimum
     value, then the smallest index among the entries equal to it.  The
@@ -42,3 +72,13 @@ def first_min(costs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     big = torch.iinfo(torch.int32).max
     first = torch.where(costs == best, idx, big).amin(dim=-1)
     return first, best[..., 0]
+
+
+@functools.lru_cache(maxsize=8)
+def stack_offsets(n: int, wh: int, device: torch.device) -> torch.Tensor:
+    """(n, 2) int32 [i * wh, 0]: window i's top-left in a contiguous stack
+    of n windows of wh rows viewed as one plane of n * wh rows, which is how
+    the kernels that read windows from a plane take gathered windows.
+    Cached, so a frame's call launches nothing but its kernel."""
+    rows = torch.arange(n, dtype=torch.int32, device=device) * wh
+    return torch.stack([rows, torch.zeros_like(rows)], dim=-1)

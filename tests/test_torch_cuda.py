@@ -20,8 +20,8 @@ from hevcasm_tpu_torch.encode.loop import (EncodeConfig, encode_inter_frame,
 from hevcasm_tpu_torch.encode.video import (YuvFrame, encode_b_frame_yuv,
                                             encode_inter_frame_yuv)
 from hevcasm_tpu_torch.encode import partition
-from hevcasm_tpu_torch.kernels import (base_grids, bi_fused, costmap, inter_fused,
-                                       residual_ctu, search)
+from hevcasm_tpu_torch.kernels import (base_grids, bi_fused, costmap, inter_fused, mega,
+                                       residual_ctu, sad, search)
 
 pytestmark = pytest.mark.cuda
 
@@ -173,6 +173,156 @@ def test_b8_rejects_what_it_does_not_take(cuda):
                         260, 260)
     with pytest.raises(ValueError, match="contiguous"):
         search.ssd_grid(src, win.transpose(1, 2), 17, 17)
+
+
+# ---- B9: sad_grid ------------------------------------------------------------
+
+@pytest.mark.parametrize("b,n,ndy,ndx,extra", [
+    (8, 37, 65, 65, 0), (16, 21, 65, 65, 0), (16, 510, 17, 17, 0), (32, 5, 17, 9, 0),
+    (64, 3, 65, 65, 0), (64, 510, 7, 7, 0), (64, 2, 129, 129, 0), (8, 9, 5, 7, 2),
+    (16, 8160, 65, 65, 0)])
+def test_b9_matches_plain(cuda, b, n, ndy, ndx, extra):
+    rng = np.random.default_rng(b + n + ndy + 9)
+    src = random_u8(rng, (n, b, b), cuda)
+    win = random_u8(rng, (n, b + ndy - 1 + extra, b + ndx - 1 + extra + 11), cuda)
+    win = win[:, :, :b + ndx - 1 + extra]              # rows further apart than wide
+    before = sad.sad_grid.launches
+    got = sad.sad_grid(src, win, ndy, ndx)
+    assert sad.sad_grid.launches == before + 1
+    assert_bit_equal([got], [sad.sad_grid_ref(src, win, ndy, ndx)])
+
+
+def test_b9_constant_window_ties_and_largest_sum(cuda):
+    rng = np.random.default_rng(9)
+    src = random_u8(rng, (6, 16, 16), cuda)
+    win = torch.full((6, 80, 80), 97, dtype=torch.uint8, device=cuda)
+    got = sad.sad_grid(src, win, 65, 65)
+    assert bool((got == got[:, :1, :1]).all())
+    assert_bit_equal([got], [sad.sad_grid_ref(src, win, 65, 65)])
+    zeros = torch.zeros((2, 64, 64), dtype=torch.uint8, device=cuda)
+    got = sad.sad_grid(zeros, torch.full((2, 80, 80), 255, dtype=torch.uint8, device=cuda),
+                       17, 17)
+    assert int(got.min()) == int(got.max()) == 4096 * 255
+
+
+@pytest.mark.parametrize("b", [8, 16, 32, 64])
+def test_b8_b9_agree_where_the_square_is_the_absolute_value(cuda, b):
+    # On 0/1 pixels d^2 == |d|: the grid core's two metrics give one grid.
+    rng = np.random.default_rng(b)
+    src = torch.as_tensor(rng.integers(0, 2, (7, b, b), dtype=np.uint8), device=cuda)
+    win = torch.as_tensor(rng.integers(0, 2, (7, b + 32, b + 32), dtype=np.uint8), device=cuda)
+    assert_bit_equal([sad.sad_grid(src, win, 33, 33)], [search.ssd_grid(src, win, 33, 33)])
+
+
+def test_b9_rejects_what_it_does_not_take(cuda):
+    src = torch.zeros((2, 16, 16), dtype=torch.uint8, device=cuda)
+    win = torch.zeros((2, 32, 32), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        sad.sad_grid(src.to(torch.int16), win, 17, 17)
+    with pytest.raises(ValueError, match="b in"):
+        sad.sad_grid(src[:, :12, :12].contiguous(), win, 17, 17)
+    with pytest.raises(ValueError, match="window must be"):
+        sad.sad_grid(src, win[:, :31], 17, 17)
+    with pytest.raises(ValueError, match="256"):
+        sad.sad_grid(src, torch.zeros((2, 300, 300), dtype=torch.uint8, device=cuda), 260, 260)
+    with pytest.raises(ValueError, match="contiguous"):
+        sad.sad_grid(src, win.transpose(1, 2), 17, 17)
+
+
+# ---- B17: search_mv and search_mv_dma -----------------------------------------
+
+def b17_case(grid, r, seed, device, constant=False):
+    rng = np.random.default_rng(seed)
+    gr, gc = grid
+    cur = random_u8(rng, (64 * gr, 64 * gc), device)
+    ref = (torch.full_like(cur, 97) if constant else random_u8(rng, (64 * gr, 64 * gc), device))
+    src = ctu_mod.tile_frame(cur, 64).contiguous()
+    padded = ctu_mod.pad_frame(ref, r + 3, r + 4, r + 3, r + 4)
+    pos = motion.ctu_positions(gr, gc, 64, device)
+    return src, padded, pos
+
+
+@pytest.mark.parametrize("grid,r", [((3, 4), 32), ((2, 3), 8), ((1, 1), 1), ((2, 1), 17),
+                                    ((17, 30), 32), ((1, 5), 31)])
+def test_b17_matches_plain(cuda, grid, r):
+    src, padded, pos = b17_case(grid, r, sum(grid) + r, cuda)
+    want = search.search_mv_dma_ref(src, padded, pos, r)
+    win = motion.extract_windows(padded, pos + 3, 64 + 2 * r)
+    before = (search.search_mv.launches, search.search_mv_dma.launches)
+    assert_bit_equal(search.search_mv_dma(src, padded, pos, r), want)
+    assert_bit_equal(search.search_mv(src, win, 2 * r + 1), want)
+    assert (search.search_mv.launches, search.search_mv_dma.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert_bit_equal(want, motion.full_search(src, padded, pos, r, grid_fn=search.ssd_grid_ref))
+
+
+def test_b17_constant_plane_takes_the_first_candidate(cuda):
+    src, padded, pos = b17_case((2, 3), 32, 1, cuda, constant=True)
+    for got in (search.search_mv_dma(src, padded, pos, 32),
+                search.search_mv(src, motion.extract_windows(padded, pos + 3, 128), 65)):
+        assert bool((got[0] == -32).all())
+        assert_bit_equal(got, search.search_mv_dma_ref(src, padded, pos, 32))
+
+
+def test_b17_clamps_windows_past_the_plane_like_the_plain_version(cuda):
+    src, padded, pos = b17_case((2, 2), 8, 2, cuda)
+    far = (pos * 3 + 40).to(torch.int32)                   # starts past the plane's end
+    assert_bit_equal(search.search_mv_dma(src, padded, far, 8),
+                     search.search_mv_dma_ref(src, padded, far, 8))
+
+
+def test_b17_rejects_what_it_does_not_take(cuda):
+    src, padded, pos = b17_case((1, 2), 8, 3, cuda)
+    win = motion.extract_windows(padded, pos + 3, 80)
+    with pytest.raises(ValueError, match="1 <= R"):
+        search.search_mv_dma(src, ctu_mod.pad_frame(padded, 40, 40, 40, 40), pos, 40)
+    with pytest.raises(ValueError, match="num"):
+        search.search_mv(src, win, 16)
+    with pytest.raises(ValueError, match="windows must be"):
+        search.search_mv(src, win[:, :79], 17)
+    with pytest.raises(ValueError, match="contiguous"):
+        search.search_mv(src, win.transpose(1, 2), 17)
+    with pytest.raises(TypeError):
+        search.search_mv_dma(src, padded.to(torch.int16), pos, 8)
+    with pytest.raises(ValueError, match="int32"):
+        search.search_mv_dma(src, padded, pos.long(), 8)
+
+
+# ---- B19: encode_ctu_mega ------------------------------------------------------
+
+MEGA_QARGS = (*EncodeConfig(qp=32).quant_params(False), *EncodeConfig(qp=32).dequant_params())
+
+
+@pytest.mark.parametrize("grid,r", [((3, 4), 32), ((2, 3), 8), ((2, 2), 16), ((1, 3), 24),
+                                    ((17, 30), 32)])
+def test_b19_matches_plain(cuda, grid, r):
+    src, padded, pos = b17_case(grid, r, sum(grid) + r + 19, cuda)
+    before = mega.encode_ctu_mega.launches
+    got = mega.encode_ctu_mega(src, padded, pos, r, *MEGA_QARGS)
+    assert mega.encode_ctu_mega.launches == before + 1
+    want = mega.encode_ctu_mega_ref(src, padded, pos, r, *MEGA_QARGS)
+    assert_bit_equal(got, want)
+    # The search is B17's and the refinement + residual K2's.
+    assert_bit_equal(got[1:4:2], search.search_mv_dma_ref(src, padded, pos, r))
+
+
+def test_b19_constant_plane_takes_the_first_candidate_and_fraction(cuda):
+    src, padded, pos = b17_case((2, 3), 32, 4, cuda, constant=True)
+    got = mega.encode_ctu_mega(src, padded, pos, 32, *MEGA_QARGS)
+    assert bool((got[1] == -32).all()) and not bool(got[2].any())
+    assert_bit_equal(got, mega.encode_ctu_mega_ref(src, padded, pos, 32, *MEGA_QARGS))
+
+
+def test_b19_rejects_what_it_does_not_take(cuda):
+    src, padded, pos = b17_case((1, 2), 8, 5, cuda)
+    with pytest.raises(ValueError, match="8, 16, 24, 32"):
+        mega.encode_ctu_mega(src, padded, pos, 12, *MEGA_QARGS)
+    with pytest.raises(TypeError):
+        mega.encode_ctu_mega(src, padded, pos.long(), 8, *MEGA_QARGS)
+    with pytest.raises(ValueError, match="contiguous"):
+        mega.encode_ctu_mega(src, padded.t(), pos, 8, *MEGA_QARGS)
+    with pytest.raises(ValueError, match="shift"):
+        mega.encode_ctu_mega(src, padded, pos, 8, MEGA_QARGS[0], 40, *MEGA_QARGS[2:])
 
 
 # ---- K2: inter_ctu_fused_dma -------------------------------------------------
@@ -648,7 +798,10 @@ def counts():
     return {"k1": search.ssd_grid_plane, "b7": search.ssd_grid_plane_multi,
             "b8": search.ssd_grid, "k2": inter_fused.inter_ctu_fused_dma,
             "b16": inter_fused.inter_ctu_fused, "b11": inter_fused.refine_quarter_pel_fused,
-            "b4": residual_ctu.residual_pipeline_ctu, "b3": bi_fused.bi_ctu_fused_dma}
+            "b4": residual_ctu.residual_pipeline_ctu, "b3": bi_fused.bi_ctu_fused_dma,
+            "b9": sad.sad_grid, "b17": search.search_mv, "b17dma": search.search_mv_dma,
+            "b19": mega.encode_ctu_mega, "b13": costmap.refine_qpel_costmap_dma,
+            "b14": base_grids.base_grids_ctu, "b15": base_grids.base_layout_decide}
 
 
 def launched(fn):
@@ -761,3 +914,54 @@ def test_numpy_input_runs_on_the_card_by_default(cuda):
     out = encode_inter_frame(cur, ref, cfg)
     assert out["recon"].device.type == "cuda"
     assert_same_outputs(out, encode_inter_frame(cur, ref, cfg, device="cpu"))
+
+
+# ---- every search configuration ----------------------------------------------------
+
+SEARCH_PATHS = {
+    "sad": ("luma", dict(me_metric="sad"), {"b9": 1}),
+    "sad fused_dma": ("luma", dict(me_metric="sad", inter_impl="fused_dma"), {"b9": 1, "k2": 1}),
+    "pyramid": ("luma", dict(me_strategy="pyramid", inter_impl="fused_dma"), {"b8": 2, "k2": 1}),
+    "pyramid sad": ("luma", dict(me_strategy="pyramid", me_metric="sad",
+                                 inter_impl="fused_dma"), {"b9": 2, "k2": 1}),
+    "mv": ("luma", dict(search_impl="mv", inter_impl="fused_dma"), {"b17": 1, "k2": 1}),
+    "dma": ("luma", dict(search_impl="dma", inter_impl="fused_dma"), {"b17dma": 1, "k2": 1}),
+    "mega": ("luma", dict(inter_impl="mega"), {"b19": 1}),
+    "mega R=8": ("luma", dict(inter_impl="mega", search_range=8), {"b19": 1}),
+    "tu_sizes dma": ("luma", dict(tu_sizes=(8, 16), search_impl="dma"), {"b17dma": 1}),
+    "tu_sizes pyramid sad": ("luma", dict(tu_sizes=(8, 16), me_strategy="pyramid",
+                                          me_metric="sad"), {"b9": 2}),
+    "pu_decision sad": ("luma", dict(pu_decision=True, me_metric="sad"), {"b9": 1, "b13": 1}),
+    "yuv P sad": ("P", dict(me_metric="sad", inter_impl="fused_dma"), {"b9": 1, "k2": 1}),
+    "yuv P pyramid": ("P", dict(me_strategy="pyramid"), {"b8": 2}),
+    "yuv P mega": ("P", dict(inter_impl="mega"), {"k1": 1}),
+    "yuv B sad": ("B", dict(me_metric="sad", inter_impl="fused_dma"), {"b9": 1, "b3": 1}),
+    "multiref sad": ("multiref", dict(me_metric="sad", inter_impl="fused_dma"),
+                     {"b9": 1, "k2": 1}),
+}
+
+
+@pytest.mark.parametrize("path", list(SEARCH_PATHS))
+def test_search_configurations_on_card_launch_their_kernels_and_match_plain_and_cpu(
+        cuda, path):
+    kind, kw, want = SEARCH_PATHS[path]
+    cfg = EncodeConfig(**{"search_range": 32, "qp": 32, **kw})
+    if kind == "luma":
+        cur, ref = pan_frames(128, 192)
+        frames = ((torch.as_tensor(cur, device=cuda), torch.as_tensor(ref, device=cuda)),
+                  (torch.as_tensor(cur), torch.as_tensor(ref)))
+        run = encode_inter_frame
+    elif kind == "multiref":
+        cur, refs = multiref_frames(128, 192)
+        frames = ((torch.as_tensor(cur, device=cuda), torch.as_tensor(refs, device=cuda)),
+                  (torch.as_tensor(cur), torch.as_tensor(refs)))
+        run = encode_inter_frame_multiref
+    else:
+        ref0, cur, ref1 = yuv_clip(128, 192, cuda)
+        on_card = (cur, ref0) if kind == "P" else (cur, ref0, ref1)
+        frames = (on_card, tuple(YuvFrame(*(p.cpu() for p in f)) for f in on_card))
+        run = encode_inter_frame_yuv if kind == "P" else encode_b_frame_yuv
+    out, got = launched(lambda: run(*frames[0], cfg))
+    assert got == want
+    assert_same_outputs(out, run(*frames[0], cfg, tiers=Tier.REF))
+    assert_same_outputs(out, run(*frames[1], cfg))

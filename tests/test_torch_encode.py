@@ -161,20 +161,52 @@ def test_numpy_inputs_and_output_types():
         encode_inter_frame(cur, ref[:, :64], port_config(8, "fused_dma"), device="cpu")
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(me_metric="sad"), "ROADMAP A.2"),
-    (dict(me_strategy="pyramid"), "ROADMAP A.3"),
-    (dict(search_impl="mv", inter_impl="fused_dma"), "ROADMAP B17"),
-    (dict(search_impl="dma", inter_impl="fused_dma"), "ROADMAP B17"),
-    (dict(inter_impl="mega"), "ROADMAP B19"),
-    (dict(pu_decision=True, me_metric="sad", inter_impl="fused_dma"), "ROADMAP A.2"),
-    (dict(tu_sizes=(8, 16), me_strategy="pyramid"), "ROADMAP A.3"),
-    (dict(me_metric="sad", refine_impl="mxu", residual_impl="mxu"), "ROADMAP A.2"),
+_JAX_SEARCH_CACHE = {}
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(me_metric="sad"),
+    dict(me_strategy="pyramid"),
+    dict(search_impl="mv", inter_impl="fused_dma"),
+    dict(search_impl="dma", inter_impl="fused_dma"),
+    dict(inter_impl="mega"),
+    dict(pu_decision=True, me_metric="sad", inter_impl="fused_dma"),
+    dict(tu_sizes=(8, 16), me_strategy="pyramid"),
+    dict(me_metric="sad", refine_impl="mxu", residual_impl="mxu"),
+    dict(tu_sizes=(8, 16), me_metric="sad"),
+    dict(inter_impl="mega", search_range=8),
+    dict(me_strategy="pyramid", me_metric="sad", inter_impl="fused_dma"),
+    dict(tu_sizes=(4, 8), search_impl="dma"),
 ])
-def test_unported_configurations_name_their_roadmap_item(kwargs, item):
-    cur, ref = frames(64, 64, "random")
-    with pytest.raises(NotImplementedError, match=item):
-        encode_inter_frame(cur, ref, EncodeConfig(**kwargs), device="cpu")
+def test_search_configurations_match_jax(kwargs):
+    # Every search configuration at 128x192 (an odd grid width), R = 32
+    # unless given, panned content: the SAD metric (B9's plain version),
+    # the pyramid search, search_impl "mv"/"dma" (B17's) and inter_impl
+    # "mega" (B19's), against hevcasm_tpu with its Pallas kernels in
+    # interpret mode.  Every key hevcasm_tpu returns must be equal.
+    cur, ref = frames(128, 192, "pan")
+    kw = {"search_range": 32, "qp": 32, **kwargs}
+    key = tuple(sorted(kw.items()))
+    if key not in _JAX_SEARCH_CACHE:
+        out = jax_encode(jnp.asarray(cur), jnp.asarray(ref), JaxConfig(**kw))
+        _JAX_SEARCH_CACHE[key] = {k: np.asarray(v) for k, v in out.items()}
+    theirs = _JAX_SEARCH_CACHE[key]
+    ours = encode_inter_frame(cur, ref, EncodeConfig(**kw), device="cpu")
+    assert set(ours) == set(theirs)
+    for k in theirs:
+        if k == "psnr_db":
+            assert abs(float(ours[k]) - float(theirs[k])) <= PSNR_TOL_DB
+        else:
+            np.testing.assert_array_equal(ours[k].numpy(), theirs[k], err_msg=k)
+
+
+@pytest.mark.parametrize("r", [4, 12])
+def test_mega_outside_its_search_ranges_raises_value_error(r):
+    # hevcasm_tpu's encode_ctu_mega stops on a bare assert at these ranges.
+    cur, ref = frames(64, 128, "random")
+    with pytest.raises(ValueError, match="8, 16, 24, 32"):
+        encode_inter_frame(cur, ref, EncodeConfig(search_range=r, inter_impl="mega"),
+                           device="cpu")
 
 
 def test_port_imports_no_jax():

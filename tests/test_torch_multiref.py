@@ -105,9 +105,11 @@ def test_one_reference_equals_the_single_reference_frame():
     assert_matches(multi, {k: np.asarray(v) for k, v in theirs.items()})
 
 
-# The six inter configurations of the multiref frame.
+# The six inter configurations of the multiref frame, and the SAD metric.
 CONFIGS = {
     "stages": dict(),
+    "sad": dict(me_metric="sad"),
+    "sad_fused_dma": dict(me_metric="sad", inter_impl="fused_dma"),
     "fused": dict(inter_impl="fused"),
     "fused_batched": dict(inter_impl="fused_batched", fused_group=4),
     "fused_dma": dict(inter_impl="fused_dma"),
@@ -165,11 +167,11 @@ def test_guards_raise_like_jax(kw, key):
                                     device="cpu")
 
 
-def test_sad_metric_names_its_roadmap_item_and_slab_off_32_is_rejected():
-    cur, refs = split_refs(64, 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        encode_inter_frame_multiref(cur, refs, EncodeConfig(search_range=4, me_metric="sad"),
-                                    device="cpu")
+def test_sad_metric_matches_jax_and_slab_off_32_is_rejected():
+    # The SAD metric takes full_search_multi's grid route (B9's plain
+    # version here) in both packages.
+    kw = dict(search_range=4, qp=27, me_metric="sad")
+    assert_matches(port_result("split", **kw), jax_result("split", **kw))
     for config in (JaxConfig, EncodeConfig):
         with pytest.raises(ValueError, match="search_impl"):
             config(search_range=8, search_impl="slab")

@@ -1,6 +1,7 @@
 """Integer motion search of hevcasm_tpu_torch against hevcasm_tpu on the CPU:
 the plain versions of kernels K1 (ssd_grid_plane), B7
-(ssd_grid_plane_multi) and B8 (ssd_grid) against the JAX kernels in
+(ssd_grid_plane_multi), B8 (ssd_grid) and B17 (search_mv, search_mv_dma)
+against the JAX kernels in
 interpret mode and against the JAX SSD grid on gathered windows, and the
 search functions of encode.motion with their first-minimum tie-break.  The kernels themselves are held against their
 plain versions in test_torch_cuda.py."""
@@ -226,3 +227,72 @@ def test_full_search_multi_matches_jax(rng, r, metric, joint):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
     if joint:
         assert not (got[1] == 2).any(), "a tie must go to the lower reference"
+
+
+_JAX_B17 = {}
+
+
+def b17_case(content):
+    """192 x 256 (a 3 x 4 grid) at R = 32, as hevcasm_tpu's
+    test_search_variants_match_full_search: random cur and ref, or a
+    constant ref on which every candidate ties.  Returns the port's inputs
+    (src, padded, pos, win) and hevcasm_tpu's (mv, best) of search_mv and
+    of search_mv_dma, run in interpret mode once per content."""
+    from hevcasm_tpu.encode import ctu as jctu
+    from hevcasm_tpu.kernels.search_pallas import search_mv, search_mv_dma
+
+    h, w, r = 192, 256, 32
+    rng = np.random.default_rng(0xB17)
+    cur = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    ref = (rng.integers(0, 256, (h, w), dtype=np.uint8) if content == "random"
+           else np.full((h, w), 97, np.uint8))
+    src = tctu.tile_frame(torch.as_tensor(cur), 64).contiguous()
+    padded = tctu.pad_frame(torch.as_tensor(ref), r + 3, r + 4, r + 3, r + 4)
+    pos = tmotion.ctu_positions(3, 4, 64)
+    win = tmotion.extract_aligned_windows(padded, (3, 3), (3, 4), 64, 128)
+    if content not in _JAX_B17:
+        jsrc = jctu.tile_frame(jnp.asarray(cur), 64)
+        jpad = jnp.asarray(padded.numpy())
+        _JAX_B17[content] = {
+            "mv": [np.asarray(o) for o in search_mv(jsrc, jnp.asarray(win.numpy()), 65,
+                                                    group=3)],
+            "dma": [np.asarray(o) for o in search_mv_dma(jsrc, jpad, jnp.asarray(pos.numpy()),
+                                                         r)]}
+    return (src, padded, pos, win), _JAX_B17[content]
+
+
+@pytest.mark.parametrize("entry", ["mv", "dma"])
+@pytest.mark.parametrize("content", ["random", "constant"])
+def test_plain_b17_matches_jax_kernels(content, entry):
+    (src, padded, pos, win), want = b17_case(content)
+    if entry == "mv":
+        got = search.search_mv_ref(src, win, 65)
+    else:
+        got = search.search_mv_dma_ref(src, padded, pos, 32)
+    for g, w_ in zip(got, want[entry]):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w_)
+    if content == "constant":                 # every candidate ties: the first wins
+        assert (got[0] == -32).all()
+
+
+@pytest.mark.parametrize("r,grid", [(32, (2, 3)), (8, (1, 3)), (1, (2, 1))])
+def test_b17_wrappers_equal_full_search_on_cpu_and_are_registered(rng, r, grid):
+    gr, gc = grid
+    cur = torch.as_tensor(rng.integers(0, 256, (64 * gr, 64 * gc), dtype=np.uint8))
+    ref = torch.as_tensor(rng.integers(0, 256, (64 * gr, 64 * gc), dtype=np.uint8))
+    src = tctu.tile_frame(cur, 64).contiguous()
+    padded = tctu.pad_frame(ref, r + 3, r + 4, r + 3, r + 4)
+    pos = tmotion.ctu_positions(gr, gc, 64)
+    want = tmotion.full_search(src, padded, pos, r, grid=grid)
+    win = tmotion.extract_windows(padded, pos + 3, 64 + 2 * r)
+    before = (search.search_mv.launches, search.search_mv_dma.launches)
+    for got in (search.search_mv(src, win, 2 * r + 1),
+                search.search_mv_dma(src, padded, pos, r)):
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
+    assert (search.search_mv.launches, search.search_mv_dma.launches) == before
+    for op in ("search_mv", "search_mv_dma"):
+        assert registry.tiers_of(op) == Tier.REF | Tier.KERNEL
+    assert registry.get("search_mv", Tier.REF) is search.search_mv_ref
+    assert registry.get("search_mv_dma", Tier.REF) is search.search_mv_dma_ref
