@@ -35,7 +35,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
             planes (on these two most minima must be non-zero and differ
             between CTUs, and on the noise most MVs too), and on a constant
             plane, where every candidate ties and the answer is (-32, -32);
-            B19 also at R = 8 on an odd grid width.
+            B19 also at R = 8 on an odd grid width.  The self-test's
+            kernels: B10 (sad, sad_multiref) at the 23 partitions as the
+            suites pass them (2-D strided views of 128x128 arrays, k = 4),
+            on 510 64x64 blocks against one reference and against k = 4
+            (also as strided views); B5 and B6 at every self-test shape with
+            every fraction (windows as views into wider rows) and 2-D with
+            int fractions, on 510 64x64 luma blocks (8-tap, per-block
+            fractions 0-3) and 1020 32x32 chroma blocks (4-tap, 0-7); B18
+            on the structured pan's 510 CTUs at R = 32 with the 26 default
+            PU lists, where it must also equal B15 at base 16.
 4. main     the paths below, each with every launch count set to 0 just
             before it and read just after.  With
             EncodeConfig(search_range=32, qp=32, inter_impl="fused_dma"):
@@ -67,7 +76,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
             structured pan's luma (B9 + B13); the yuv B frame with SAD (B9 +
             B3).  Each frame must equal its plain path on the card
             (pu_layout, tu_choice and ref_idx included), and 128x192 frames
-            of each must equal the plain path on the CPU.
+            of each must equal the plain path on the CPU.  The self-test
+            (python -m hevcasm_tpu_torch's path), selftest.main(time_it=
+            False) on the card, must return 0 errors and launch exactly B10
+            23 + 23 times, B9 and B8 3 times each, B5 32, B6 4, B11 2 and
+            B4 2 (once a case of their suites) and nothing else.  The PU
+            decision, partition.select_pu_layout_pruned, with B18 as its
+            decide_fn (base 16 at the default layouts, R = 32) must launch
+            exactly B18 and B13 and equal the decision through B15.
 5. timing   CUDA-event medians over 20 samples after warm-up: each path per
             frame, synchronised after each (ms per frame and CTU/s), the luma
             path also 20 frames back to back, and each path's plain version;
@@ -90,7 +106,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
             published rates.  B9's |a - b| is no product, so its operations
             are the fewest CUDA-core instructions its terms need (packed,
             four terms an instruction) at the cores' issue rate
-            (INT_INSTR_PER_S and SAD_TERMS_PER_INSTR below).
+            (INT_INSTR_PER_S and SAD_TERMS_PER_INSTR below).  The timed
+            self-test once (its lines printed); B10, B5, B6 and B18 beside
+            their plain versions at the frame shapes of phase 3, B10 also
+            beside torch.cdist(p=1) on float32 copies (library_ms), and
+            their device time from torch.profiler (device_ms), which says
+            whether the kernel or the wrapper's host work bounds a call.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -184,6 +205,22 @@ def median_ms(fn, calls: int = 1, reps: int = REPS) -> float:
     return statistics.median(samples_ms(fn, calls, reps))
 
 
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time of one call of fn: the self time of every CUDA kernel
+    torch.profiler records over ``calls`` calls, per call (0.0 when the
+    profiler records none).  Set beside a CUDA-event time it says whether
+    the device or the host's enqueue bounds the calls."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    return us / 1e3 / calls
+
+
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12        # H100 SXM int8 tensor cores, dense
 
@@ -225,6 +262,12 @@ def refine_ops(b: int) -> int:
     """refine_macs as operations, plus QPEL_SCORE's difference and sum for
     each candidate pixel."""
     return 2 * refine_macs(b) + 2 * 16 * b * b
+
+
+def mc_macs(h: int, w: int, taps: int) -> int:
+    """Multiply-adds of one h x w block's interpolation at one fraction:
+    the horizontal pass over h + taps - 1 rows and the vertical pass."""
+    return (h + taps - 1) * w * taps + h * w * taps
 
 
 def residual_ops(tu: int) -> int:
@@ -269,6 +312,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    from hevcasm_tpu_torch import selftest
     from hevcasm_tpu_torch.config import Tier
     from hevcasm_tpu_torch.encode import ctu as ctu_mod, motion, partition
     from hevcasm_tpu_torch.encode.loop import (
@@ -276,8 +320,10 @@ def main() -> int:
     from hevcasm_tpu_torch.encode.video import (
         YuvFrame, encode_b_frame_yuv, encode_inter_frame_yuv)
     from hevcasm_tpu_torch.kernels import build
+    from hevcasm_tpu_torch.kernels import mc
     from hevcasm_tpu_torch.kernels.base_grids import (
-        base_grids_ctu, base_grids_ctu_ref, base_layout_decide, base_layout_decide_ref)
+        base_grids_ctu, base_grids_ctu_ref, base_layout_decide, base_layout_decide_fc,
+        base_layout_decide_fc_ref, base_layout_decide_ref)
     from hevcasm_tpu_torch.kernels.bi_fused import (
         bi_ctu_fused_dma, bi_ctu_fused_dma_ref)
     from hevcasm_tpu_torch.kernels.costmap import (
@@ -290,7 +336,8 @@ def main() -> int:
     from hevcasm_tpu_torch.kernels.mega import encode_ctu_mega, encode_ctu_mega_ref
     from hevcasm_tpu_torch.kernels.residual_ctu import (
         residual_pipeline_ctu, residual_pipeline_ctu_ref)
-    from hevcasm_tpu_torch.kernels.sad import sad_grid, sad_grid_ref
+    from hevcasm_tpu_torch.kernels.sad import (sad, sad_grid, sad_grid_ref, sad_multiref,
+                                               sad_multiref_ref, sad_ref)
     from hevcasm_tpu_torch.kernels.search import (
         search_mv, search_mv_dma, search_mv_dma_ref, search_mv_ref, ssd_grid,
         ssd_grid_plane, ssd_grid_plane_multi, ssd_grid_plane_multi_ref, ssd_grid_plane_ref,
@@ -317,7 +364,8 @@ def main() -> int:
                          "base_grids_ctu", "base_layout_decide", "ssd_grid",
                          "ssd_grid_plane_multi", "refine_quarter_pel_fused",
                          "inter_ctu_fused", "residual_pipeline_ctu", "sad_grid",
-                         "search_mv", "search_mv_dma", "encode_ctu_mega"), 0)
+                         "search_mv", "search_mv_dma", "encode_ctu_mega", "sad",
+                         "sad_multiref", "pred_uni", "pred_bi", "base_layout_decide_fc"), 0)
 
     def search_inputs(cur, ref, r):
         """K1 operands as full_search_slab builds them."""
@@ -681,6 +729,92 @@ def main() -> int:
             raise AssertionError("B19 constant plane: the first fraction did not win")
     win128 = win128_of(padded, grid)
 
+    # B10, B5, B6 and B18: the self-test's kernels, at every self-test shape
+    # (strided views and 2-D inputs as the suites pass them) and at frame
+    # shapes.
+    st_rng = np.random.default_rng(15)
+    st_src = torch.as_tensor(st_rng.integers(0, 256, (128, 128), dtype=np.uint8), device=dev)
+    st_ref = torch.as_tensor(st_rng.integers(0, 256, (4, 128, 128), dtype=np.uint8),
+                             device=dev)
+    for w_, h_ in selftest.PARTITIONS:
+        s_v, r_v = st_src[:h_, :w_], st_ref[0, 1:1 + h_, 1:1 + w_]   # rows 128 bytes apart
+        check("sad", f"{w_}x{h_} strided 2-D views", [sad(s_v, r_v)], [sad_ref(s_v, r_v)],
+              f"{tuple(s_v.shape)} strides {s_v.stride()}")
+        check("sad_multiref", f"4-way {w_}x{h_} strided views",
+              [sad_multiref(s_v, st_ref[:, :h_, :w_])],
+              [sad_multiref_ref(s_v, st_ref[:, :h_, :w_])], f"refs {(4, h_, w_)}")
+    b10_ref = ctu_mod.tile_frame(yuv_ref0.y, 64).contiguous()
+    mr_tiles = ctu_mod.tile_frame(torch.as_tensor(mr_refs_np, device=dev), 64) \
+        .transpose(0, 1).contiguous()                                   # (510, 4, 64, 64)
+    check("sad", "1080p 510 64x64 blocks", [sad(b_src, b10_ref)], [sad_ref(b_src, b10_ref)],
+          "n=510")
+    check("sad_multiref", "1080p 510 64x64 blocks, k=4", [sad_multiref(mr_src, mr_tiles)],
+          [sad_multiref_ref(mr_src, mr_tiles)], "n=510 k=4")
+    check("sad_multiref", "1080p k=4, blocks and references strided views",
+          [sad_multiref(mr_src[:, :, :48], mr_tiles[:, :, :, :48])],
+          [sad_multiref_ref(mr_src[:, :, :48], mr_tiles[:, :, :, :48])], "n=510 k=4 64x48")
+
+    def check_mc(what, w0, w1, fr, h_, w_, taps):
+        """B5 on w0 and B6 on (w0, w1) at fractions fr (xf0, yf0, xf1, yf1)."""
+        shape = f"n={w0.shape[0]} {w_}x{h_} taps={taps} strides {w0.stride()}"
+        check("pred_uni", what, [mc.pred_uni_batched(w0, fr[0], fr[1], h_, w_, taps)],
+              [mc.pred_uni_batched_ref(w0, fr[0], fr[1], h_, w_, taps)], shape)
+        check("pred_bi", what, [mc.pred_bi_batched(w0, w1, *fr, h_, w_, taps)],
+              [mc.pred_bi_batched_ref(w0, w1, *fr, h_, w_, taps)], shape)
+
+    for taps in (8, 4):
+        ph = 4 if taps == 8 else 8
+        every = torch.arange(ph * ph, dtype=torch.int32, device=dev)
+        xf_all, yf_all = every % ph, every // ph                       # every (xf, yf)
+        for w_, h_ in [(64, 64), (32, 16), (16, 16), (8, 4)]:
+            w_, h_ = w_ * taps // 8, h_ * taps // 8
+            wins = torch.as_tensor(st_rng.integers(
+                0, 256, (2, ph * ph, h_ + taps - 1, w_ + taps + 9), dtype=np.uint8), device=dev)
+            w0, w1 = wins[0, ..., :w_ + taps - 1], wins[1, ..., :w_ + taps - 1]   # views
+            check_mc(f"self-test {taps}-tap {w_}x{h_}, every fraction, windows strided",
+                     w0, w1, (xf_all, yf_all, yf_all, xf_all), h_, w_, taps)
+            for fr in [(0, 0, 0, 0), (1, 0, 0, 1), (2, 3, 3, 2), (ph - 1, ph - 1, 1, 2)]:
+                check("pred_uni", f"self-test {taps}-tap {w_}x{h_} {fr[:2]} 2-D",
+                      [mc.pred_uni(w0[0], *fr[:2], taps)],
+                      [mc.pred_uni_ref(w0[0], *fr[:2], taps)], f"{tuple(w0[0].shape)}")
+                check("pred_bi", f"self-test {taps}-tap {w_}x{h_} {fr} 2-D",
+                      [mc.pred_bi(w0[0], w1[0], *fr, taps)],
+                      [mc.pred_bi_ref(w0[0], w1[0], *fr, taps)], f"{tuple(w0[0].shape)}")
+
+    def chroma_windows(planes, seed):
+        """35x35 windows of every 32x32 block of the chroma planes at MVs in
+        [-4, 4]: (1020, 35, 35) for two 544x960 planes."""
+        rng_c = np.random.default_rng(seed)
+        out = []
+        for plane in planes:
+            gr_c, gc_c = plane.shape[0] // 32, plane.shape[1] // 32
+            mv_c = torch.as_tensor(rng_c.integers(-4, 5, (gr_c * gc_c, 2)), device=dev)
+            pos_c = motion.ctu_positions(gr_c, gc_c, 32, dev)
+            out.append(motion.extract_windows(ctu_mod.pad_frame(plane, 8, 8, 8, 8),
+                                              pos_c + mv_c + 8 - 1, 35))
+        return torch.cat(out).contiguous()
+
+    def frac_tensor(n_, ph, seed):
+        return torch.as_tensor(np.random.default_rng(seed).integers(0, ph, (n_,)),
+                               dtype=torch.int32, device=dev)
+
+    mc_luma = (b16_win, mr_win.contiguous(),
+               *(frac_tensor(b16_win.shape[0], 4, 16 + i) for i in range(4)))
+    c_w0 = chroma_windows((yuv_ref0.cb, yuv_ref0.cr), 20)
+    c_w1 = chroma_windows((yuv_ref1.cb, yuv_ref1.cr), 21)
+    mc_chroma = (c_w0, c_w1, *(frac_tensor(c_w0.shape[0], 8, 22 + i) for i in range(4)))
+    check_mc("1080p 510 64x64 luma blocks, per-block fractions 0-3", *mc_luma[:2],
+             mc_luma[2:], 64, 64, 8)
+    check_mc("1080p 1020 32x32 chroma blocks, per-block fractions 0-7", *mc_chroma[:2],
+             mc_chroma[2:], 32, 32, 4)
+    # B18: B15 at base 16 on the structured pan's CTUs, R = 32, 26 PU lists.
+    b18 = check("base_layout_decide_fc", "1080p 510 CTUs, R=32, default layouts",
+                [base_layout_decide_fc(b_src, p_win, lists16)],
+                [base_layout_decide_fc_ref(b_src, p_win, lists16)], f"PUs={len(lists16)}")
+    if max_abs_err(b18, [dec16]):
+        raise AssertionError("B18 differs from B15 at base 16")
+    log("B18 base_layout_decide_fc equals B15 base_layout_decide at base 16")
+
     bad = {k: v for k, v in err.items() if v}
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
@@ -701,7 +835,12 @@ def main() -> int:
                "sad_grid": sad_grid,
                "search_mv": search_mv,
                "search_mv_dma": search_mv_dma,
-               "encode_ctu_mega": encode_ctu_mega}
+               "encode_ctu_mega": encode_ctu_mega,
+               "sad": sad,
+               "sad_multiref": sad_multiref,
+               "pred_uni": mc.pred_uni,
+               "pred_bi": mc.pred_bi,
+               "base_layout_decide_fc": base_layout_decide_fc}
     launches = dict.fromkeys(counted, 0)
 
     def drive(what, fn, need, exact=False):
@@ -884,6 +1023,21 @@ def main() -> int:
     if e:
         raise AssertionError(f"select_pu_layout differs from select_pu_layout_pruned: {e}")
     log("RDO oracle: pred, choice and best64 equal to the pruned decision's")
+    # B18 is B15 at base 16; the PU decision takes it through its decide_fn
+    # hook (at the default layouts and R = 32 every decision is base 16),
+    # as hevcasm_tpu offered the fine/coarse kernel as an alternative
+    # decide kernel.  The result must equal the decision through B15.
+    fc_pruned = drive("RDO PU decision with B18 as decide_fn",
+                      lambda: partition.select_pu_layout_pruned(
+                          b_src, p_padded, pos, p_win, SEARCH_RANGE, lam, default_layouts,
+                          ssd_grid, grid=grid,
+                          decide_fn=lambda s_, w_, base, lists: base_layout_decide_fc(
+                              s_, w_, lists)),
+                      {"base_layout_decide_fc": 1, "refine_qpel_costmap_dma": 1}, exact=True)
+    e = max_abs_err(fc_pruned, pruned)
+    if e:
+        raise AssertionError(f"the PU decision through B18 differs from B15's: {e}")
+    log("RDO PU decision through B18: equal to the decision through B15")
 
     # The multi-reference P frame on the multiref pan, and the luma P frame
     # under the fused inter_impl values (B16) on bench content.
@@ -1034,7 +1188,22 @@ def main() -> int:
             f"nnz={int(got['nnz'])}; equal to the plain path on the card, and a 128x192 "
             f"R={small_cfg_p.search_range} frame equal to the plain path on the CPU")
 
+    # The self-test, python -m hevcasm_tpu_torch's path: every suite on the
+    # card, REF golden, KERNEL compared bit for bit.  Each KERNEL op must
+    # launch its kernel exactly once a case of its suites (a count of 0 would
+    # mean the fixtures stayed on the CPU and the plain version ran).
+    st_need = {"sad": 23, "sad_multiref": 23, "sad_grid": 3, "ssd_grid": 3, "pred_uni": 32,
+               "pred_bi": 4, "refine_quarter_pel_fused": 2, "residual_pipeline_ctu": 2}
+    st_errors = drive("self-test (selftest.main, time_it=False)",
+                      lambda: selftest.main(time_it=False), st_need, exact=True)
+    if st_errors:
+        raise AssertionError(f"self-test on the card: {st_errors} errors")
+    log("self-test path: 0 errors, each KERNEL op launched once a case")
+
     # ---- 5. timing -----------------------------------------------------------
+    log("timed self-test (best of each case's iters, CUDA events):")
+    if selftest.main(time_it=True):
+        raise AssertionError("timed self-test: errors")
     ms_main = median_ms(lambda: encode_inter_frame(cur, ref, cfg))
     ms_chain = median_ms(lambda: encode_inter_frame(cur, ref, cfg), calls=REPS)
     ms_plain = median_ms(lambda: encode_inter_frame(cur, ref, cfg, tiers=Tier.REF))
@@ -1133,7 +1302,50 @@ def main() -> int:
         "encode_ctu_mega": (
             median_ms(lambda: encode_ctu_mega(src, padded, pos, SEARCH_RANGE, *qargs), calls=10),
             median_ms(lambda: encode_ctu_mega_ref(src, padded, pos, SEARCH_RANGE, *qargs))),
+        "sad": (
+            median_ms(lambda: sad(b_src, b10_ref), calls=10),
+            median_ms(lambda: sad_ref(b_src, b10_ref))),
+        "sad_multiref": (
+            median_ms(lambda: sad_multiref(mr_src, mr_tiles), calls=10),
+            median_ms(lambda: sad_multiref_ref(mr_src, mr_tiles))),
+        "pred_uni": (
+            median_ms(lambda: mc.pred_uni(mc_luma[0], *mc_luma[2:4]), calls=10),
+            median_ms(lambda: mc.pred_uni_ref(mc_luma[0], *mc_luma[2:4]))),
+        "pred_bi": (
+            median_ms(lambda: mc.pred_bi(*mc_luma), calls=10),
+            median_ms(lambda: mc.pred_bi_ref(*mc_luma))),
+        "base_layout_decide_fc": (
+            median_ms(lambda: base_layout_decide_fc(b_src, p_win, lists16), calls=10),
+            median_ms(lambda: base_layout_decide_fc_ref(b_src, p_win, lists16))),
     }
+    # B10's yardstick: torch.cdist(p=1) on float32 copies (cast not timed),
+    # exact here since every sum is below 4096 * 255 < 2^24.
+    cd_src, cd_ref = b_src.reshape(n, 1, 4096).float(), b10_ref.reshape(n, 1, 4096).float()
+    cd_mr, cd_refs = mr_src.reshape(n, 1, 4096).float(), mr_tiles.reshape(n, 4, 4096).float()
+    if not (torch.equal(torch.cdist(cd_src, cd_ref, p=1)[:, 0, 0].int(), sad(b_src, b10_ref))
+            and torch.equal(torch.cdist(cd_mr, cd_refs, p=1)[:, 0].int(),
+                            sad_multiref(mr_src, mr_tiles))):
+        raise AssertionError("torch.cdist(p=1) differs from B10")
+    library = {"sad": median_ms(lambda: torch.cdist(cd_src, cd_ref, p=1), calls=10),
+               "sad_multiref": median_ms(lambda: torch.cdist(cd_mr, cd_refs, p=1), calls=10)}
+    # The new kernels are small: their device time beside the CUDA-event time
+    # of 10 calls says whether the kernel or the wrapper's host work bounds it.
+    profiled = {
+        "sad": lambda: sad(b_src, b10_ref),
+        "sad_multiref": lambda: sad_multiref(mr_src, mr_tiles),
+        "pred_uni": lambda: mc.pred_uni(mc_luma[0], *mc_luma[2:4]),
+        "pred_bi": lambda: mc.pred_bi(*mc_luma),
+        "pred_uni chroma": lambda: mc.pred_uni(mc_chroma[0], *mc_chroma[2:4], 4),
+        "pred_bi chroma": lambda: mc.pred_bi(*mc_chroma, 4),
+        "base_layout_decide_fc": lambda: base_layout_decide_fc(b_src, p_win, lists16),
+        "inter_ctu_fused_dma (K2, for comparison)":
+            lambda: inter_ctu_fused_dma(src, padded, k2_offsets, *qargs),
+    }
+    for what, fn in profiled.items():
+        d_ms = device_ms(fn)
+        log(f"{tag} {what} at 1080p: device {d_ms:.4f} ms a call (torch.profiler, kernels' "
+            f"self time)" if d_ms else f"{tag} {what}: device time not measured (the "
+            "profiler recorded no kernel)")
     shapes_timed = {"refine_qpel_costmap": "8160 16x16 tiles, gathered windows",
                     "refine_qpel_costmap_dma": "8160 16x16 tiles at the searched MVs",
                     "base_grids_ctu": "510 CTUs, base 8",
@@ -1143,7 +1355,12 @@ def main() -> int:
                     "refine_quarter_pel_fused": "510 64x64 windows",
                     "inter_ctu_fused": "510 windows",
                     "residual_pipeline_ctu": "510 CTUs, 8x8 TUs",
-                    "sad_grid": "510 CTUs, R=32, the full search"}
+                    "sad_grid": "510 CTUs, R=32, the full search",
+                    "sad": "510 64x64 blocks",
+                    "sad_multiref": "510 64x64 blocks, k=4",
+                    "pred_uni": "510 64x64 luma blocks, 8-tap, per-block fractions",
+                    "pred_bi": "510 64x64 luma block pairs, 8-tap, per-block fractions",
+                    "base_layout_decide_fc": "510 CTUs, R=32, 26 PU lists (B15 at base 16)"}
     more = {
         "refine_qpel_costmap_dma 32640 8x8 tiles": (
             median_ms(lambda: refine_qpel_costmap_dma(tiles8, p_padded, starts8), calls=10),
@@ -1185,12 +1402,19 @@ def main() -> int:
         "sad_grid 8160 16x16 blocks, R=32 (PU decision)": (
             median_ms(lambda: sad_grid(*b8_r32, 65, 65), calls=10),
             median_ms(lambda: sad_grid_ref(*b8_r32, 65, 65))),
+        "pred_uni 1020 32x32 chroma blocks, 4-tap, per-block fractions": (
+            median_ms(lambda: mc.pred_uni(mc_chroma[0], *mc_chroma[2:4], 4), calls=10),
+            median_ms(lambda: mc.pred_uni_ref(mc_chroma[0], *mc_chroma[2:4], 4))),
+        "pred_bi 1020 32x32 chroma block pairs, 4-tap, per-block fractions": (
+            median_ms(lambda: mc.pred_bi(*mc_chroma, 4), calls=10),
+            median_ms(lambda: mc.pred_bi_ref(*mc_chroma, 4))),
     }
     for what, (k_ms, p_ms) in more.items():
         log(f"{tag} {what} at 1080p: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
     for name, (k_ms, p_ms) in times.items():
         shape = f" ({shapes_timed[name]})" if name in shapes_timed else ""
-        log(f"{tag} {name} at 1080p{shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+        lib_ms = f", torch.cdist(p=1) {library[name]:.3f} ms" if name in library else ""
+        log(f"{tag} {name} at 1080p{shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms{lib_ms}")
 
     sources = {
         "ssd_grid_plane": ("hevcasm_tpu_torch/csrc/ssd_grid_plane.cu",
@@ -1225,6 +1449,13 @@ def main() -> int:
                           "hevcasm_tpu/kernels/search_pallas.py:1381"),
         "encode_ctu_mega": ("hevcasm_tpu_torch/csrc/mega.cu",
                             "hevcasm_tpu/kernels/mega_pallas.py:143"),
+        "sad": ("hevcasm_tpu_torch/csrc/sad.cu", "hevcasm_tpu/kernels/sad_pallas.py:98"),
+        "sad_multiref": ("hevcasm_tpu_torch/csrc/sad.cu",
+                         "hevcasm_tpu/kernels/sad_pallas.py:130"),
+        "pred_uni": ("hevcasm_tpu_torch/csrc/mc.cu", "hevcasm_tpu/kernels/mc_pallas.py:115"),
+        "pred_bi": ("hevcasm_tpu_torch/csrc/mc.cu", "hevcasm_tpu/kernels/mc_pallas.py:174"),
+        "base_layout_decide_fc": ("hevcasm_tpu_torch/csrc/base_grids.cu",
+                                  "hevcasm_tpu/kernels/search_pallas.py:1269"),
     }
     # The least time for each timed call: bytes moved (inputs read once,
     # outputs written once) and multiply-adds, from the shapes it was timed
@@ -1260,7 +1491,15 @@ def main() -> int:
         "search_mv_dma": (nbytes(src, padded, pos) + n * 12, 2 * grid_terms),
         "encode_ctu_mega": (nbytes(src, padded, pos) + n * (4096 + 12 + 4 + 256),
                             2 * grid_terms + n * (refine_ops(64) + residual_ops(8))),
+        "sad": (nbytes(b_src, b10_ref) + n * 4, n * 4096 / SAD_TERMS_PER_INSTR,
+                INT_INSTR_PER_S),
+        "sad_multiref": (nbytes(mr_src, mr_tiles) + n * 4 * 4,
+                         n * 4 * 4096 / SAD_TERMS_PER_INSTR, INT_INSTR_PER_S),
+        "pred_uni": (nbytes(mc_luma[0], *mc_luma[2:4]) + n * 4096,
+                     2 * n * mc_macs(64, 64, 8)),
+        "pred_bi": (nbytes(*mc_luma) + n * 4096, 2 * 2 * n * mc_macs(64, 64, 8)),
     }
+    costs["base_layout_decide_fc"] = costs["base_layout_decide"]
     kernels = []
     for name, (src_path, replaces) in sources.items():
         bound_ms, bound_by = bound(*costs[name])
@@ -1268,7 +1507,7 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err[name], "ms": times[name][0],
                         "plain_ms": times[name][1], "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+                        "bound_by": bound_by, "library_ms": library.get(name)})
         log(f"{tag} {name}: bound {bound_ms:.4f} ms ({bound_by}), kernel at "
             f"{bound_ms / times[name][0]:.3f} of it")
     print(json.dumps({"kernels": kernels}))

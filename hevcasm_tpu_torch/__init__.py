@@ -15,6 +15,7 @@ from .config import Tier
 from . import registry
 from . import ops  # registers the REF tier of the plain ops
 from . import encode  # registers the kernels' REF and KERNEL tiers
+from .kernels import mc  # noqa: F401  B5 and B6, which no encode path runs
 
 __version__ = "0.1.0"
 

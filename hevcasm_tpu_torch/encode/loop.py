@@ -47,8 +47,7 @@ import torch
 
 from .. import registry
 from ..config import Tier
-# Importing the kernel modules registers K1, K2, B3, B4, B7-B9, B11-B17
-# and B19.
+# Importing the kernel modules registers K1, K2, B3, B4, B7-B17 and B19.
 from ..kernels import (base_grids, bi_fused, costmap, inter_fused, mega,  # noqa: F401
                        residual_ctu, sad, search)
 from ..ops.residual import residual_pipeline_frame

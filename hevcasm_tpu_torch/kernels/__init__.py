@@ -9,7 +9,12 @@ version (tier REF).
                SSD search with its first minimum taken in the kernel, on
                gathered windows or read from the plane.
 * sad          B9 ``sad_grid``: exact SAD grids of square blocks against
-               given windows (B8's grid core with |d| for d^2).
+               given windows (B8's grid core with |d| for d^2); B10 ``sad``
+               / ``sad_multiref``: the SAD of blocks against one reference
+               or k.
+* mc           B5 ``pred_uni[_batched]`` and B6 ``pred_bi[_batched]``: uni-
+               and bi-prediction of blocks at given fractions (8-tap luma,
+               4-tap chroma).
 * mega         B19 ``encode_ctu_mega``: search, first minimum, quarter-pel
                refinement and 8x8 residual of each CTU in one launch.
 * inter_fused  K2 ``inter_ctu_fused_dma``: quarter-pel refinement fused with
@@ -25,7 +30,8 @@ version (tier REF).
                ``refine_qpel_costmap_dma``: the 16 quarter-pel QPEL_SCOREs of
                8- to 64-wide tiles, windows gathered or read from the plane.
 * base_grids   B14 ``base_grids_ctu`` and B15 ``base_layout_decide``: the
-               sub-block SSD grids of every CTU, and each PU's first minimum.
+               sub-block SSD grids of every CTU, and each PU's first minimum;
+               B18 ``base_layout_decide_fc``: B15 at base 16, R = 32.
 * build        compiles ``csrc/*.cu`` with nvcc on first use and loads it.
 
 Importing a kernel module registers both tiers of its op; nothing is

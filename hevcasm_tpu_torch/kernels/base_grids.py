@@ -1,12 +1,17 @@
-"""Kernels B14 and B15: the sub-block SSD grids of every CTU and the
+"""Kernels B14, B15 and B18: the sub-block SSD grids of every CTU and the
 per-PU decision over them.
 
 ``base_grids_ctu`` replaces the TPU kernel
 ``hevcasm_tpu/kernels/search_pallas.py`` ``base_grids_ctu`` and
 ``base_layout_decide`` the TPU kernel ``base_layout_decide`` (both
 ``_base_grids_kernel``).  Both are C entries over one device core in
-``csrc/base_grids.cu``; its header says what bounds it on the card.  Beside
-each stands its plain PyTorch version (``*_ref``).
+``csrc/base_grids.cu``; its header says what bounds it on the card.
+``base_layout_decide_fc`` replaces the TPU kernel of that name
+(``_fc_decide_kernel``), which has B15's contract at base 16 and gives its
+results bit for bit; its fine/coarse split of dx into 16c + f packs the
+TPU's 128 lanes and has no counterpart here, so B18 launches B15's C entry
+at base 16 and counts its own launches.  Beside each stands its plain
+PyTorch version (``*_ref``).
 
 Contracts, for src (n, 64, 64) uint8 CTUs and windows (n, 64+2R, 64+2R)
 uint8 CTU search windows (1 <= R <= 32; the PU decision passes 128 x 128,
@@ -19,6 +24,9 @@ R = 32), base in {8, 16, 32} and k = 64 // base:
   sub-block indices i * k + j; a PU's grid is the sum of its sub-block
   grids, and the PU takes the first minimum in row-major [dy, dx] order,
   reported as an MV in [-R, R].  ``group`` is accepted and ignored.
+* ``base_layout_decide_fc(src, windows, pu_lists)``: base_layout_decide at
+  base 16 for 128 x 128 windows (R = 32) only, ValueError elsewhere (the
+  TPU kernel asserts).
 """
 
 from __future__ import annotations
@@ -34,10 +42,12 @@ from ..utils.tensor import as_tensor, first_min
 from . import build
 
 __all__ = ["base_grids_ctu", "base_grids_ctu_ref", "base_layout_decide",
-           "base_layout_decide_ref", "BASES"]
+           "base_layout_decide_ref", "base_layout_decide_fc", "base_layout_decide_fc_ref",
+           "BASES"]
 
 CTU = 64
 BASES = (8, 16, 32)
+FC_WINDOW = 128                       # B18's windows: R = 32
 
 
 def _check(src: torch.Tensor, windows: torch.Tensor, base: int, what: str) -> int:
@@ -138,17 +148,11 @@ def _device_table(lists: tuple[tuple[int, ...], ...], dev: torch.device) -> torc
     return torch.tensor(flat, dtype=torch.int32, device=dev)
 
 
-def base_layout_decide(src_ctus, windows, base: int, pu_lists,
-                       group: int = 2) -> torch.Tensor:
-    """(n, P, 3) int32 [dy, dx, best] per PU.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel (and raise if it cannot be
-    built or launched)."""
-    src = as_tensor(src_ctus)
-    windows = as_tensor(windows, src.device)
-    if src.device.type == "cpu":
-        return base_layout_decide_ref(src, windows, base, pu_lists)
-    dev = _operands(src, windows, "base_layout_decide")
-    r = _check(src, windows, base, "base_layout_decide")
+def _decide_launch(src: torch.Tensor, windows: torch.Tensor, base: int, pu_lists,
+                   what: str) -> torch.Tensor:
+    """Check B15's operands on the card and launch its C entry."""
+    dev = _operands(src, windows, what)
+    r = _check(src, windows, base, what)
     lists = _pu_table(pu_lists, CTU // base)
     table = _device_table(tuple(lists), dev)
     n, p, k, num = src.shape[0], len(lists), CTU // base, 2 * r + 1
@@ -160,13 +164,59 @@ def base_layout_decide(src_ctus, windows, base: int, pu_lists,
                                windows.stride(1), table.data_ptr(), p, grids.data_ptr(),
                                keys.data_ptr(), out.data_ptr(), n, base, r, dev.index or 0,
                                torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "base_layout_decide")
+    build.check(err, what)
+    return out
+
+
+def base_layout_decide(src_ctus, windows, base: int, pu_lists,
+                       group: int = 2) -> torch.Tensor:
+    """(n, P, 3) int32 [dy, dx, best] per PU.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (and raise if it cannot be
+    built or launched)."""
+    src = as_tensor(src_ctus)
+    windows = as_tensor(windows, src.device)
+    if src.device.type == "cpu":
+        return base_layout_decide_ref(src, windows, base, pu_lists)
+    out = _decide_launch(src, windows, base, pu_lists, "base_layout_decide")
     base_layout_decide.launches += 1
+    return out
+
+
+def _check_fc(src: torch.Tensor, windows: torch.Tensor) -> None:
+    """The TPU kernel's geometry: 64x64 CTUs and 128x128 windows (R = 32);
+    it stops on an assert elsewhere."""
+    if src.dim() != 3 or src.shape[1:] != (CTU, CTU) or windows.dim() != 3 \
+            or windows.shape[1:] != (FC_WINDOW, FC_WINDOW):
+        raise ValueError(f"base_layout_decide_fc: src_ctus must be (n, {CTU}, {CTU}) and "
+                         f"windows (n, {FC_WINDOW}, {FC_WINDOW}), got {tuple(src.shape)} "
+                         f"and {tuple(windows.shape)}")
+
+
+def base_layout_decide_fc_ref(src_ctus, windows, pu_lists, group: int = 2) -> torch.Tensor:
+    """Plain version: base_layout_decide_ref at base 16."""
+    src = as_tensor(src_ctus)
+    windows = as_tensor(windows, src.device)
+    _check_fc(src, windows)
+    return base_layout_decide_ref(src, windows, 16, pu_lists)
+
+
+def base_layout_decide_fc(src_ctus, windows, pu_lists, group: int = 2) -> torch.Tensor:
+    """(n, P, 3) int32 [dy, dx, best] per PU at base 16, R = 32.  CPU
+    tensors run the plain version; CUDA tensors launch B15's kernel at base
+    16 (and raise if it cannot be built or launched)."""
+    src = as_tensor(src_ctus)
+    windows = as_tensor(windows, src.device)
+    if src.device.type == "cpu":
+        return base_layout_decide_fc_ref(src, windows, pu_lists)
+    _check_fc(src, windows)
+    out = _decide_launch(src, windows, 16, pu_lists, "base_layout_decide_fc")
+    base_layout_decide_fc.launches += 1
     return out
 
 
 base_grids_ctu.launches = 0
 base_layout_decide.launches = 0
+base_layout_decide_fc.launches = 0
 
 registry.register("base_grids_ctu", Tier.REF, base_grids_ctu_ref)
 registry.register("base_grids_ctu", Tier.KERNEL, base_grids_ctu)

@@ -73,6 +73,19 @@ _ENTRIES = {
     # src, windows, ctu_stride, row_stride, pu_table, num_pu, grids, keys, out,
     # n, base, radius, device, stream
     "hevc_base_decide": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # src, src_stride, src_row, ref, ref_stride, ref_row, out, n, h, w, device, stream
+    "hevc_sad": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _P],
+    # src, src_stride, src_row, refs, ref_stride, ref_k_stride, ref_row, out,
+    # n, k, h, w, device, stream
+    "hevc_sad_multiref": [_P, _L, _L, _P, _L, _L, _L, _P, _I, _I, _I, _I, _I, _P],
+    # windows, win_stride, win_row, xfrac, yfrac (device int32 or NULL), xval,
+    # yval, out, n, h, w, taps, device, stream
+    "hevc_pred_uni": [_P, _L, _L, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P],
+    # windows0, win0_stride, win0_row, windows1, win1_stride, win1_row,
+    # xfrac0, yfrac0, xfrac1, yfrac1 (or NULL), xval0, yval0, xval1, yval1,
+    # out, n, h, w, taps, device, stream
+    "hevc_pred_bi": [_P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I,
+                     _I, _I, _I, _P],
 }
 
 

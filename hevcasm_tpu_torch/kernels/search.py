@@ -30,8 +30,9 @@ Contracts:
 * ``ssd_grid(src, window, num_dy, num_dx)``: src (n, b, b) uint8, window
   (n, >= b + num_dy - 1, >= b + num_dx - 1) uint8 -> (n, num_dy, num_dx)
   int32, ``out[i, dy, dx] = sum (window[i, dy + y, dx + x] - src[i, y,
-  x])^2``.  The kernel takes b in {8, 16, 32, 64} and windows up to 256
-  wide (the TPU kernel's limit is 128).
+  x])^2``; any other leading axes (none, or several) are kept, as the
+  TPU kernel's 2-D form is.  The kernel takes b in {8, 16, 32, 64} and
+  windows up to 256 wide (the TPU kernel's limit is 128).
 * ``search_mv(src, windows, num)``: src (n, 64, 64) uint8, windows
   (n, >= 63 + num, >= 63 + num) uint8 gathered at each CTU's search window.
   Returns (mv (n, 2) int32 [dy - R, dx - R], best (n,) int32) of the first
@@ -178,8 +179,16 @@ def ssd_grid_plane_multi(src_ctus, planes, grid: tuple[int, int],
 def grid_launch(what: str, entry: str, src, window, num_dy: int, num_dx: int) -> torch.Tensor:
     """Check a grid kernel's operands on the card and launch C entry
     ``entry`` (B8 ``hevc_ssd_grid``, B9 ``hevc_sad_grid``, which take the
-    same arguments).  Raises on a geometry the kernels do not take."""
+    same arguments).  Leading axes other than one batch axis are flattened
+    around the launch and restored, so (b, b) blocks give (num_dy, num_dx)
+    and (a, c, b, b) give (a, c, num_dy, num_dx), as the TPU kernels' do.
+    Raises on a geometry the kernels do not take."""
     dev = build.on_card(what, src, window)
+    if src.dim() != 3 and src.dim() >= 2 and window.dim() == src.dim():
+        *lead, h, w = src.shape
+        out = grid_launch(what, entry, src.reshape(-1, h, w),
+                          window.reshape(-1, *window.shape[-2:]), num_dy, num_dx)
+        return out.reshape(*lead, num_dy, num_dx)
     if src.dtype != torch.uint8 or window.dtype != torch.uint8:
         raise TypeError(f"{what}: src and window must be uint8")
     if src.dim() != 3 or src.shape[1] != src.shape[2] or src.shape[1] not in GRID_BLOCKS:

@@ -6,7 +6,8 @@ Importing this package registers every REF-tier op with the registry.
 from .. import registry
 from ..config import Tier
 
-from .ssd import ssd, ssd_grid
+from .ssd import ssd, ssd_linear, ssd_grid
+from .satd import satd
 from .sad import sad, sad_multiref, sad_grid
 from .quantize import quantize, quantize_inverse, reconstruct
 from .transform import (
@@ -18,9 +19,13 @@ from .transform import (
 from .pred_inter import (pred_uni, pred_uni_16, pred_bi, qpel_score, qpel_costmap,
                          refine_qpel_costmap_mxu, refine_qpel)
 from .residual import residual_pipeline, residual_pipeline_frame
+from .pred_intra import (pred_intra, pred_intra_dc, pred_intra_planar, pred_intra_angular,
+                         pred_intra_all_modes)
 
 _REF_OPS = {
     "ssd": ssd,
+    "ssd_linear": ssd_linear,
+    "satd": satd,
     "ssd_grid": ssd_grid,
     "sad": sad,
     "sad_multiref": sad_multiref,
@@ -33,6 +38,7 @@ _REF_OPS = {
     "inverse_transform_add": inverse_transform_add,
     "pred_uni": pred_uni,
     "pred_bi": pred_bi,
+    "pred_intra": pred_intra,
     "refine_qpel": refine_qpel,
     "residual_pipeline": residual_pipeline,
 }
@@ -41,11 +47,13 @@ for _name, _fn in _REF_OPS.items():
     registry.register(_name, Tier.REF, _fn)
 
 __all__ = [
-    "ssd", "ssd_grid", "sad", "sad_multiref", "sad_grid",
+    "ssd", "ssd_linear", "satd", "ssd_grid", "sad", "sad_multiref", "sad_grid",
     "quantize", "quantize_inverse", "reconstruct",
     "forward_transform", "inverse_transform", "inverse_transform_add",
     "add_residual",
     "pred_uni", "pred_uni_16", "pred_bi", "qpel_score", "qpel_costmap",
     "refine_qpel_costmap_mxu", "refine_qpel",
     "residual_pipeline", "residual_pipeline_frame",
+    "pred_intra", "pred_intra_dc", "pred_intra_planar", "pred_intra_angular",
+    "pred_intra_all_modes",
 ]

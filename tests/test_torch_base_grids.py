@@ -1,7 +1,8 @@
-"""Kernels B14 and B15 on the CPU: hevcasm_tpu_torch's plain
-base_grids_ctu_ref and base_layout_decide_ref against hevcasm_tpu's
-base_grids_ctu and base_layout_decide (Pallas, run in interpret mode on the
-CPU), on the same numpy CTUs and 128 x 128 windows.  Every output is integer
+"""Kernels B14, B15 and B18 on the CPU: hevcasm_tpu_torch's plain
+base_grids_ctu_ref, base_layout_decide_ref and base_layout_decide_fc_ref
+against hevcasm_tpu's base_grids_ctu, base_layout_decide and
+base_layout_decide_fc (Pallas, run in interpret mode on the CPU), on the
+same numpy CTUs and 128 x 128 windows.  Every output is integer
 and must be equal.  test_torch_cuda.py holds the CUDA kernels against these
 plain versions on a card."""
 
@@ -193,3 +194,28 @@ def test_operands_the_kernels_do_not_take_raise(args):
             base_grids.base_layout_decide_ref(src, win, args["base"], args["lists"])
         else:
             base_grids.base_grids_ctu_ref(src, win, args["base"])
+
+
+def test_fc_decide_matches_jax_fine_coarse_kernel():
+    # As tests/test_partition.py holds the TPU's fine/coarse kernel to
+    # base_layout_decide at base 16, at n = 3.
+    src, win = ctus(3, 18)
+    want = np.asarray(jsearch.base_layout_decide_fc(jnp.asarray(src), jnp.asarray(win),
+                                                    PARTITION_LISTS))
+    before = base_grids.base_layout_decide_fc.launches
+    got = base_grids.base_layout_decide_fc(src, win, PARTITION_LISTS)
+    assert base_grids.base_layout_decide_fc.launches == before   # CPU: no launch
+    same(got, want)
+    same(base_grids.base_layout_decide_fc_ref(src, win, PARTITION_LISTS), want)
+    same(base_grids.base_layout_decide_ref(src, win, 16, PARTITION_LISTS), want)
+
+
+@pytest.mark.parametrize("src_shape,win_shape", [((2, 32, 32), (2, 128, 128)),
+                                                 ((2, 64, 64), (2, 80, 80))])
+def test_fc_decide_takes_the_tpu_kernels_geometry_only(src_shape, win_shape):
+    # hevcasm_tpu stops on an assert; the port raises ValueError.
+    src = np.zeros(src_shape, np.uint8)
+    win = np.zeros(win_shape, np.uint8)
+    for fn in (base_grids.base_layout_decide_fc, base_grids.base_layout_decide_fc_ref):
+        with pytest.raises(ValueError, match="128"):
+            fn(src, win, PARTITION_LISTS)

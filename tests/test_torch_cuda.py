@@ -20,7 +20,8 @@ from hevcasm_tpu_torch.encode.loop import (EncodeConfig, encode_inter_frame,
 from hevcasm_tpu_torch.encode.video import (YuvFrame, encode_b_frame_yuv,
                                             encode_inter_frame_yuv)
 from hevcasm_tpu_torch.encode import partition
-from hevcasm_tpu_torch.kernels import (base_grids, bi_fused, costmap, inter_fused, mega,
+from hevcasm_tpu_torch import selftest
+from hevcasm_tpu_torch.kernels import (base_grids, bi_fused, costmap, inter_fused, mc, mega,
                                        residual_ctu, sad, search)
 
 pytestmark = pytest.mark.cuda
@@ -801,7 +802,10 @@ def counts():
             "b4": residual_ctu.residual_pipeline_ctu, "b3": bi_fused.bi_ctu_fused_dma,
             "b9": sad.sad_grid, "b17": search.search_mv, "b17dma": search.search_mv_dma,
             "b19": mega.encode_ctu_mega, "b13": costmap.refine_qpel_costmap_dma,
-            "b14": base_grids.base_grids_ctu, "b15": base_grids.base_layout_decide}
+            "b14": base_grids.base_grids_ctu, "b15": base_grids.base_layout_decide,
+            "b10": sad.sad, "b10mr": sad.sad_multiref, "b5": mc.pred_uni,
+            "b5batched": mc.pred_uni_batched, "b6": mc.pred_bi,
+            "b6batched": mc.pred_bi_batched, "b18": base_grids.base_layout_decide_fc}
 
 
 def launched(fn):
@@ -965,3 +969,161 @@ def test_search_configurations_on_card_launch_their_kernels_and_match_plain_and_
     assert got == want
     assert_same_outputs(out, run(*frames[0], cfg, tiers=Tier.REF))
     assert_same_outputs(out, run(*frames[1], cfg))
+
+
+# ---- C.1: the grid ops' 2-D and 4-D inputs through B8 and B9 ------------------------
+
+@pytest.mark.parametrize("src_shape,win_shape", [((64, 64), (80, 80)), ((32, 32), (63, 65)),
+                                                 ((2, 3, 16, 16), (2, 3, 40, 40))])
+@pytest.mark.parametrize("op", ["ssd_grid", "sad_grid"])
+def test_b8_b9_take_2d_and_4d_input(cuda, src_shape, win_shape, op):
+    rng = np.random.default_rng(len(src_shape) + win_shape[-1])
+    src, win = random_u8(rng, src_shape, cuda), random_u8(rng, win_shape, cuda)
+    ndy, ndx = win_shape[-2] - src_shape[-2] + 1, win_shape[-1] - src_shape[-1] + 1
+    kernel, plain = {"ssd_grid": (search.ssd_grid, search.ssd_grid_ref),
+                     "sad_grid": (sad.sad_grid, sad.sad_grid_ref)}[op]
+    before = kernel.launches
+    got = kernel(src, win, ndy, ndx)
+    assert kernel.launches == before + 1
+    assert tuple(got.shape) == (*src_shape[:-2], ndy, ndx)
+    assert_bit_equal([got], [plain(src, win, ndy, ndx)])
+
+
+# ---- B10: sad and sad_multiref ------------------------------------------------------
+
+@pytest.mark.parametrize("w,h", selftest.PARTITIONS)
+def test_b10_matches_plain_on_strided_views(cuda, w, h):
+    rng = np.random.default_rng(w * 100 + h)
+    src = random_u8(rng, (128, 128), cuda)[:h, :w]
+    ref = random_u8(rng, (128, 128), cuda)[1:1 + h, 1:1 + w]     # rows 128 bytes apart
+    refs = random_u8(rng, (4, 128, 128), cuda)[:, :h, :w]
+    got, n = launched(lambda: (sad.sad(src, ref), sad.sad_multiref(src, refs)))
+    assert n == {"b10": 1, "b10mr": 1}
+    assert tuple(got[0].shape) == () and tuple(got[1].shape) == (4,)
+    assert_bit_equal(got, [sad.sad_ref(src, ref), sad.sad_multiref_ref(src, refs)])
+
+
+@pytest.mark.parametrize("n,k,h,w", [(510, 4, 64, 64), (37, 1, 8, 4), (5, 7, 48, 64),
+                                     (3, 2, 12, 16), (0, 3, 8, 8)])
+def test_b10_matches_plain_on_batches(cuda, n, k, h, w):
+    rng = np.random.default_rng(n + k + h + w)
+    src = random_u8(rng, (n, h, w), cuda)
+    refs = random_u8(rng, (n, k, h, w + 5), cuda)[..., :w]
+    assert_bit_equal([sad.sad(src, refs[:, 0]), sad.sad_multiref(src, refs)],
+                     [sad.sad_ref(src, refs[:, 0]), sad.sad_multiref_ref(src, refs)])
+    lead = random_u8(rng, (2, 3, h, w), cuda)
+    assert_bit_equal([sad.sad(lead, lead.flip(0))], [sad.sad_ref(lead, lead.flip(0))])
+
+
+def test_b10_largest_sums_and_rejects_what_it_does_not_take(cuda):
+    zeros = torch.zeros((3, 64, 64), dtype=torch.uint8, device=cuda)
+    full = torch.full((3, 2, 64, 64), 255, dtype=torch.uint8, device=cuda)
+    assert int(sad.sad(zeros, full[:, 0]).min()) == 4096 * 255
+    assert int(sad.sad_multiref(zeros, full).min()) == 4096 * 255
+    with pytest.raises(TypeError):
+        sad.sad(zeros.to(torch.int16), zeros.to(torch.int16))
+    with pytest.raises(ValueError, match="one shape"):
+        sad.sad(zeros, zeros[:, :8])
+    with pytest.raises(ValueError, match="refs"):
+        sad.sad_multiref(zeros, full[:, :, :8])
+
+
+# ---- B5 and B6: pred_uni and pred_bi ------------------------------------------------
+
+def mc_fracs(rng, n, taps, cuda):
+    p = 4 if taps == 8 else 8
+    return [torch.as_tensor(rng.integers(0, p, (n,)).astype(np.int32), device=cuda)
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("taps", [8, 4])
+@pytest.mark.parametrize("w,h", [(64, 64), (32, 16), (16, 16), (8, 4)])
+def test_b5_b6_match_plain_at_the_selftest_shapes(cuda, taps, w, h):
+    w, h = w * taps // 8, h * taps // 8
+    rng = np.random.default_rng(taps * 1000 + w + h)
+    p = 4 if taps == 8 else 8
+    # Windows as views into wider rows, so rows are further apart than wide.
+    win0 = random_u8(rng, (p * p, h + taps - 1, w + taps + 9), cuda)[..., :w + taps - 1]
+    win1 = random_u8(rng, (p * p, h + taps - 1, w + taps - 1), cuda)
+    xf = torch.arange(p * p, device=cuda, dtype=torch.int32) % p     # every (xf, yf)
+    yf = torch.arange(p * p, device=cuda, dtype=torch.int32) // p
+    got, n = launched(lambda: [mc.pred_uni(win0, xf, yf, taps),
+                               mc.pred_bi(win0, win1, xf, yf, yf, xf, taps)])
+    assert n == {"b5": 1, "b6": 1}
+    assert_bit_equal(got, [mc.pred_uni_ref(win0, xf, yf, taps),
+                           mc.pred_bi_ref(win0, win1, xf, yf, yf, xf, taps)])
+    for xfi, yfi in [(0, 0), (1, 0), (0, 1), (2, 3), (p - 1, p - 1)]:
+        assert_bit_equal([mc.pred_uni(win0[0], xfi, yfi, taps),
+                          mc.pred_bi(win0[0], win1[0], xfi, yfi, yfi, xfi, taps)],
+                         [mc.pred_uni_ref(win0[0], xfi, yfi, taps),
+                          mc.pred_bi_ref(win0[0], win1[0], xfi, yfi, yfi, xfi, taps)])
+
+
+@pytest.mark.parametrize("taps,n,b", [(8, 510, 64), (4, 1020, 32), (8, 33, 128), (4, 7, 2)])
+def test_b5_b6_match_plain_at_frame_shapes(cuda, taps, n, b):
+    rng = np.random.default_rng(taps + n + b)
+    w0 = random_u8(rng, (n, b + taps - 1, b + taps - 1), cuda)
+    w1 = random_u8(rng, (n, b + taps - 1, b + taps - 1), cuda)
+    fr = mc_fracs(rng, n, taps, cuda)
+    got, launches = launched(lambda: [mc.pred_uni_batched(w0, fr[0], fr[1], b, b, taps),
+                                      mc.pred_bi_batched(w0, w1, *fr, b, b, taps)])
+    assert launches == {"b5batched": 1, "b6batched": 1}
+    assert_bit_equal(got, [mc.pred_uni_batched_ref(w0, fr[0], fr[1], b, b, taps),
+                           mc.pred_bi_batched_ref(w0, w1, *fr, b, b, taps)])
+
+
+def test_b5_b6_leading_axes_numpy_fractions_and_out_of_range(cuda):
+    rng = np.random.default_rng(56)
+    win = random_u8(rng, (2, 3, 11, 15), cuda)
+    xf = rng.integers(0, 4, (6,)).astype(np.int32)
+    got = mc.pred_uni(win, xf, 2)
+    assert tuple(got.shape) == (2, 3, 4, 8)
+    assert_bit_equal([got], [mc.pred_uni_ref(win.reshape(6, 11, 15), torch.as_tensor(
+        xf, device=cuda), 2).reshape(2, 3, 4, 8)])
+    # A device fraction out of range is taken modulo the phase count.
+    wide = torch.tensor([5, -3, 9, 2, 4, 7], dtype=torch.int32, device=cuda)
+    assert_bit_equal([mc.pred_uni(win, wide, wide, 8), mc.pred_bi(win, win, wide, 1, 0, wide, 8)],
+                     [mc.pred_uni(win, wide % 4, wide % 4, 8),
+                      mc.pred_bi(win, win, wide % 4, 1, 0, wide % 4, 8)])
+    with pytest.raises(ValueError, match="outside"):
+        mc.pred_uni(win, 4, 0, 8)
+    with pytest.raises(ValueError, match="outside"):
+        mc.pred_bi(win, win, 0, 0, 8, 0, 4)
+    with pytest.raises(ValueError, match="fractions for"):
+        mc.pred_uni(win, torch.zeros(5, dtype=torch.int32, device=cuda), 0)
+    with pytest.raises(TypeError):
+        mc.pred_uni(win.to(torch.int16), 0, 0)
+    wide_rows = torch.zeros((1, 11, 8007), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        mc.pred_bi_batched(wide_rows, wide_rows, 0, 0, 0, 0, 4, 8000)
+
+
+# ---- B18: base_layout_decide_fc ------------------------------------------------------
+
+@pytest.mark.parametrize("n", [3, 17, 510])
+def test_b18_matches_b15_at_base_16_and_plain(cuda, n):
+    src, win = b14_case(n, 32, n, cuda, strided=n == 17)
+    got, launches = launched(lambda: base_grids.base_layout_decide_fc(src, win, pu_lists(16)))
+    assert launches == {"b18": 1}
+    assert_bit_equal([got], [base_grids.base_layout_decide(src, win, 16, pu_lists(16))])
+    assert_bit_equal([got], [base_grids.base_layout_decide_fc_ref(src, win, pu_lists(16))])
+
+
+def test_b18_takes_the_tpu_kernels_geometry_only(cuda):
+    src, win = b14_case(2, 8, 1, cuda)
+    with pytest.raises(ValueError, match="128"):
+        base_grids.base_layout_decide_fc(src, win, pu_lists(16))
+
+
+# ---- the self-test on the card -------------------------------------------------------
+
+SELFTEST_LAUNCHES = {"b10mr": 23, "b10": 23, "b9": 3, "b8": 3, "b5": 32, "b6": 4, "b11": 2,
+                     "b4": 2}
+
+
+def test_selftest_on_the_card_passes_and_launches_each_kernel_once_a_case(cuda, capsys):
+    errors, got = launched(lambda: selftest.main(time_it=False))
+    assert errors == 0
+    assert got == SELFTEST_LAUNCHES
+    out = capsys.readouterr().out
+    assert "self test passed" in out and "KERNEL:ok" in out and "MISMATCH" not in out

@@ -7,6 +7,8 @@ import dataclasses
 import numpy as np
 import pytest
 
+import importlib
+
 from hevcasm_tpu.encode import loop as jloop
 from hevcasm_tpu.encode import partition as jpartition
 from hevcasm_tpu.ops import pred_inter as jpred
@@ -15,6 +17,12 @@ from hevcasm_tpu.ops import transform as jtransform
 from hevcasm_tpu_torch.encode import loop as tloop
 from hevcasm_tpu_torch.ops import pred_inter as tpred
 from hevcasm_tpu_torch.ops import transform as ttransform
+
+# The ops packages export functions named like these modules.
+jintra = importlib.import_module("hevcasm_tpu.ops.pred_intra")
+jsatd = importlib.import_module("hevcasm_tpu.ops.satd")
+tintra = importlib.import_module("hevcasm_tpu_torch.ops.pred_intra")
+tsatd = importlib.import_module("hevcasm_tpu_torch.ops.satd")
 
 
 @pytest.mark.parametrize("name,theirs,ours", [
@@ -30,6 +38,18 @@ from hevcasm_tpu_torch.ops import transform as ttransform
 def test_tables_equal(name, theirs, ours):
     assert np.asarray(ours).dtype == np.asarray(theirs).dtype, name
     np.testing.assert_array_equal(np.asarray(ours), np.asarray(theirs), err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["ANGLES", "INV_ANGLES", "_FILTER_THRES"])
+def test_intra_tables_equal(name):
+    assert getattr(tintra, name) == getattr(jintra, name)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_hadamard_matrix_equal(n):
+    ours, theirs = tsatd.hadamard_matrix(n), jsatd.hadamard_matrix(n)
+    assert ours.dtype == theirs.dtype
+    np.testing.assert_array_equal(ours, theirs)
 
 
 @pytest.mark.parametrize("n", [4, 8, 16, 32])
