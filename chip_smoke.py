@@ -8,10 +8,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. device   a CUDA card must be present; prints nvidia-smi's name and power
             limit of card 0.
 2. build    compiles hevcasm_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
-            process per source, into build/ and prints the build time.
+            process per source, into build/ and prints the build time; the
+            SASS of the library (cuobjdump -sass, from nvcc's toolkit) must
+            show IMMA, the u8 tensor-core product, in K1/B7's kernel.
 3. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit on every output: the 1080p shapes (510 CTUs, R = 32), an
-            odd grid width (3) at R = 8, refine offsets at 0 and at the
+            odd grid width (3) at R = 8 (K1 also at R = 1, 2 and 31, and B7
+            at R = 31), K1 and B7 on all-0 / all-255 and all-255 / all-255
+            CTUs and planes (4096 * 255^2 and 0 everywhere), refine offsets
+            at 0 and at the
             maximum (in both stacked planes for B3), and constant planes on
             which every candidate ties.  The partition kernels run on the
             structured pan's luma: B15 at base 16 (the 26 PU lists of the
@@ -109,9 +114,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
             (INT_INSTR_PER_S and SAD_TERMS_PER_INSTR below).  The timed
             self-test once (its lines printed); B10, B5, B6 and B18 beside
             their plain versions at the frame shapes of phase 3, B10 also
-            beside torch.cdist(p=1) on float32 copies (library_ms), and
+            beside torch.cdist(p=1) on float32 copies (library_ms; the two
+            sampled in turns, since host work bounds both), and
             their device time from torch.profiler (device_ms), which says
-            whether the kernel or the wrapper's host work bounds a call.
+            whether the kernel or the wrapper's host work bounds a call; K1
+            and B7 with their device_ms and the tensor-core design's own
+            floor, torch.cdist(p=1) with its device_ms beside B10's (call
+            with call, device with device), and the host time of each step
+            of B10's launch path beside the whole call and cdist's.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -125,6 +135,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -182,23 +193,41 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def sample_ms(fn, calls: int) -> float:
+    """The CUDA-event time of ``calls`` calls of fn, per call, from an idle
+    card."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def samples_ms(fn, calls: int = 1, reps: int = REPS) -> list[float]:
     """``reps`` samples of the CUDA-event time of ``calls`` calls of fn,
     per call, sorted.  Each sample starts on an idle card."""
     for _ in range(min(WARMUP, reps)):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
+    return sorted(sample_ms(fn, calls) for _ in range(reps))
+
+
+def turns_ms(fns: dict, calls: int = 10, reps: int = REPS) -> dict:
+    """The median per-call CUDA-event time of each fn, sampled in turns (a
+    sample of each, then the next round), so that a drift in the host's
+    speed, which bounds calls this short, falls on every fn alike."""
+    for fn in fns.values():
+        for _ in range(WARMUP):
             fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return sorted(times)
+    torch.cuda.synchronize()
+    samples = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            samples[name].append(sample_ms(fn, calls))
+    return {name: statistics.median(v) for name, v in samples.items()}
 
 
 def median_ms(fn, calls: int = 1, reps: int = REPS) -> float:
@@ -276,6 +305,33 @@ def residual_ops(tu: int) -> int:
     return 2 * 4 * 4096 * tu
 
 
+def sass_count(build, kernel: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in the SASS of every function of the
+    built library whose name holds ``kernel`` (cuobjdump -sass, from the
+    toolkit of the nvcc that built it)."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build())], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and opcode in line:
+            count += 1
+    return count
+
+
+def tc_floor_ms(n: int, k: int, r: int) -> float:
+    """The least time of K1/B7's own tensor-core work at the published int8
+    rate: 2 x 16 x 8 x 32 operations for each m16n8k32 product it issues, m
+    tiles x (k step, n tile) pairs with 32 ks - 8 nt in [-24, 64] x 64
+    source rows, a CTU and plane (csrc/ssd_grid_plane.cu)."""
+    num, wide = 2 * r + 1, 64 + 2 * r
+    pairs = sum(1 for ks in range(-(-wide // 32)) for nt in range(-(-num // 8))
+                if -24 <= 32 * ks - 8 * nt <= 64)
+    return n * k * 64 * -(-num // 16) * pairs * 2 * 16 * 8 * 32 / INT8_OPS_PER_S * 1e3
+
+
 def pan_picture(h: int, w: int, seed: int = 0) -> np.ndarray:
     """bench.py's structured picture: its noise smoothed twice by a 3-tap
     box in each direction, (h + 64, w + 64) uint8."""
@@ -304,6 +360,47 @@ def multiref_pan(h: int, w: int, k: int = 4, seed: int = 0):
         noise[i][:, clean] = 0
         refs.append(np.clip(ref + noise[i], 0, 255).astype(np.uint8))
     return cur, np.stack(refs)
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Host time of one call of fn in microseconds, over ``calls`` calls
+    (the card is synchronised before and after, not in between)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def log_b10_host_steps(tag: str, src, ref, cd_src, cd_ref) -> None:
+    """The host time of each step of B10's launch path for 510 64x64 blocks
+    (kernels/sad.py sad), beside the whole call and torch.cdist(p=1)'s."""
+    from hevcasm_tpu_torch.kernels import build, sad as sad_mod
+    from hevcasm_tpu_torch.utils.tensor import as_tensor
+
+    dev, n = src.device, src.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    args = sad_mod._ARGS.pack(src.data_ptr(), 4096, 64, ref.data_ptr(), 4096, 0, 64,
+                              out.data_ptr(), n, 1, 64, 64, dev.index, build.raw_stream(dev.index))
+    lib = build.load()
+    steps = {
+        "as_tensor x2": lambda: (as_tensor(src), as_tensor(ref, dev)),
+        "shape, stride, dtype checks": lambda: (
+            src.shape, src.stride(), ref.stride(), ref.shape == src.shape,
+            src.dtype is torch.uint8, ref.dtype is torch.uint8, dev.type == "cuda"),
+        "torch.empty(n)": lambda: torch.empty(n, dtype=torch.int32, device=dev),
+        "data_ptr x3 + raw_stream + pack": lambda: sad_mod._ARGS.pack(
+            src.data_ptr(), 4096, 64, ref.data_ptr(), 4096, 0, 64, out.data_ptr(), n, 1, 64, 64,
+            dev.index, build.raw_stream(dev.index)),
+        "C entry (ctypes call and launch)": lambda: lib.hevc_sad(args),
+        "sad() whole": lambda: sad_mod.sad(src, ref),
+        "torch.cdist(p=1) whole": lambda: torch.cdist(cd_src, cd_ref, p=1),
+    }
+    log(f"{tag} B10 sad launch path, host us a call: " + ", ".join(
+        f"{what} {host_us(fn):.2f}" for what, fn in steps.items()))
 
 
 def main() -> int:
@@ -355,6 +452,11 @@ def main() -> int:
     build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+    imma = sass_count(build, "ssd_grid_plane_kernel", "IMMA")
+    log(f"SASS: {imma} IMMA instructions in K1/B7's kernel, "
+        f"{sass_count(build, 'sad_kernel', 'VABSDIFF4')} VABSDIFF4 in B10's (cuobjdump -sass)")
+    if not imma:
+        raise AssertionError("K1/B7's kernel has no IMMA (u8 tensor-core) instruction")
 
     # ---- 3. each kernel against its plain version ---------------------------
     cfg = EncodeConfig(search_range=SEARCH_RANGE, qp=32, inter_impl="fused_dma")
@@ -448,6 +550,18 @@ def main() -> int:
         raise AssertionError("constant plane: the first minimum is not (-R, -R)")
     check_k2("constant plane (all fractions tie)", c_src, c_padded,
              mv_offsets(c_grid, SEARCH_RANGE, 4))
+    for r in (1, 2, 31):           # one tile each way; a part last k step and word
+        check_k1("odd grid width", *search_inputs(small[0], small[1], r)[:3], r)
+    # The extremes: 4096 * 255^2 (the largest sum) and 0 at every candidate.
+    extremes = [(0, 255, 4096 * 255 * 255), (255, 255, 0)]
+    for sv, pv, want in extremes:
+        e_src = torch.full((3, 64, 64), sv, dtype=torch.uint8, device=dev)
+        e_plane = torch.full((64 + 2 * SEARCH_RANGE, 192 + 2 * SEARCH_RANGE), pv,
+                             dtype=torch.uint8, device=dev)
+        check_k1(f"CTUs all {sv}, plane all {pv}", e_src, e_plane, (1, 3), SEARCH_RANGE)
+        got = ssd_grid_plane(e_src, e_plane, (1, 3), 2 * SEARCH_RANGE + 1)
+        if not bool((got == want).all()):
+            raise AssertionError(f"K1 CTUs all {sv}, plane all {pv}: not {want} everywhere")
     # B3: the B frame of the structured pan, two stacked 1080p planes.
     yuv_cur, yuv_ref0, yuv_ref1 = (YuvFrame(*(torch.as_tensor(p, device=dev) for p in f))
                                    for f in structured_pan(H, W))
@@ -608,6 +722,20 @@ def main() -> int:
     check("ssd_grid_plane_multi", "odd grid width, k=3", 
           [ssd_grid_plane_multi(s_src, s_planes, s_grid, 17)],
           [ssd_grid_plane_multi_ref(s_src, s_planes, s_grid, 17)], f"grid={s_grid} k=3 R=8")
+    r31_planes = torch.stack([search_inputs(small[0], p, 31)[1] for p in (small[1], small[0],
+                                                                           flat)])
+    check("ssd_grid_plane_multi", "odd grid width, k=3, R=31",
+          [ssd_grid_plane_multi(s_src, r31_planes, s_grid, 63)],
+          [ssd_grid_plane_multi_ref(s_src, r31_planes, s_grid, 63)], f"grid={s_grid} k=3 R=31")
+    for sv, pv, want in extremes:
+        e_src = torch.full((3, 64, 64), sv, dtype=torch.uint8, device=dev)
+        e_planes = torch.full((2, 64 + 2 * SEARCH_RANGE, 192 + 2 * SEARCH_RANGE), pv,
+                              dtype=torch.uint8, device=dev)
+        got = check("ssd_grid_plane_multi", f"CTUs all {sv}, planes all {pv}",
+                    [ssd_grid_plane_multi(e_src, e_planes, (1, 3), 65)],
+                    [ssd_grid_plane_multi_ref(e_src, e_planes, (1, 3), 65)], "k=2 R=32")[0]
+        if not bool((got == want).all()):
+            raise AssertionError(f"B7 CTUs all {sv}, planes all {pv}: not {want} everywhere")
     mr_mv, mr_idx, _ = motion.full_search_multi(
         mr_src, mr_planes, pos, SEARCH_RANGE, grid=grid, metric="ssd",
         grid_plane_multi_fn=ssd_grid_plane_multi_ref)
@@ -1249,6 +1377,20 @@ def main() -> int:
         log_path("luma P mega path (beside fused_dma)",
                  samples_ms(lambda: encode_inter_frame(cur, ref, mega_cfg)))
     num = 2 * SEARCH_RANGE + 1
+    # B10's yardstick: torch.cdist(p=1) on float32 copies (cast not timed),
+    # exact here since every sum is below 4096 * 255 < 2^24, timed in turns
+    # with B10: both are calls of ~15 us of host work.
+    cd_src, cd_ref = b_src.reshape(n, 1, 4096).float(), b10_ref.reshape(n, 1, 4096).float()
+    cd_mr, cd_refs = mr_src.reshape(n, 1, 4096).float(), mr_tiles.reshape(n, 4, 4096).float()
+    if not (torch.equal(torch.cdist(cd_src, cd_ref, p=1)[:, 0, 0].int(), sad(b_src, b10_ref))
+            and torch.equal(torch.cdist(cd_mr, cd_refs, p=1)[:, 0].int(),
+                            sad_multiref(mr_src, mr_tiles))):
+        raise AssertionError("torch.cdist(p=1) differs from B10")
+    b10_turns = turns_ms({"sad": lambda: sad(b_src, b10_ref),
+                          "sad cdist": lambda: torch.cdist(cd_src, cd_ref, p=1),
+                          "sad_multiref": lambda: sad_multiref(mr_src, mr_tiles),
+                          "sad_multiref cdist": lambda: torch.cdist(cd_mr, cd_refs, p=1)})
+    library = {"sad": b10_turns["sad cdist"], "sad_multiref": b10_turns["sad_multiref cdist"]}
     times = {
         "ssd_grid_plane": (
             median_ms(lambda: ssd_grid_plane(src, plane, grid, num), calls=10),
@@ -1302,12 +1444,9 @@ def main() -> int:
         "encode_ctu_mega": (
             median_ms(lambda: encode_ctu_mega(src, padded, pos, SEARCH_RANGE, *qargs), calls=10),
             median_ms(lambda: encode_ctu_mega_ref(src, padded, pos, SEARCH_RANGE, *qargs))),
-        "sad": (
-            median_ms(lambda: sad(b_src, b10_ref), calls=10),
-            median_ms(lambda: sad_ref(b_src, b10_ref))),
-        "sad_multiref": (
-            median_ms(lambda: sad_multiref(mr_src, mr_tiles), calls=10),
-            median_ms(lambda: sad_multiref_ref(mr_src, mr_tiles))),
+        "sad": (b10_turns["sad"], median_ms(lambda: sad_ref(b_src, b10_ref))),
+        "sad_multiref": (b10_turns["sad_multiref"],
+                         median_ms(lambda: sad_multiref_ref(mr_src, mr_tiles))),
         "pred_uni": (
             median_ms(lambda: mc.pred_uni(mc_luma[0], *mc_luma[2:4]), calls=10),
             median_ms(lambda: mc.pred_uni_ref(mc_luma[0], *mc_luma[2:4]))),
@@ -1318,19 +1457,16 @@ def main() -> int:
             median_ms(lambda: base_layout_decide_fc(b_src, p_win, lists16), calls=10),
             median_ms(lambda: base_layout_decide_fc_ref(b_src, p_win, lists16))),
     }
-    # B10's yardstick: torch.cdist(p=1) on float32 copies (cast not timed),
-    # exact here since every sum is below 4096 * 255 < 2^24.
-    cd_src, cd_ref = b_src.reshape(n, 1, 4096).float(), b10_ref.reshape(n, 1, 4096).float()
-    cd_mr, cd_refs = mr_src.reshape(n, 1, 4096).float(), mr_tiles.reshape(n, 4, 4096).float()
-    if not (torch.equal(torch.cdist(cd_src, cd_ref, p=1)[:, 0, 0].int(), sad(b_src, b10_ref))
-            and torch.equal(torch.cdist(cd_mr, cd_refs, p=1)[:, 0].int(),
-                            sad_multiref(mr_src, mr_tiles))):
-        raise AssertionError("torch.cdist(p=1) differs from B10")
-    library = {"sad": median_ms(lambda: torch.cdist(cd_src, cd_ref, p=1), calls=10),
-               "sad_multiref": median_ms(lambda: torch.cdist(cd_mr, cd_refs, p=1), calls=10)}
-    # The new kernels are small: their device time beside the CUDA-event time
-    # of 10 calls says whether the kernel or the wrapper's host work bounds it.
+    # Device time beside the CUDA-event time of 10 calls says whether the
+    # kernel or the wrapper's host work bounds a call: for the small kernels,
+    # for K1 and B7, and for B10's library call, so that B10 is compared with
+    # cdist call with call and device with device.
     profiled = {
+        "ssd_grid_plane": lambda: ssd_grid_plane(src, plane, grid, num),
+        "ssd_grid_plane_multi": lambda: ssd_grid_plane_multi(mr_src, mr_view, grid, num),
+        "torch.cdist(p=1), B10 sad's library call": lambda: torch.cdist(cd_src, cd_ref, p=1),
+        "torch.cdist(p=1), B10 sad_multiref's library call":
+            lambda: torch.cdist(cd_mr, cd_refs, p=1),
         "sad": lambda: sad(b_src, b10_ref),
         "sad_multiref": lambda: sad_multiref(mr_src, mr_tiles),
         "pred_uni": lambda: mc.pred_uni(mc_luma[0], *mc_luma[2:4]),
@@ -1341,11 +1477,13 @@ def main() -> int:
         "inter_ctu_fused_dma (K2, for comparison)":
             lambda: inter_ctu_fused_dma(src, padded, k2_offsets, *qargs),
     }
+    device = {}
     for what, fn in profiled.items():
-        d_ms = device_ms(fn)
+        device[what] = d_ms = device_ms(fn)
         log(f"{tag} {what} at 1080p: device {d_ms:.4f} ms a call (torch.profiler, kernels' "
             f"self time)" if d_ms else f"{tag} {what}: device time not measured (the "
             "profiler recorded no kernel)")
+    log_b10_host_steps(tag, b_src, b10_ref, cd_src, cd_ref)
     shapes_timed = {"refine_qpel_costmap": "8160 16x16 tiles, gathered windows",
                     "refine_qpel_costmap_dma": "8160 16x16 tiles at the searched MVs",
                     "base_grids_ctu": "510 CTUs, base 8",
@@ -1413,8 +1551,17 @@ def main() -> int:
         log(f"{tag} {what} at 1080p: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
     for name, (k_ms, p_ms) in times.items():
         shape = f" ({shapes_timed[name]})" if name in shapes_timed else ""
-        lib_ms = f", torch.cdist(p=1) {library[name]:.3f} ms" if name in library else ""
-        log(f"{tag} {name} at 1080p{shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms{lib_ms}")
+        dev_ms = f" (device {device[name]:.4f})" if name in device else ""
+        lib_ms = ""
+        if name in library:
+            lib_dev = device[f"torch.cdist(p=1), B10 {name}'s library call"]
+            lib_ms = f", torch.cdist(p=1) {library[name]:.4f} ms (device {lib_dev:.4f})"
+        log(f"{tag} {name} at 1080p{shape}: kernel {k_ms:.4f} ms{dev_ms}, plain {p_ms:.3f} "
+            f"ms{lib_ms}")
+    for name, k_planes in (("ssd_grid_plane", 1), ("ssd_grid_plane_multi", 4)):
+        floor = tc_floor_ms(n, k_planes, SEARCH_RANGE)
+        log(f"{tag} {name}: the tensor-core design's own floor {floor:.4f} ms (the m16n8k32 "
+            f"products it issues at 1,979 TOP/s), kernel at {floor / times[name][0]:.3f} of it")
 
     sources = {
         "ssd_grid_plane": ("hevcasm_tpu_torch/csrc/ssd_grid_plane.cu",

@@ -20,9 +20,10 @@
 // frame at R = 32, on the CUDA cores' int32 pipes.  The grids are 138 MB a
 // frame at BASE 16 and 552 MB at BASE 8, written once and read once.
 //
-// Design: the grid core of csrc/grid_core.cuh (K1's design with one
-// int32 sum per sub-block column: k x 8 registers a thread, 64 at BASE 8),
-// run over the (64 + 2R)^2 CTU windows.  B15 runs the grid kernel into a
+// Design: the grid core of csrc/grid_core.cuh (the CUDA-core design K1
+// had before its tensor-core form, with one int32 sum per sub-block
+// column: k x 8 registers a thread, 64 at BASE 8), run over the (64 +
+// 2R)^2 CTU windows.  B15 runs the grid kernel into a
 // scratch buffer, then a decide kernel: one thread per
 // (CTU, candidate) gathers its k*k sub-block values into its own column of
 // shared memory, adds each PU's members, and packs (ssd << 32 | dy * (2R+1)

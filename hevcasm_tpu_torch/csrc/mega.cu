@@ -20,7 +20,7 @@
 // (n, 8, 8) int32, equal to K1 + first minimum + K2.  No score grid and no
 // window reaches device memory between the stages.
 //
-// What bounds it on the H100: the search's integer work, as for K1 and B17
+// What bounds it on the H100: the search's integer work, as for B17
 // ((2R+1)^2 * 4096 subtract-multiply-adds a CTU, 17.3 M at R = 32), with
 // K2's refinement and residual (about 0.7 M multiply-adds a CTU) after it.
 //
@@ -33,7 +33,7 @@
 // take three passes of the 256 threads; the packed keys meet in one block
 // reduction, with no atomics and no second kernel.  The other design, a
 // thread-block cluster per CTU with one block per dy slice meeting through
-// distributed shared memory, would keep K1's five blocks a CTU but needs a
+// distributed shared memory, would keep B17's several blocks a CTU but needs a
 // cluster launch and a cross-block barrier; it is left for a later
 // measurement.  The TPU kernel's (144, 256) slab, its P = R + 8 plane and
 // its lane rolls are Mosaic DMA devices and are not carried over.

@@ -12,14 +12,14 @@
 // best SSD of the first minimum in row-major [dy, dx] order, the result of
 // motion.full_search.
 //
-// What bounds it on the H100: integer work, as for K1: (2R+1)^2 * 4096
+// What bounds it on the H100: integer work: (2R+1)^2 * 4096
 // subtract-multiply-adds per CTU, 8.8 G for a 1920x1088 frame at R = 32, on
 // the CUDA cores' int32 pipes.  The grid write K1 makes (510 * 65^2 * 4 =
 // 8.6 MB a frame) and the first-minimum pass over it are gone.
 //
-// Design: K1's blocks (csrc/ssd_grid_plane.cu) and inner loop
-// (csrc/search_core.cuh): one block per (CTU, slice of at most 16 dy rows),
-// 13 rows and 117 busy threads at R = 32.  Each thread turns its 8 sums into
+// Design: the CUDA-core SSD loop of csrc/search_core.cuh (K1's design
+// before K1 moved to the tensor cores): one block per (CTU, slice of at
+// most 16 dy rows), 13 rows and 117 busy threads at R = 32.  Each thread turns its 8 sums into
 // one packed key (SSD << 32 | dy * num + dx); warp shuffles and one step
 // through shared memory reduce the block to one key, and one atomicMin on a
 // per-CTU uint64 combines the slices, as B15 does (csrc/base_grids.cu).  A

@@ -13,7 +13,7 @@
 // and the full search runs it on gathered CTU windows where K1 does not
 // (search_impl="grid", R > 32).
 //
-// What bounds it on the H100: integer work, as for K1: B^2 * num_dy *
+// What bounds it on the H100: integer work: B^2 * num_dy *
 // num_dx subtract-multiply-adds per block, 8.8 G for the 8160 16 x 16
 // blocks of a 1920x1088 frame at R = 32, on the CUDA cores' int32 pipes.
 // At B = 8 and 16 a block is little work, so the launch holds many small

@@ -6,7 +6,8 @@ interface, on first use, into ``build/hevcasm_tpu_torch/<hash>/`` beside
 the package (the hash covers the sources, the ``csrc/*.cuh`` headers they
 share and the flags, so an edited kernel is rebuilt and an unchanged one is
 not).  The library is loaded with ``ctypes``; each C entry takes device
-pointers, ints and a CUDA stream, launches one kernel on that stream and
+pointers, ints and a CUDA stream (B10's two, whose calls are host-bound,
+take them packed in one block), launches one kernel on that stream and
 returns ``cudaGetLastError()``.
 """
 
@@ -21,7 +22,9 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load", "check", "on_card"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "build", "load", "check", "on_card", "raw_stream"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -73,11 +76,10 @@ _ENTRIES = {
     # src, windows, ctu_stride, row_stride, pu_table, num_pu, grids, keys, out,
     # n, base, radius, device, stream
     "hevc_base_decide": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    # src, src_stride, src_row, ref, ref_stride, ref_row, out, n, h, w, device, stream
-    "hevc_sad": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _P],
-    # src, src_stride, src_row, refs, ref_stride, ref_k_stride, ref_row, out,
-    # n, k, h, w, device, stream
-    "hevc_sad_multiref": [_P, _L, _L, _P, _L, _L, _L, _P, _I, _I, _I, _I, _I, _P],
+    # one block of 14 int64 (csrc/sad.cu SadArgs): src, src_stride, src_row,
+    # refs, ref_stride, ref_k_stride, ref_row, out, n, k, h, w, device, stream
+    "hevc_sad": [ctypes.c_char_p],
+    "hevc_sad_multiref": [ctypes.c_char_p],
     # windows, win_stride, win_row, xfrac, yfrac (device int32 or NULL), xval,
     # yval, out, n, h, w, taps, device, stream
     "hevc_pred_uni": [_P, _L, _L, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P],
@@ -157,6 +159,13 @@ def load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def raw_stream(index: int) -> int:
+    """The handle of device ``index``'s current CUDA stream, read without
+    making a torch.cuda.Stream object (the cheapest call PyTorch has for
+    it: a launch path that runs per call uses it)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def on_card(what: str, *tensors) -> "torch.device":

@@ -14,7 +14,7 @@ def as_tensor(x, device: torch.device | None = None) -> torch.Tensor:
     same dtype (or ``device`` tensors).  A read-only array is copied, since
     a tensor does not carry that flag."""
     if isinstance(x, torch.Tensor):
-        return x if device is None else x.to(device)
+        return x if device is None or x.device == device else x.to(device)
     a = np.asarray(x)
     if not a.flags.writeable:
         a = a.copy()

@@ -113,6 +113,52 @@ def test_b7_rejects_what_it_does_not_take(cuda):
         search.ssd_grid_plane_multi(src, planes[:, :-1], (1, 2), 17)
 
 
+@pytest.mark.parametrize("r", [1, 2, 31, 32])
+@pytest.mark.parametrize("grid", [(1, 3), (2, 5)])
+def test_k1_b7_tensor_core_tiling_at_every_edge_radius(cuda, r, grid):
+    # R = 1, 2 (one m tile, one n tile), 31 (partial last k step and word)
+    # and 32 (five m tiles, nine n tiles), on odd grid widths.
+    rng = np.random.default_rng(100 * r + sum(grid))
+    gr, gc = grid
+    planes = random_u8(rng, (2, gr * 64 + 2 * r, gc * 64 + 2 * r), cuda)
+    src = random_u8(rng, (gr * gc, 64, 64), cuda)
+    num = 2 * r + 1
+    assert_bit_equal([search.ssd_grid_plane(src, planes[1], grid, num)],
+                     [search.ssd_grid_plane_ref(src, planes[1], grid, num)])
+    assert_bit_equal([search.ssd_grid_plane_multi(src, planes, grid, num)],
+                     [search.ssd_grid_plane_multi_ref(src, planes, grid, num)])
+
+
+@pytest.mark.parametrize("src_value,plane_value,want", [(0, 255, 4096 * 255 * 255),
+                                                         (255, 255, 0), (255, 0, 4096 * 255 * 255)])
+@pytest.mark.parametrize("r", [1, 2, 31, 32])
+def test_k1_b7_extremes_are_exact(cuda, r, src_value, plane_value, want):
+    src = torch.full((3, 64, 64), src_value, dtype=torch.uint8, device=cuda)
+    planes = torch.full((2, 64 + 2 * r, 3 * 64 + 2 * r), plane_value, dtype=torch.uint8,
+                        device=cuda)
+    got = [search.ssd_grid_plane(src, planes[0], (1, 3), 2 * r + 1),
+           search.ssd_grid_plane_multi(src, planes, (1, 3), 2 * r + 1)]
+    for g in got:
+        assert int(g.min()) == int(g.max()) == want
+    assert_bit_equal(got, [search.ssd_grid_plane_ref(src, planes[0], (1, 3), 2 * r + 1),
+                           search.ssd_grid_plane_multi_ref(src, planes, (1, 3), 2 * r + 1)])
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_b7_plane_views_at_every_k(cuda, k):
+    # Views at an odd offset of larger planes: unaligned rows and plane starts.
+    rng = np.random.default_rng(40 + k)
+    r, grid = 32, (2, 3)
+    big = random_u8(rng, (k + 1, 2 * 64 + 2 * r + 9, 3 * 64 + 2 * r + 11), cuda)
+    view = big[1:, 3:3 + 2 * 64 + 2 * r, 5:5 + 3 * 64 + 2 * r]
+    src = random_u8(rng, (6, 64, 64), cuda)
+    got = search.ssd_grid_plane_multi(src, view, grid, 2 * r + 1)
+    assert_bit_equal([got], [search.ssd_grid_plane_multi_ref(src, view, grid, 2 * r + 1)])
+    for p in range(k):
+        assert_bit_equal([got[:, p]], [search.ssd_grid_plane(src, view[p].contiguous(), grid,
+                                                             2 * r + 1)])
+
+
 @pytest.mark.parametrize("joint", [True, False])
 def test_full_search_multi_launches_b7_and_matches_the_grid_route(cuda, joint):
     rng = np.random.default_rng(3)
@@ -1013,6 +1059,33 @@ def test_b10_matches_plain_on_batches(cuda, n, k, h, w):
                      [sad.sad_ref(src, refs[:, 0]), sad.sad_multiref_ref(src, refs)])
     lead = random_u8(rng, (2, 3, h, w), cuda)
     assert_bit_equal([sad.sad(lead, lead.flip(0))], [sad.sad_ref(lead, lead.flip(0))])
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("w,h", selftest.PARTITIONS)
+def test_b10_every_partition_and_k_on_both_paths(cuda, w, h, aligned):
+    # Aligned: rows 64 bytes apart at offset 0, the 16-byte path where w is
+    # a multiple of 16; misaligned: views at (1, 1) and (1, 2), the byte path.
+    rng = np.random.default_rng(w * 1000 + h * 10 + aligned)
+    y0, x0, x1 = (0, 0, 0) if aligned else (1, 1, 2)
+    src = random_u8(rng, (5, 66, 80), cuda)[:, y0:y0 + h, x0:x0 + w]
+    for k in range(1, 9):
+        refs = random_u8(rng, (5, k, 66, 80), cuda)[..., y0:y0 + h, x1:x1 + w]
+        got, n = launched(lambda: (sad.sad(src, refs[:, 0]), sad.sad_multiref(src, refs)))
+        assert n == {"b10": 1, "b10mr": 1}
+        assert_bit_equal(got, [sad.sad_ref(src, refs[:, 0]), sad.sad_multiref_ref(src, refs)])
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_b10_frame_blocks(cuda, k):
+    # The 510 64x64 blocks of a 1080p frame, contiguous (the packed path),
+    # against k references, and the same blocks as 64x48 views.
+    rng = np.random.default_rng(510 + k)
+    src = random_u8(rng, (510, 64, 64), cuda)
+    refs = random_u8(rng, (510, k, 64, 64), cuda)
+    for s, r in ((src, refs), (src[..., :48], refs[..., :48])):
+        assert_bit_equal([sad.sad(s, r[:, -1]), sad.sad_multiref(s, r)],
+                         [sad.sad_ref(s, r[:, -1]), sad.sad_multiref_ref(s, r)])
 
 
 def test_b10_largest_sums_and_rejects_what_it_does_not_take(cuda):
