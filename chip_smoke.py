@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build    compiles hevcasm_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
             process per source, into build/ and prints the build time; the
             SASS of the library (cuobjdump -sass, from nvcc's toolkit) must
-            show IMMA, the u8 tensor-core product, in K1/B7's kernel.
+            show IMMA, the u8 tensor-core product, in K1/B7's kernel and in
+            B15's, and VABSDIFF4, the packed absolute difference, in B9's.
 3. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit on every output: the 1080p shapes (510 CTUs, R = 32), an
             odd grid width (3) at R = 8 (K1 also at R = 1, 2 and 31, and B7
@@ -40,7 +41,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
             planes (on these two most minima must be non-zero and differ
             between CTUs, and on the noise most MVs too), and on a constant
             plane, where every candidate ties and the answer is (-32, -32);
-            B19 also at R = 8 on an odd grid width.  The self-test's
+            B19 also at R = 8 on an odd grid width.  B9 at every block side
+            b in {8, 16, 32, 64} and num in {1, 7, 17, 33, 65} on the pan's
+            blocks, with windows cut from wider rows at an odd offset; B15
+            at bases 8, 16 and 32 and R = 1, 2, 31 and 32 with the default
+            PU lists and three that are no rectangle.  The self-test's
             kernels: B10 (sad, sad_multiref) at the 23 partitions as the
             suites pass them (2-D strided views of 128x128 arrays, k = 4),
             on 510 64x64 blocks against one reference and against k = 4
@@ -121,7 +126,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
             and B7 with their device_ms and the tensor-core design's own
             floor, torch.cdist(p=1) with its device_ms beside B10's (call
             with call, device with device), and the host time of each step
-            of B10's launch path beside the whole call and cdist's.
+            of B10's launch path beside the whole call and cdist's.  The
+            card's own rates of mma.sync m16n8k32 u8 and of vabsdiff4 with
+            .add (tools/b9_b15_phase_costs.py), and from them the design
+            floors of K1/B7, B9 (its terms, four an instruction) and B15
+            (the m16n8k32 products it issues) beside their bounds.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -332,6 +341,22 @@ def tc_floor_ms(n: int, k: int, r: int) -> float:
     return n * k * 64 * -(-num // 16) * pairs * 2 * 16 * 8 * 32 / INT8_OPS_PER_S * 1e3
 
 
+B15_NG = {8: 2, 16: 9, 32: 9}     # n8 tiles a block of B15 (csrc/base_grids.cu), by base
+
+
+def b15_products(n: int, base: int, r: int) -> int:
+    """The m16n8k32 products B15 issues for n CTUs: for each m tile, source
+    row and sub-block column q, the (k step, n tile) pairs of each block's
+    n tiles whose band meets the column, 32 ks - 8 nt in [base q - 24,
+    base q + base] (csrc/base_grids.cu)."""
+    num, wide = 2 * r + 1, 64 + 2 * r
+    nt_count, ks_count, ng = -(-num // 8), -(-wide // 32), B15_NG[base]
+    per_row = sum(1 for q in range(64 // base) for nt0 in range(0, nt_count, ng)
+                  for ks in range(min(4, ks_count)) for nt in range(nt0, min(nt0 + ng, nt_count))
+                  if base * q - 24 <= 32 * ks - 8 * nt <= base * q + base)
+    return n * -(-num // 16) * 64 * per_row
+
+
 def pan_picture(h: int, w: int, seed: int = 0) -> np.ndarray:
     """bench.py's structured picture: its noise smoothed twice by a 3-tap
     box in each direction, (h + 64, w + 64) uint8."""
@@ -453,10 +478,17 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     imma = sass_count(build, "ssd_grid_plane_kernel", "IMMA")
-    log(f"SASS: {imma} IMMA instructions in K1/B7's kernel, "
+    imma_b15 = sass_count(build, "decide_kernel", "IMMA")
+    vabs_b9 = sass_count(build, "sad_grid_kernel", "VABSDIFF4")
+    log(f"SASS: {imma} IMMA instructions in K1/B7's kernel, {imma_b15} in B15's, "
+        f"{vabs_b9} VABSDIFF4 in B9's, "
         f"{sass_count(build, 'sad_kernel', 'VABSDIFF4')} VABSDIFF4 in B10's (cuobjdump -sass)")
     if not imma:
         raise AssertionError("K1/B7's kernel has no IMMA (u8 tensor-core) instruction")
+    if not imma_b15:
+        raise AssertionError("B15's kernel has no IMMA (u8 tensor-core) instruction")
+    if not vabs_b9:
+        raise AssertionError("B9's kernel has no VABSDIFF4 (packed absolute difference)")
 
     # ---- 3. each kernel against its plain version ---------------------------
     cfg = EncodeConfig(search_range=SEARCH_RANGE, qp=32, inter_impl="fused_dma")
@@ -792,6 +824,13 @@ def main() -> int:
     c_sad = check_b9("constant windows (all candidates tie)", b_src, flat_win, 65)
     if not bool((c_sad == c_sad[:, :1, :1]).all()):
         raise AssertionError("B9 constant windows: the candidates do not tie")
+    # Every residue-class plan: each block side and count, windows cut from
+    # wider rows at an odd byte offset (rows and pointers unaligned).
+    odd_rows = torch.nn.functional.pad(p_win[:8], (0, 5, 0, 1))      # rows 133 bytes apart
+    for b in (8, 16, 32, 64):
+        for num_b9 in (1, 7, 17, 33, 65):
+            check_b9(f"b={b} num={num_b9}, unaligned strided windows", b_src[:8, :b, :b]
+                     .contiguous(), odd_rows[:, 1:, 3:3 + b + num_b9 - 1], num_b9)
 
     def win128_of(plane, g):
         """search_mv's operand: the gathered 128x128 windows at R = 32."""
@@ -942,6 +981,17 @@ def main() -> int:
     if max_abs_err(b18, [dec16]):
         raise AssertionError("B18 differs from B15 at base 16")
     log("B18 base_layout_decide_fc equals B15 base_layout_decide at base 16")
+    # B15 at every base and edge radius (one tile each way; a part last k
+    # step), the default lists and three that are no rectangle.
+    for base in (8, 16, 32):
+        k_b = 64 // base
+        lists_b = partition._pu_lists(default_layouts if base <= 16 else default_layouts[:4],
+                                      base) + (tuple(i * k_b + i for i in range(k_b)),
+                                               (0, k_b * k_b - 1), tuple(range(0, k_b * k_b, 3)))
+        for r in (1, 2, 31, 32):
+            o = SEARCH_RANGE - r
+            check_b15(f"R={r}, default and non-rectangular lists", b_src[:64],
+                      p_win[:64, o:o + 64 + 2 * r, o:o + 64 + 2 * r], base, lists_b)
 
     bad = {k: v for k, v in err.items() if v}
     if bad:
@@ -1562,6 +1612,40 @@ def main() -> int:
         floor = tc_floor_ms(n, k_planes, SEARCH_RANGE)
         log(f"{tag} {name}: the tensor-core design's own floor {floor:.4f} ms (the m16n8k32 "
             f"products it issues at 1,979 TOP/s), kernel at {floor / times[name][0]:.3f} of it")
+    # The design floors at the card's own instruction rates, beside the
+    # bounds (which stay at the published rates).
+    from tools.b9_b15_phase_costs import instruction_rates
+    rates = instruction_rates()
+    mma_tops = rates["mma.sync m16n8k32 u8"]["tops"]
+    vabs = rates["vabsdiff4.add"]["thread_instr_per_s"]
+    log(f"{tag} the card's own rates (tools/b9_b15_phase_costs.py): mma.sync m16n8k32 u8 "
+        f"{mma_tops:.1f} TOP/s; vabsdiff4.add {vabs / 1e12:.3f} T thread instructions/s "
+        f"({vabs / (132 * 1.98e9):.1f} a clock an SM at 1.98 GHz; the bound assumes "
+        f"{INT_INSTR_PER_S / (132 * 1.98e9):.0f})")
+    for name, k_planes in (("ssd_grid_plane", 1), ("ssd_grid_plane_multi", 4)):
+        floor = tc_floor_ms(n, k_planes, SEARCH_RANGE) * 1979 / mma_tops
+        log(f"{tag} {name}: design floor at mma.sync's own rate {floor:.4f} ms, kernel at "
+            f"{floor / times[name][0]:.3f} of it")
+    b9_shapes = {"sad_grid 510 CTUs, R=32": (n * num * num * 4096, times["sad_grid"][0]),
+                 "sad_grid 8160 16x16 blocks, R=32": (
+                     b8_r32[0].shape[0] * num * num * 256,
+                     more["sad_grid 8160 16x16 blocks, R=32 (PU decision)"][0])}
+    for what, (terms, k_ms) in b9_shapes.items():
+        b_ms = terms / SAD_TERMS_PER_INSTR / INT_INSTR_PER_S * 1e3
+        floor = terms / SAD_TERMS_PER_INSTR / vabs * 1e3
+        log(f"{tag} {what}: bound {b_ms:.4f} ms (packed, at {INT_INSTR_PER_S / 1e12:.1f} T "
+            f"instructions/s); design floor {floor:.4f} ms (its VABSDIFF4s at the card's "
+            f"vabsdiff4 rate); kernel {k_ms:.4f} ms, at {floor / k_ms:.3f} of the floor")
+    for what, base, k_ms in (("base_layout_decide 510 CTUs, base 16", 16,
+                              times["base_layout_decide"][0]),
+                             ("base_layout_decide 510 CTUs, base 32", 32,
+                              more["base_layout_decide 510 CTUs, base 32"][0]),
+                             ("base_layout_decide_fc 510 CTUs (base 16)", 16,
+                              times["base_layout_decide_fc"][0])):
+        prods = b15_products(n, base, SEARCH_RANGE)
+        floor = prods * 2 * 16 * 8 * 32 / (mma_tops * 1e12) * 1e3
+        log(f"{tag} {what}: {prods} m16n8k32 products, design floor {floor:.4f} ms at "
+            f"mma.sync's own rate; kernel {k_ms:.4f} ms, at {floor / k_ms:.3f} of the floor")
 
     sources = {
         "ssd_grid_plane": ("hevcasm_tpu_torch/csrc/ssd_grid_plane.cu",

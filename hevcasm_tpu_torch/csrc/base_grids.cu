@@ -15,87 +15,375 @@
 // and keeps its first minimum in row-major [dy, dx] order: (n, P, 3) int32
 // [dy - R, dx - R, ssd].  R is a runtime argument, 1 <= R <= 32.
 //
-// What bounds it on the H100: integer work, as for K1 (csrc/ssd_grid_plane.cu):
-// (2R+1)^2 * 4096 subtract-multiply-adds per CTU, 8.8 G for a 1920x1088
-// frame at R = 32, on the CUDA cores' int32 pipes.  The grids are 138 MB a
-// frame at BASE 16 and 552 MB at BASE 8, written once and read once.
+// What bounds them on the H100: the correlation, (2R+1)^2 * 4096
+// multiply-adds per CTU, 8.8 G for a 1920x1088 frame at R = 32; B14 also
+// writes its grids, 138 MB a frame at BASE 16 and 552 MB at BASE 8.
 //
-// Design: the grid core of csrc/grid_core.cuh (the CUDA-core design K1
-// had before its tensor-core form, with one int32 sum per sub-block
-// column: k x 8 registers a thread, 64 at BASE 8), run over the (64 +
-// 2R)^2 CTU windows.  B15 runs the grid kernel into a
-// scratch buffer, then a decide kernel: one thread per
-// (CTU, candidate) gathers its k*k sub-block values into its own column of
-// shared memory, adds each PU's members, and packs (ssd << 32 | dy * (2R+1)
-// + dx) into a uint64 whose plain unsigned minimum is the row-major first
-// minimum; warp shuffles and one step through shared memory reduce a block
-// to one atomicMin per PU on a per-(CTU, PU) key, and a third small kernel
-// decodes the keys.  Keeping the grids of a slice in shared memory instead
-// (a first version) left four 96-thread blocks per SM and took 1.7 ms for a
-// 1920x1088 frame at BASE 16 on an H100 (700 W), against 1.2 ms for this
-// design and 0.9 ms for the grids alone.  The TPU kernel's
-// centred sum s^2 + box - 2 corr form, band matrices and packed rolls are
-// Mosaic devices; the SSD is computed directly.
+// B14's design: the CUDA-core grid loop of csrc/grid_core.cuh (one int32
+// sum per sub-block column, k x 8 registers a thread, 64 at BASE 8) over
+// the (64 + 2R)^2 CTU windows.
+//
+// B15's design: the grids never leave the block, as on the TPU.
+//   grid_pq = S_pq + E_pq - 2 C_pq,  C_pq[dy][dx] = sum_{y in band p} A_y B_{y,q},
+// with A_y and the Toeplitz band B_y of K1 (csrc/ssd_tc_core.cuh) and
+// B_{y,q} the band restricted to source columns [BASE q, BASE q + BASE):
+// each lane's band words ANDed with a mask of the bytes whose source column
+// lies there.  Block (i, m, group) owns the 16 dy rows of m tile m and NG
+// n8 tiles of dx (all 9 at BASE 16 and 32, 2 at BASE 8, whose 64 sub-block
+// grids would not fit); warp (q, h) owns sub-block column q and every WPQ-th
+// band p from h: it accumulates C_pq on mma.sync m16n8k32 u8 over the BASE
+// source rows of the band and writes -2 C_pq into the block's grids in
+// shared memory, (k^2, 16, 8 NG) int32.  A (k step, n tile) fragment of
+// B_{y,q} is zero unless 32 ks - 8 nt lies in [BASE q - 24, BASE q + BASE];
+// q and the block's first n tile are template constants of the warp's loop
+// (the block dispatches to it), so the skip rule, the word indices and the
+// tile indices are all resolved at compile time, as in K1.  The tensor work
+// is ~2x K1's a CTU at BASE 16 (the 16-wide bands leave most of a fragment
+// zero), 3.4x at BASE 8.  Then the block adds S_pq (a warp sum of s^2 per
+// sub-block) and E_pq (BASE x BASE box sums of w^2: column sums of height
+// BASE, a thread a column with its rows in registers, into the shared
+// memory that held the source band; their exclusive prefix along each row,
+// a warp a row; differences of the prefix BASE apart), and decides: for
+// each PU, each thread sums the PU's members at its candidates side by
+// side, keeps its first minimum, and two redux.sync minima (the least SSD,
+// then the least candidate index holding it) give the warp's, packed as
+// (ssd << 32 | dy * (2R+1) + dx): a uint64 whose unsigned minimum is the
+// row-major first minimum, so a shared atomicMin per warp and one global
+// atomicMin per (CTU, PU, block) combine them; a small kernel decodes the
+// keys.  At BASE 16 a block takes 102 KB and 8 warps, two blocks an SM (5
+// n tiles a block, 69 KB, three blocks, took 0.49 against 0.41 ms for 510
+// CTUs on an H100 at 700 W: staging and S/E repeat per block).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "grid_core.cuh"
+#include "ssd_tc_core.cuh"
 
 namespace {
 
-constexpr int CTU = 64;
-constexpr int MAX_R = 32;
-constexpr int WS = 140;    // staged window row: 8 * 9 + 64 bytes, 35 words
+using hevc_tc::CTU;
+using hevc_tc::MAX_R;
+constexpr int WS_B14 = 140;   // B14's staged window row: 8 * 9 + 64 bytes, 35 words
 
-// B15's decide step.  Block (x, i) holds candidates [x * blockDim.x, ...)
-// of CTU i.  pu_table: offsets[num_pu + 1], then the sub-block indices of
-// every PU.  Dynamic shared memory: kk int32 per thread, then num_pu uint64
-// per warp.
-__global__ void __launch_bounds__(256)
-decide_kernel(const int32_t* __restrict__ grids, int kk, int cands,
-              const int32_t* __restrict__ pu_table, int num_pu,
-              unsigned long long* __restrict__ keys) {
-  extern __shared__ __align__(16) unsigned char s_raw[];
-  const int nt = blockDim.x;
-  const int warps = nt / 32;
-  int32_t* s_v = reinterpret_cast<int32_t*>(s_raw);                    // [kk][nt]
-  unsigned long long* s_min =
-      reinterpret_cast<unsigned long long*>(s_raw + static_cast<size_t>(kk) * nt * 4);
+// ---- B15 -----------------------------------------------------------------
 
-  const int t = threadIdx.x;
-  const int ctu = blockIdx.y;
-  const int c = blockIdx.x * nt + t;
-  const bool live = c < cands;
-  const int32_t* g = grids + static_cast<size_t>(ctu) * kk * cands;
-  // Each thread reads back only its own column: no barrier needed here.
-  for (int s = 0; s < kk; ++s) s_v[s * nt + t] = live ? g[static_cast<size_t>(s) * cands + c] : 0;
+constexpr int TILE = 16;                                   // dy rows of a block
+constexpr int WROWS = TILE + CTU - 1;                      // window rows staged: 79
+constexpr int WIN_BYTES = (WROWS * hevc_tc::WS + 15) / 16 * 16;
+constexpr unsigned long long NO_KEY = ~0ull;
+// Warps a sub-block column: at BASE 16 and 32 two, each taking every other
+// band, so that a block has 8 (BASE 16) or 4 warps; at BASE 8 one (8 warps).
+template <int BASE>
+constexpr int WPQ = BASE == 8 ? 1 : 2;
+__host__ __device__ constexpr int block_threads(int base) {
+  return 32 * (CTU / base) * (base == 8 ? 1 : 2);
+}
+static_assert(WIN_BYTES % 16 == 0, "window rows");
 
-  const int32_t* members = pu_table + num_pu + 1;
-  for (int pu = 0; pu < num_pu; ++pu) {
-    unsigned long long key = ~0ull;
-    if (live) {
-      int v = 0;
-      for (int m = pu_table[pu]; m < pu_table[pu + 1]; ++m) v += s_v[members[m] * nt + t];
-      key = (static_cast<unsigned long long>(static_cast<uint32_t>(v)) << 32)
-            | static_cast<uint32_t>(c);
-    }
+// The (k step, n tile) fragment of B_{y,q} is non-zero: 32 ks - 8 nt in
+// [BASE q - 24, BASE q + BASE].
+template <int BASE>
+__host__ __device__ constexpr bool band_meets(int q, int ks, int nt) {
+  return 32 * ks - 8 * nt >= BASE * q - 24 && 32 * ks - 8 * nt <= BASE * q + BASE;
+}
+
+// Warp (q, half)'s products: C_pq for the block's 16 dy rows and n tiles
+// NT0 .. NT0 + NG - 1, for bands p = half, half + WPQ, ..., each written as
+// -2 C_pq to s_val.
+template <int BASE, int NG, int Q, int NT0>
+__device__ __forceinline__ void band_products(const uint8_t* s_win, const uint2* s_z,
+                                              int32_t* s_val, int half, int ks_count,
+                                              int nt_count) {
+  using namespace hevc_tc;
+  constexpr int K = CTU / BASE;
+  constexpr int VW = 8 * NG;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const BandLane bl = band_lane(lane);
+  // Word i holds source columns -8 + 8i + 4t - g + b, b = 0..3; keep the
+  // bytes of sub-block column Q.
+  uint32_t mask[BAND_WORDS];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const unsigned long long o = __shfl_xor_sync(0xffffffffu, key, off);
-      key = o < key ? o : key;
+  for (int i = 0; i < BAND_WORDS; ++i) {
+    mask[i] = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int c = -8 + 8 * i + 4 * t - g + b;
+      if (c >= BASE * Q && c < BASE * Q + BASE) mask[i] |= 0xFFu << (8 * b);
     }
-    if ((t & 31) == 0) s_min[pu * warps + (t >> 5)] = key;
+  }
+  const uint8_t* a_lane = s_win + (lane & 15) * WS + 16 * (lane >> 4);
+  for (int p = half; p < K; p += WPQ<BASE>) {
+    int acc[NG][4];
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] = 0;
+    uint2 zn[BAND_WORDS];
+#pragma unroll
+    for (int i = 0; i < BAND_WORDS; ++i) zn[i] = s_z[p * BASE * ZW + bl.zq + 2 * i];
+#pragma unroll 2
+    for (int yy = 0; yy < BASE; ++yy) {
+      const int y = p * BASE + yy;
+      uint32_t wd[BAND_WORDS];
+#pragma unroll
+      for (int i = 0; i < BAND_WORDS; ++i) wd[i] = band_word(zn[i], bl.zsh) & mask[i];
+      if (yy + 1 < BASE) {
+        const uint2* zr = s_z + (y + 1) * ZW + bl.zq;
+#pragma unroll
+        for (int i = 0; i < BAND_WORDS; ++i) zn[i] = zr[2 * i];
+      }
+      const uint8_t* ar = a_lane + y * WS;
+#pragma unroll
+      for (int ks = 0; ks < MAX_KS; ++ks) {
+        bool any = false;
+#pragma unroll
+        for (int n = 0; n < NG; ++n) any |= NT0 + n < MAX_NT && band_meets<BASE>(Q, ks, NT0 + n);
+        if (!any || ks >= ks_count) continue;
+        uint32_t a[4];
+        ldmatrix_x4(a, ar + 32 * ks);
+#pragma unroll
+        for (int n = 0; n < NG; ++n) {
+          const int nt = NT0 + n;
+          if (nt >= MAX_NT || !band_meets<BASE>(Q, ks, nt)) continue;
+          if (nt >= nt_count) break;
+          const int d = 32 * ks - 8 * nt;
+          const uint32_t b0 = d >= -8 ? wd[(d + 8) / 8] : 0u;
+          const uint32_t b1 = d + 16 <= 64 ? wd[(d + 24) / 8] : 0u;
+          mma_u8(acc[n], a, b0, b1);
+        }
+      }
+    }
+    int32_t* v = s_val + (p * K + Q) * TILE * VW;
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[(g + 8 * (i >> 1)) * VW + 8 * n + 2 * t + (i & 1)] = -2 * acc[n][i];
+  }
+}
+
+// Runs band_products for the warp's (q, nt0), both known only at run time,
+// with them as template constants.
+template <int BASE, int NG, int Q = 0, int NT0 = 0>
+__device__ __forceinline__ void dispatch_products(int q, int nt0, const uint8_t* s_win,
+                                                  const uint2* s_z, int32_t* s_val, int half,
+                                                  int ks_count, int nt_count) {
+  if constexpr (Q < CTU / BASE) {
+    if constexpr (NT0 < hevc_tc::MAX_NT) {
+      if (q == Q && nt0 == NT0) {
+        band_products<BASE, NG, Q, NT0>(s_win, s_z, s_val, half, ks_count, nt_count);
+        return;
+      }
+      dispatch_products<BASE, NG, Q, NT0 + NG>(q, nt0, s_win, s_z, s_val, half, ks_count,
+                                               nt_count);
+    } else {
+      dispatch_products<BASE, NG, Q + 1, 0>(q, nt0, s_win, s_z, s_val, half, ks_count,
+                                            nt_count);
+    }
+  }
+}
+
+__host__ __device__ constexpr int val_bytes(int k, int ng) { return k * k * TILE * 8 * ng * 4; }
+
+// Block (CTU i, m tile, n-tile group), 32 k WPQ threads.  pu_table:
+// offsets (num_pu + 1), then the sub-block indices of every PU, table_len
+// ints in all.  keys (n, num_pu) uint64, ~0 before the launch.  Dynamic
+// shared memory: the window rows, s_z, the grids, the keys, S, the table.
+template <int BASE, int NG>
+__global__ void __launch_bounds__(block_threads(BASE))
+decide_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ windows,
+              int ctu_stride, int row_stride, const int32_t* __restrict__ pu_table,
+              int num_pu, int table_len, int radius, unsigned long long* __restrict__ keys) {
+  using namespace hevc_tc;
+  constexpr int K = CTU / BASE;
+  constexpr int THREADS = block_threads(BASE);
+  constexpr int WARPS = THREADS / 32;
+  constexpr int VW = 8 * NG;                    // dx columns of the block
+  constexpr int CAND = TILE * VW;               // candidates of the block
+  constexpr int CW = VW + CTU - 1;              // columns of the column sums
+  constexpr int CSS = CW + 1;                   // their row stride, and the prefix's length
+  constexpr int PER = (CSS + 31) / 32;          // prefix entries a lane
+  constexpr int CPT = (CAND + THREADS - 1) / THREADS;
+  static_assert(TILE * CSS * 4 <= Z_BYTES, "column sums fit where s_z was");
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* s_win = smem;
+  uint2* s_z = reinterpret_cast<uint2*>(smem + WIN_BYTES);
+  int32_t* s_cs = reinterpret_cast<int32_t*>(smem + WIN_BYTES);       // after the products
+  int32_t* s_val = reinterpret_cast<int32_t*>(smem + WIN_BYTES + Z_BYTES);
+  unsigned long long* s_key = reinterpret_cast<unsigned long long*>(
+      smem + WIN_BYTES + Z_BYTES + val_bytes(K, NG));
+  int32_t* s_sum = reinterpret_cast<int32_t*>(s_key + num_pu);       // S, k^2
+  int32_t* s_tab = s_sum + K * K;
+
+  const int num = 2 * radius + 1, wide = CTU + 2 * radius;
+  const int ks_count = (wide + 31) / 32, nt_count = (num + 7) / 8;
+  const int ctu = blockIdx.x, dy0 = TILE * blockIdx.y, nt0 = NG * blockIdx.z;
+  const int dxg0 = 8 * nt0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // The CTU's words into the grid buffer (free until the products end),
+  // the table, the keys, and the window rows dy0 .. dy0 + 78, WS bytes
+  // each; bytes past the window are 0 (they feed only dy or dx >= 2R + 1).
+  uint32_t* staged = reinterpret_cast<uint32_t*>(s_val);
+  const uint8_t* s = src + static_cast<size_t>(ctu) * CTU * CTU;
+  for (int i = tid; i < CTU * CTU / 4; i += THREADS) staged[i] = load_word(s + 4 * i);
+  for (int i = tid; i < num_pu; i += THREADS) s_key[i] = NO_KEY;
+  for (int i = tid; i < table_len; i += THREADS) s_tab[i] = pu_table[i];
+  const uint8_t* w = windows + static_cast<size_t>(ctu) * ctu_stride;
+  for (int i = tid; i < WROWS * (WS / 4); i += THREADS) {
+    const int r = i / (WS / 4), x = 4 * (i - r * (WS / 4));
+    uint32_t v = 0;
+    if (dy0 + r < wide && x < wide) {
+      const uint8_t* rp = w + static_cast<size_t>(dy0 + r) * row_stride + x;
+      if (x + 4 <= wide) {
+        v = load_word(rp);
+      } else {
+        for (int b = 0; b < wide - x; ++b) v |= static_cast<uint32_t>(rp[b]) << (8 * b);
+      }
+    }
+    reinterpret_cast<uint32_t*>(s_win)[i] = v;
   }
   __syncthreads();
-  for (int pu = t; pu < num_pu; pu += nt) {
-    unsigned long long key = ~0ull;
-    for (int wi = 0; wi < warps; ++wi) {
-      const unsigned long long o = s_min[pu * warps + wi];
-      key = o < key ? o : key;
+  stage_z(staged, s_z);
+  // S: a warp a sub-block.
+  for (int pq = warp; pq < K * K; pq += WARPS) {
+    const int p = pq / K, q = pq % K;
+    int acc = 0;
+    for (int i = lane; i < BASE * BASE / 4; i += 32) {
+      const int y = p * BASE + i / (BASE / 4), x = q * (BASE / 4) + i % (BASE / 4);
+      acc += sq_bytes(staged[y * (CTU / 4) + x]);
     }
-    if (key != ~0ull) atomicMin(&keys[static_cast<size_t>(ctu) * num_pu + pu], key);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) s_sum[pq] = acc;
   }
+  __syncthreads();
+
+  dispatch_products<BASE, NG>(warp % K, nt0, s_win, s_z, s_val, warp / K, ks_count, nt_count);
+  __syncthreads();
+
+  // + S_pq + E_pq, band by band: column sums of height BASE of w^2 over
+  // the staged rows (a thread a column, its rows in registers), their
+  // exclusive prefix along each row (a warp a row), then differences of
+  // the prefix BASE apart.
+  for (int p = 0; p < K; ++p) {
+    for (int x = tid; x < CW; x += THREADS) {
+      const uint8_t* col = s_win + BASE * p * WS + dxg0 + x;
+      int sq[BASE + TILE - 1];
+#pragma unroll
+      for (int i = 0; i < BASE + TILE - 1; ++i) {
+        const int a = col[i * WS];
+        sq[i] = a * a;
+      }
+      int cs = 0;
+#pragma unroll
+      for (int i = 0; i < BASE; ++i) cs += sq[i];
+      s_cs[x] = cs;
+#pragma unroll
+      for (int r = 1; r < TILE; ++r) {
+        cs += sq[r + BASE - 1] - sq[r - 1];
+        s_cs[r * CSS + x] = cs;
+      }
+    }
+    __syncthreads();
+    for (int r = warp; r < TILE; r += WARPS) {
+      int32_t* row = s_cs + r * CSS;
+      int v[PER], sum = 0;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int x = lane * PER + i;
+        v[i] = x < CW ? row[x] : 0;
+        sum += v[i];
+      }
+      int inc = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(0xffffffffu, inc, off);
+        if (lane >= off) inc += o;
+      }
+      int run = inc - sum;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int x = lane * PER + i;
+        if (x < CSS) row[x] = run;
+        run += v[i];
+      }
+    }
+    __syncthreads();
+    for (int item = tid; item < K * CAND; item += THREADS) {
+      const int q = item / CAND, c = item - q * CAND;
+      const int r = c / VW, dx = c - r * VW;
+      const int32_t* pre = s_cs + r * CSS + BASE * q + dx;
+      s_val[(p * K + q) * CAND + c] += s_sum[p * K + q] + pre[BASE] - pre[0];
+    }
+    __syncthreads();
+  }
+
+  // The decision: each PU's first minimum over the block's candidates, a
+  // thread's CPT candidates summed side by side.
+  const int rows_valid = min(TILE, num - dy0);
+  int cand[CPT];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int c = tid + i * THREADS;
+    const int r = c / VW, dx = dxg0 + c - r * VW;
+    cand[i] = (c < CAND && r < rows_valid && dx < num) ? (dy0 + r) * num + dx : -1;
+  }
+  const int32_t* members = s_tab + num_pu + 1;
+  for (int pu = 0; pu < num_pu; ++pu) {
+    const int m0 = s_tab[pu], m1 = s_tab[pu + 1];
+    int v[CPT];
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) v[i] = 0;
+#pragma unroll 4
+    for (int m = m0; m < m1; ++m) {
+      const int32_t* grid = s_val + members[m] * CAND + tid;
+#pragma unroll
+      for (int i = 0; i < CPT; ++i)
+        if (CAND % THREADS == 0 || tid + i * THREADS < CAND) v[i] += grid[i * THREADS];
+    }
+    // The thread's candidates run in row-major order, so a strict < keeps
+    // its first minimum; the warp's is the least index among the lanes
+    // holding the least SSD (every SSD is below 2^31, so ~0 means none).
+    uint32_t best = ~0u, at = ~0u;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      if (cand[i] >= 0 && static_cast<uint32_t>(v[i]) < best) {
+        best = static_cast<uint32_t>(v[i]);
+        at = static_cast<uint32_t>(cand[i]);
+      }
+    }
+    const uint32_t warp_best = __reduce_min_sync(0xffffffffu, best);
+    const uint32_t warp_at = __reduce_min_sync(0xffffffffu, best == warp_best ? at : ~0u);
+    if (lane == 0 && warp_best != ~0u)
+      atomicMin(&s_key[pu], (static_cast<unsigned long long>(warp_best) << 32) | warp_at);
+  }
+  __syncthreads();
+  for (int pu = tid; pu < num_pu; pu += THREADS)
+    if (s_key[pu] != NO_KEY) atomicMin(&keys[static_cast<size_t>(ctu) * num_pu + pu], s_key[pu]);
+}
+
+template <int BASE, int NG>
+cudaError_t launch_decide(int n, int radius, cudaStream_t stream, const uint8_t* src,
+                          const uint8_t* windows, int ctu_stride, int row_stride,
+                          const int32_t* pu_table, int num_pu, int table_len,
+                          unsigned long long* keys) {
+  constexpr int K = CTU / BASE;
+  const int num = 2 * radius + 1;
+  const int mt = (num + 15) / 16, groups = ((num + 7) / 8 + NG - 1) / NG;
+  const size_t smem = WIN_BYTES + hevc_tc::Z_BYTES + val_bytes(K, NG)
+                      + static_cast<size_t>(num_pu) * 8 + K * K * 4
+                      + static_cast<size_t>(table_len) * 4;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  auto kernel = decide_kernel<BASE, NG>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(n, mt, groups), block_threads(BASE), smem, stream>>>(
+      src, windows, ctu_stride, row_stride, pu_table, num_pu, table_len, radius, keys);
+  return cudaGetLastError();
 }
 
 __global__ void decode_keys_kernel(const unsigned long long* __restrict__ keys,
@@ -110,6 +398,8 @@ __global__ void decode_keys_kernel(const unsigned long long* __restrict__ keys,
   out[3 * i + 2] = static_cast<int>(key >> 32);
 }
 
+// ---- B14 -----------------------------------------------------------------
+
 // The grid kernel over n CTUs and their (64 + 2R)^2 windows.
 cudaError_t launch_grids(int base, int n, int radius, cudaStream_t stream,
                          const uint8_t* src, const uint8_t* windows, int ctu_stride,
@@ -118,14 +408,14 @@ cudaError_t launch_grids(int base, int n, int radius, cudaStream_t stream,
   const int wide = CTU + 2 * radius;
   switch (base) {
     case 8:
-      return hevc_grid::launch_grid<CTU, 8, WS>(n, src, windows, ctu_stride, row_stride, wide,
-                                            wide, num, num, grids, stream);
+      return hevc_grid::launch_grid<CTU, 8, WS_B14>(n, src, windows, ctu_stride, row_stride,
+                                                    wide, wide, num, num, grids, stream);
     case 16:
-      return hevc_grid::launch_grid<CTU, 16, WS>(n, src, windows, ctu_stride, row_stride, wide,
-                                             wide, num, num, grids, stream);
+      return hevc_grid::launch_grid<CTU, 16, WS_B14>(n, src, windows, ctu_stride, row_stride,
+                                                     wide, wide, num, num, grids, stream);
     case 32:
-      return hevc_grid::launch_grid<CTU, 32, WS>(n, src, windows, ctu_stride, row_stride, wide,
-                                             wide, num, num, grids, stream);
+      return hevc_grid::launch_grid<CTU, 32, WS_B14>(n, src, windows, ctu_stride, row_stride,
+                                                     wide, wide, num, num, grids, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -149,36 +439,38 @@ extern "C" int hevc_base_grids(const uint8_t* src, const uint8_t* windows, int c
 }
 
 // B15.  src and windows as for B14; pu_table int32 [offsets (num_pu + 1),
-// sub-block indices]; grids (n, k, k, 2R+1, 2R+1) int32 and keys
-// (n, num_pu) uint64 scratch; out (n, num_pu, 3) int32 [dy - R, dx - R,
-// ssd].  Four operations on `stream`: the keys are set to ~0, the grid
-// kernel fills the scratch grids, the decide kernel keeps each PU's
+// sub-block indices], table_len ints; keys (n, num_pu) uint64 scratch; out
+// (n, num_pu, 3) int32 [dy - R, dx - R, ssd].  Three operations on
+// `stream`: the keys are set to ~0, the decide kernel keeps each PU's
 // minimum, the decode kernel writes out.
 extern "C" int hevc_base_decide(const uint8_t* src, const uint8_t* windows, int ctu_stride,
                                 int row_stride, const int32_t* pu_table, int num_pu,
-                                int32_t* grids, unsigned long long* keys, int32_t* out,
-                                int n, int base, int radius, int device, void* stream) {
-  if (radius < 1 || radius > MAX_R || num_pu < 1) return cudaErrorInvalidValue;
+                                int table_len, unsigned long long* keys, int32_t* out, int n,
+                                int base, int radius, int device, void* stream) {
+  if (radius < 1 || radius > MAX_R || num_pu < 1 || table_len < num_pu + 2)
+    return cudaErrorInvalidValue;
   if (base != 8 && base != 16 && base != 32) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n == 0) return cudaGetLastError();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int num = 2 * radius + 1;
-  const int k = CTU / base;
   const size_t count = static_cast<size_t>(n) * num_pu;
   err = cudaMemsetAsync(keys, 0xFF, count * sizeof(unsigned long long), s);
   if (err != cudaSuccess) return err;
-  err = launch_grids(base, n, radius, s, src, windows, ctu_stride, row_stride, grids);
-  if (err != cudaSuccess) return err;
-  // 256 threads a block, 128 at BASE 8 so its 64 values a thread fit.
-  const int threads = k * k > 16 ? 128 : 256;
-  const size_t smem = static_cast<size_t>(k) * k * threads * 4
-                      + static_cast<size_t>(num_pu) * (threads / 32) * 8;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const dim3 grid((num * num + threads - 1) / threads, n);
-  decide_kernel<<<grid, threads, smem, s>>>(grids, k * k, num * num, pu_table, num_pu, keys);
-  err = cudaGetLastError();
+  switch (base) {
+    case 8:
+      err = launch_decide<8, 2>(n, radius, s, src, windows, ctu_stride, row_stride, pu_table,
+                                num_pu, table_len, keys);
+      break;
+    case 16:
+      err = launch_decide<16, 9>(n, radius, s, src, windows, ctu_stride, row_stride, pu_table,
+                                 num_pu, table_len, keys);
+      break;
+    default:
+      err = launch_decide<32, 9>(n, radius, s, src, windows, ctu_stride, row_stride, pu_table,
+                                 num_pu, table_len, keys);
+  }
   if (err != cudaSuccess) return err;
   decode_keys_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, s>>>(
       keys, out, static_cast<int>(count), num, radius);

@@ -1,21 +1,21 @@
-// The exact grid core shared by B8 (csrc/ssd_grid.cu), B9 (csrc/sad_grid.cu)
-// and B14/B15 (csrc/base_grids.cu).
+// The exact SSD grid core of B8 (csrc/ssd_grid.cu) and B14
+// (csrc/base_grids.cu), on the CUDA cores.
 //
 // Block i is a SIDE x SIDE source block (SIDE in {8, ..., 64}) split into
-// K x K sub-blocks of side BASE (K = SIDE / BASE; B8 and B9 run K = 1).  For
+// K x K sub-blocks of side BASE (K = SIDE / BASE; B8 runs K = 1).  For
 // every displacement (dy, dx) in [0, num_dy) x [0, num_dx) of its window:
 //
-//   grids[i][p][q][dy][dx] = sum_{y,x < BASE} term(win[i][BASE*p + dy + y][BASE*q + dx + x]
-//                                                  - src[i][BASE*p + y][BASE*q + x])
+//   grids[i][p][q][dy][dx] = sum_{y,x < BASE} (win[i][BASE*p + dy + y][BASE*q + dx + x]
+//                                              - src[i][BASE*p + y][BASE*q + x])^2
 //
-// with term(d) = d^2 (Metric::SSD) or |d| (Metric::SAD), in exact int32 (a
-// 64 x 64 sum is below 4096 * 255^2 < 2^31).
+// in exact int32 (a 64 x 64 sum is below 4096 * 255^2 < 2^31).
 //
-// Design, K1's (csrc/ssd_grid_plane.cu): one block per (source block, slice
-// of dy rows) stages the source block and the window rows its slice needs
-// in shared memory; each thread owns one dy and DXT = 8 consecutive dx and
-// slides 4-byte window words over them in registers, one shared load
-// feeding 32 multiply-adds.  A thread keeps one sum per sub-block column
+// Design, the CUDA-core loop K1 ran before its tensor-core form (csrc/
+// ssd_tc_core.cuh): one block per (source block, slice of dy rows) stages
+// the source block and the window rows its slice needs in shared memory;
+// each thread owns one dy and DXT = 8 consecutive dx and slides 4-byte
+// window words over them in registers, one shared load feeding 32
+// subtract-multiply-adds.  A thread keeps one sum per sub-block column
 // (K x DXT registers) and, after every BASE rows, writes the finished row
 // of sub-blocks.  Window bytes past the window's width or height stage as
 // zero; they reach only candidates past num_dx, which are never written.
@@ -36,14 +36,6 @@ __device__ __forceinline__ int byte_of(uint32_t w, int i) {
   return static_cast<int>((w >> (8 * i)) & 0xFFu);
 }
 
-enum class Metric { SSD, SAD };
-
-template <Metric M>
-__device__ __forceinline__ int term(int d) {
-  if constexpr (M == Metric::SSD) return d * d;
-  else return abs(d);
-}
-
 // Staged window row stride in bytes.  A thread reads bytes [dx0, dx0 + SIDE
 // + 8) of a row, so rows hold DXT * groups + SIDE bytes; an odd word count
 // spreads the rows of one warp over the banks (140 for SIDE 64, R = 32).
@@ -58,7 +50,7 @@ inline int staged_width(int side, int num_dx) {
 // every R <= 32); WS = 0 takes it from ws_arg.  With the stride at run time
 // ptxas kept 104 registers instead of 128 at BASE 8 and B14 took 1.17
 // against 1.03 ms a 1920x1088 frame on an H100 (700 W).
-template <int SIDE, int BASE, int WS, Metric M>
+template <int SIDE, int BASE, int WS>
 __global__ void __launch_bounds__(MAX_THREADS)
 grid_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ windows,
             int win_stride, int row_stride, int win_h, int win_w, int num_dy, int num_dx,
@@ -122,7 +114,8 @@ grid_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ windows
           const int sv = byte_of(sw, i);
 #pragma unroll
           for (int kk = 0; kk < DXT; ++kk) {
-            acc[q][kk] += term<M>(wv[i + kk] - sv);
+            const int d = wv[i + kk] - sv;
+            acc[q][kk] += d * d;
           }
         }
         w0 = w1;
@@ -145,7 +138,7 @@ grid_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ windows
 // (fewer when the dx groups are many), balanced; threads cover groups x
 // rows, a whole number of warps.  Windows: block i's at windows + i *
 // win_stride, rows row_stride bytes apart, win_h x win_w bytes.
-template <int SIDE, int BASE, int WS = 0, Metric M = Metric::SSD>
+template <int SIDE, int BASE, int WS = 0>
 cudaError_t launch_grid(int n, const uint8_t* src, const uint8_t* windows, int win_stride,
                         int row_stride, int win_h, int win_w, int num_dy, int num_dx,
                         int32_t* grids, cudaStream_t stream) {
@@ -161,7 +154,7 @@ cudaError_t launch_grid(int n, const uint8_t* src, const uint8_t* windows, int w
   const size_t smem = static_cast<size_t>(SIDE) * SIDE
                       + static_cast<size_t>(dy + SIDE - 1) * ws;
   if (smem > MAX_SMEM || slices > 65535) return cudaErrorInvalidValue;
-  grid_kernel<SIDE, BASE, WS, M><<<dim3(n, slices), threads, smem, stream>>>(
+  grid_kernel<SIDE, BASE, WS><<<dim3(n, slices), threads, smem, stream>>>(
       src, windows, win_stride, row_stride, win_h, win_w, num_dy, num_dx, dy, ws, grids);
   return cudaGetLastError();
 }

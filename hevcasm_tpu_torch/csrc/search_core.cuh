@@ -13,10 +13,11 @@
 // blocks and slices of dy rows reduce them with shuffles, shared memory and
 // atomicMin.
 //
-// The inner loop is K1's (csrc/ssd_grid_plane.cu): the window rows staged in
-// shared memory with a row stride of WS bytes, one thread owning one dy and
-// DXT = 8 consecutive dx, sliding 4-byte window words over them in
-// registers, so one shared load feeds 32 subtract-multiply-adds.
+// The inner loop is the CUDA-core loop K1 ran before its tensor-core form
+// (csrc/grid_core.cuh; K1 now runs csrc/ssd_tc_core.cuh): the window rows
+// staged in shared memory with a row stride of WS bytes, one thread owning
+// one dy and DXT = 8 consecutive dx, sliding 4-byte window words over them
+// in registers, so one shared load feeds 32 subtract-multiply-adds.
 
 #pragma once
 

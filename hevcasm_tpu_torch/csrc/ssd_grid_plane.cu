@@ -39,7 +39,8 @@
 // padded dy rows read past the window, into other shared memory) and
 // builds B_y's in registers: B_y depends on j - dx only, so a lane needs 10
 // words of the padded source row, each one 8-byte shared load and a funnel
-// shift, loaded a row ahead.  The fragment of k step ks and n tile nt is
+// shift, loaded a row ahead (the tensor-core pieces, shared with B15, are
+// csrc/ssd_tc_core.cuh).  The fragment of k step ks and n tile nt is
 // zero unless 32 ks - 8 nt lies in [-24, 64]; the other steps are skipped,
 // which keeps the tensor work at 26 of 36 (k step, n tile) pairs a warp,
 // about twice the useful multiply-adds.  E is a separable running sum over
@@ -53,29 +54,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ssd_tc_core.cuh"
+
 namespace {
 
-constexpr int CTU = 64;
-constexpr int MAX_R = 32;
-constexpr int MAX_NUM = 2 * MAX_R + 1;               // 65
-constexpr int MAX_MT = (MAX_NUM + 15) / 16;          // 5 m16 tiles of dy
-constexpr int MAX_NT = (MAX_NUM + 7) / 8;            // 9 n8 tiles of dx
-constexpr int MAX_KS = (CTU + 2 * MAX_R + 31) / 32;  // 4 k32 steps of columns
+using namespace hevc_tc;
+
 constexpr int WARPS = MAX_MT;
 constexpr int THREADS = 32 * WARPS;
 constexpr int WROWS = CTU + 2 * MAX_R;               // 128 window rows staged
-constexpr int WS = 32 * MAX_KS + 16;                 // 144: window row stride
-// The source row y is Z_y, 128 bytes with s[y][x] at byte OFF + x and zeros
-// around it; s_z[y][q] holds its words q and q + 1.
-constexpr int OFF = 32;
-constexpr int ZW = 32;
 // Column sums, then E in place, for 32 or 33 dy rows at a time (the dy rows
 // of warps 0-1, then of warps 2-4): rows of 64 + 2R int32, 129 apart so that
 // a warp reading one column of rows hits 32 banks.
 constexpr int HS = CTU + 2 * MAX_R + 1;
 constexpr int HROWS = MAX_NUM - 32;                            // 33
 constexpr int W_BYTES = WROWS * WS;                            // 18432
-constexpr int Z_BYTES = CTU * ZW * 8;                          // 16384
 constexpr int H_BYTES = (HROWS * HS * 4 + 127) / 128 * 128;    // 17152
 constexpr int SMEM = W_BYTES + Z_BYTES + H_BYTES + 4 * WARPS;
 constexpr int STAGE = 8;                 // window words a thread loads at once
@@ -83,43 +76,7 @@ constexpr int STAGE = 8;                 // window words a thread loads at once
 // window (at most 15 at R = 32) land in s_z and only feed dy >= 2R + 1.
 static_assert((CTU - 1 + 16 * MAX_MT) * WS <= W_BYTES + Z_BYTES, "tile rows past smem");
 static_assert(CTU * CTU <= H_BYTES, "the source is staged in the E buffer");
-static_assert(W_BYTES % 16 == 0 && WS % 16 == 0 && WS % 128 != 0, "window row stride");
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const uint8_t* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-// c += a (16x32 u8, row) * b (32x8 u8, col), s32 accumulate.
-__device__ __forceinline__ void mma_u8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four bytes at any address: the aligned words that hold them (each holds a
-// byte that is read), joined.
-__device__ __forceinline__ uint32_t load_word(const uint8_t* p) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~uintptr_t(3));
-  const unsigned sh = static_cast<unsigned>(a & 3) * 8;
-  const uint32_t lo = __ldg(w);
-  return sh ? __funnelshift_r(lo, __ldg(w + 1), sh) : lo;
-}
-
-__device__ __forceinline__ int sq_bytes(uint32_t v) {
-  int s = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = (v >> (8 * i)) & 0xFF;
-    s += b * b;
-  }
-  return s;
-}
+static_assert(W_BYTES % 16 == 0, "window rows");
 
 __global__ void __launch_bounds__(THREADS, 4)
 ssd_grid_plane_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ planes,
@@ -161,24 +118,18 @@ ssd_grid_plane_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict
     for (int off = 16; off > 0; off >>= 1) sq += __shfl_down_sync(0xffffffffu, sq, off);
     if (lane == 0) s_red[warp] = sq;
     __syncthreads();
-    // Z_y word q is source word q - OFF/4 of row y, 0 outside the row.
-    for (int i = tid; i < CTU * ZW; i += THREADS) {
-      const int y = i / ZW, q = i - y * ZW - OFF / 4;
-      const uint32_t lo = (q >= 0 && q < CTU / 4) ? staged[y * (CTU / 4) + q] : 0u;
-      const uint32_t hi = (q + 1 >= 0 && q + 1 < CTU / 4) ? staged[y * (CTU / 4) + q + 1] : 0u;
-      s_z[i] = make_uint2(lo, hi);
-    }
+    stage_z(staged, s_z);
   }
   int s_total = 0;
 #pragma unroll
   for (int i = 0; i < WARPS; ++i) s_total += s_red[i];
 
   // This lane's part of the B fragments: word i of B_y's 10 non-zero words
-  // (j - dx = d = -8 + 8i) is bytes OFF + d + 4t - g .. + 3 of Z_y, i.e. the
-  // pair s_z[y][zq + 2i] shifted right by zsh bits.
+  // (j - dx = d = -8 + 8i), from the pair s_z[y][zq + 2i] (ssd_tc_core.cuh).
   const int g = lane >> 2, t = lane & 3;
-  const int zq = ((OFF + 4 * t - g) >> 2) - 2;
-  const unsigned zsh = static_cast<unsigned>((OFF + 4 * t - g) & 3) * 8;
+  const BandLane bl = band_lane(lane);
+  const int zq = bl.zq;
+  const unsigned zsh = bl.zsh;
   const int dy0 = 16 * warp;
   const uint8_t* a_lane = s_win + (dy0 + (lane & 15)) * WS + 16 * (lane >> 4);
 
@@ -219,18 +170,18 @@ ssd_grid_plane_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[nt][i] = 0;
     if (warp < mt_count) {
-      uint2 zn[10];
+      uint2 zn[BAND_WORDS];
 #pragma unroll
-      for (int i = 0; i < 10; ++i) zn[i] = s_z[zq + 2 * i];
+      for (int i = 0; i < BAND_WORDS; ++i) zn[i] = s_z[zq + 2 * i];
 #pragma unroll 2
       for (int y = 0; y < CTU; ++y) {
-        uint32_t wd[10];
+        uint32_t wd[BAND_WORDS];
 #pragma unroll
-        for (int i = 0; i < 10; ++i) wd[i] = __funnelshift_r(zn[i].x, zn[i].y, zsh);
+        for (int i = 0; i < BAND_WORDS; ++i) wd[i] = band_word(zn[i], zsh);
         if (y + 1 < CTU) {
           const uint2* zr = s_z + (y + 1) * ZW + zq;
 #pragma unroll
-          for (int i = 0; i < 10; ++i) zn[i] = zr[2 * i];
+          for (int i = 0; i < BAND_WORDS; ++i) zn[i] = zr[2 * i];
         }
         const uint8_t* ar = a_lane + y * WS;
 #pragma unroll

@@ -4,8 +4,11 @@ per-PU decision over them.
 ``base_grids_ctu`` replaces the TPU kernel
 ``hevcasm_tpu/kernels/search_pallas.py`` ``base_grids_ctu`` and
 ``base_layout_decide`` the TPU kernel ``base_layout_decide`` (both
-``_base_grids_kernel``).  Both are C entries over one device core in
-``csrc/base_grids.cu``; its header says what bounds it on the card.
+``_base_grids_kernel``).  Both are C entries of ``csrc/base_grids.cu``:
+B14 runs the CUDA-core grid loop of ``csrc/grid_core.cuh``, B15 the u8
+tensor-core products of ``csrc/ssd_tc_core.cuh`` with the grids kept in
+shared memory and the decision in the same kernel, so no grid reaches
+device memory; the file's header says what bounds each on the card.
 ``base_layout_decide_fc`` replaces the TPU kernel of that name
 (``_fc_decide_kernel``), which has B15's contract at base 16 and gives its
 results bit for bit; its fine/coarse split of dx into 16c + f packs the
@@ -155,13 +158,12 @@ def _decide_launch(src: torch.Tensor, windows: torch.Tensor, base: int, pu_lists
     r = _check(src, windows, base, what)
     lists = _pu_table(pu_lists, CTU // base)
     table = _device_table(tuple(lists), dev)
-    n, p, k, num = src.shape[0], len(lists), CTU // base, 2 * r + 1
-    grids = torch.empty((n, k, k, num, num), dtype=torch.int32, device=dev)   # scratch
+    n, p = src.shape[0], len(lists)
     keys = torch.empty((n, p), dtype=torch.int64, device=dev)
     out = torch.empty((n, p, 3), dtype=torch.int32, device=dev)
     lib = build.load()
     err = lib.hevc_base_decide(src.data_ptr(), windows.data_ptr(), windows.stride(0),
-                               windows.stride(1), table.data_ptr(), p, grids.data_ptr(),
+                               windows.stride(1), table.data_ptr(), p, table.numel(),
                                keys.data_ptr(), out.data_ptr(), n, base, r, dev.index or 0,
                                torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, what)

@@ -73,9 +73,9 @@ _ENTRIES = {
     "hevc_costmap_dma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # src, windows, ctu_stride, row_stride, grids, n, base, radius, device, stream
     "hevc_base_grids": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _P],
-    # src, windows, ctu_stride, row_stride, pu_table, num_pu, grids, keys, out,
-    # n, base, radius, device, stream
-    "hevc_base_decide": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # src, windows, ctu_stride, row_stride, pu_table, num_pu, table_len, keys,
+    # out, n, base, radius, device, stream
+    "hevc_base_decide": [_P, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
     # one block of 14 int64 (csrc/sad.cu SadArgs): src, src_stride, src_row,
     # refs, ref_stride, ref_k_stride, ref_row, out, n, k, h, w, device, stream
     "hevc_sad": [ctypes.c_char_p],

@@ -3,8 +3,9 @@ windows, and the SAD of blocks against one reference or k.
 
 ``sad_grid`` replaces the TPU kernel ``hevcasm_tpu/kernels/sad_pallas.py``
 ``sad_grid`` (body ``_sad_grid_kernel``).  Its CUDA source is
-``csrc/sad_grid.cu``, B8's grid core (``csrc/grid_core.cuh``) with the
-absolute difference for the square.  ``sad`` and ``sad_multiref`` replace
+``csrc/sad_grid.cu``: packed terms, four absolute differences an
+instruction (VABSDIFF4), on four byte-shifted copies of the window rows.
+``sad`` and ``sad_multiref`` replace
 the TPU kernels of those names (``_sad_kernel``, ``_sad_multiref_kernel``);
 they are the two C entries of ``csrc/sad.cu``.  Each header says what
 bounds the kernel on the card.  Beside each stands its plain PyTorch

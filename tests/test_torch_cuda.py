@@ -261,6 +261,31 @@ def test_b8_b9_agree_where_the_square_is_the_absolute_value(cuda, b):
     assert_bit_equal([sad.sad_grid(src, win, 33, 33)], [search.ssd_grid(src, win, 33, 33)])
 
 
+@pytest.mark.parametrize("num", [1, 7, 17, 33, 65])
+@pytest.mark.parametrize("b", [8, 16, 32, 64])
+def test_b9_packed_classes_at_every_block_side_and_count(cuda, b, num):
+    # Windows cut from wider rows at an odd byte offset: unaligned rows and
+    # base pointers, read through the byte-masked staging.
+    rng = np.random.default_rng(7 * b + num)
+    n = 5
+    src = random_u8(rng, (n, b, b), cuda)
+    wide = random_u8(rng, (n, b + num + 2, b + num + 12), cuda)
+    win = wide[:, 1:, 3:3 + b + num - 1]
+    before = sad.sad_grid.launches
+    got = sad.sad_grid(src, win, num, num)
+    assert sad.sad_grid.launches == before + 1
+    assert_bit_equal([got], [sad.sad_grid_ref(src, win, num, num)])
+
+
+@pytest.mark.parametrize("b", [8, 16, 32, 64])
+def test_b9_extremes_at_every_block_side(cuda, b):
+    for sv, wv in ((0, 255), (255, 0), (255, 255)):
+        src = torch.full((3, b, b), sv, dtype=torch.uint8, device=cuda)
+        win = torch.full((3, b + 64, b + 64), wv, dtype=torch.uint8, device=cuda)
+        got = sad.sad_grid(src, win, 65, 65)
+        assert int(got.min()) == int(got.max()) == b * b * abs(sv - wv)
+
+
 def test_b9_rejects_what_it_does_not_take(cuda):
     src = torch.zeros((2, 16, 16), dtype=torch.uint8, device=cuda)
     win = torch.zeros((2, 32, 32), dtype=torch.uint8, device=cuda)
@@ -670,18 +695,36 @@ def pu_lists(base):
     return partition._pu_lists(layouts, base)
 
 
-@pytest.mark.parametrize("base,lists", [(16, "default"), (32, "default"), (8, "default"),
-                                        (16, "rows")])
-@pytest.mark.parametrize("n,r", [(5, 32), (2, 8), (3, 1)])
-def test_b15_matches_plain(cuda, base, lists, n, r):
-    src, win = b14_case(n, r, base + n + r, cuda)
+def odd_pu_lists(base):
+    """PUs that are no rectangle: a diagonal, a corner pair, every third."""
     k = 64 // base
-    lists = pu_lists(base) if lists == "default" else tuple(
-        tuple(range(i * k, i * k + k)) for i in range(k))
+    return (tuple(i * k + i for i in range(k)), (0, k * k - 1), tuple(range(0, k * k, 3)))
+
+
+@pytest.mark.parametrize("base,lists", [(16, "default"), (32, "default"), (8, "default"),
+                                        (16, "rows"), (8, "odd"), (16, "odd"), (32, "odd")])
+@pytest.mark.parametrize("n,r", [(5, 32), (2, 8), (3, 1), (3, 2), (2, 31)])
+def test_b15_matches_plain(cuda, base, lists, n, r):
+    # R = 1, 2, 31 and 32: one m tile and n tile, a part k step, and the
+    # edges of the tensor-core tiling; odd R on windows cut from wider rows.
+    src, win = b14_case(n, r, base + n + r, cuda, strided=r % 2 == 1)
+    k = 64 // base
+    lists = {"default": pu_lists(base), "odd": pu_lists(base) + odd_pu_lists(base),
+             "rows": tuple(tuple(range(i * k, i * k + k)) for i in range(k))}[lists]
     before = base_grids.base_layout_decide.launches
     got = base_grids.base_layout_decide(src, win, base, lists)
     assert base_grids.base_layout_decide.launches == before + 1
     assert_bit_equal([got], [base_grids.base_layout_decide_ref(src, win, base, lists)])
+
+
+@pytest.mark.parametrize("base", [8, 16, 32])
+@pytest.mark.parametrize("r", [1, 2, 31, 32])
+def test_b15_flat_windows_take_the_first_candidate(cuda, base, r):
+    src, win = b14_case(2, r, base + r, cuda)
+    win = torch.full_like(win, 97)
+    got = base_grids.base_layout_decide(src, win, base, pu_lists(base))
+    assert bool((got[:, :, :2] == -r).all())
+    assert_bit_equal([got], [base_grids.base_layout_decide_ref(src, win, base, pu_lists(base))])
 
 
 def test_b14_b15_constant_window_ties_every_candidate(cuda):

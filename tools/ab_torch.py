@@ -15,9 +15,15 @@ min and max) of 20 samples of
   synchronised per frame;
 * the multi-reference P frame, encode_inter_frame_multiref on chip_smoke's
   multiref pan with k = 4 and the same config;
+* the luma P frame under me_metric="sad" (B9 + K2), and the RDO P frame
+  with pu_decision=True on chip_smoke's structured pan, with the SSD (B15 +
+  B13) and the SAD (B9 + B13) metric;
 * K1 (510 CTUs, R = 32), B7 (the same, k = 4), B10 sad (510 64x64 blocks)
-  and sad_multiref (k = 4), a sample being 10 launches between CUDA events,
-  and torch.cdist(p=1) on float32 copies of B10's operands.
+  and sad_multiref (k = 4), B9 (510 CTUs and 8160 16x16 blocks, R = 32,
+  and the pyramid's two levels), B15 (base 16 with the 26 default PU
+  lists, and base 32), B14 (base 8) and B8 (8160 16x16 blocks, R = 16), a
+  sample being 10 launches between CUDA events, and torch.cdist(p=1) on
+  float32 copies of B10's operands.
 
 Exits non-zero, with no result, when there is no CUDA card.
 """
@@ -41,9 +47,11 @@ def measure() -> dict:
     from hevcasm_tpu_torch.encode import ctu as ctu_mod, motion
     from hevcasm_tpu_torch.encode.loop import (EncodeConfig, encode_inter_frame,
                                                encode_inter_frame_multiref)
+    from hevcasm_tpu_torch.encode import partition
     from hevcasm_tpu_torch.kernels import build
-    from hevcasm_tpu_torch.kernels.sad import sad, sad_multiref
-    from hevcasm_tpu_torch.kernels.search import ssd_grid_plane, ssd_grid_plane_multi
+    from hevcasm_tpu_torch.kernels.base_grids import base_grids_ctu, base_layout_decide
+    from hevcasm_tpu_torch.kernels.sad import sad, sad_grid, sad_multiref
+    from hevcasm_tpu_torch.kernels.search import ssd_grid, ssd_grid_plane, ssd_grid_plane_multi
 
     if not torch.cuda.is_available():
         raise SystemExit("ab_torch: no CUDA device")
@@ -67,8 +75,38 @@ def measure() -> dict:
     cd_src, cd_ref = src.reshape(n, 1, 4096).float(), b_ref.reshape(n, 1, 4096).float()
     cd_refs = b_refs.reshape(n, 4, 4096).float()
 
+    # The structured pan's luma, its CTU windows and sub-block windows, as
+    # chip_smoke's phase 3 cuts them.
+    pan_cur, pan_ref = (torch.as_tensor(f[0], device=dev) for f in cs.structured_pan(h, w)[:2])
+    pan_src = ctu_mod.tile_frame(pan_cur, 64).contiguous()
+    p_padded = ctu_mod.pad_frame(pan_ref, pl, pr, pl, pr)
+    p_win = motion.extract_aligned_windows(p_padded, (motion.PAD_L, motion.PAD_L), grid, 64,
+                                           64 + 2 * r)
+
+    def sub_blocks(base, rr):
+        wsub, o = base + 2 * rr, r - rr
+        win = p_win[:, o:o + 64 + 2 * rr, o:o + 64 + 2 * rr]
+        win = win.unfold(1, wsub, base).unfold(2, wsub, base).reshape(-1, wsub, wsub)
+        return ctu_mod.split_blocks(pan_src, base).contiguous(), win.contiguous()
+
+    b9_16, b8_16 = sub_blocks(16, r), sub_blocks(16, 16)
+    coarse_src = motion._downsample4(pan_src).contiguous()
+    coarse_win = motion.extract_aligned_windows(
+        ctu_mod.pad_frame(motion._downsample4(pan_ref), 8, 8, 8, 8), (0, 0), grid, 16, 32)
+    fine_win = motion.extract_windows(p_padded, motion.ctu_positions(*grid, 64, dev) + r
+                                      + motion.PAD_L - 3, 70)
+    layouts = EncodeConfig().pu_layouts
+    lists16 = partition._pu_lists(layouts, 16)
+    lists32 = partition._pu_lists(layouts[:4], 32)
+    sad_cfg = EncodeConfig(search_range=r, qp=32, inter_impl="fused_dma", me_metric="sad")
+    pu_cfg = EncodeConfig(search_range=r, qp=32, pu_decision=True)
+    pu_sad_cfg = EncodeConfig(search_range=r, qp=32, pu_decision=True, me_metric="sad")
+
     def stats(samples):
         return {"median": statistics.median(samples), "min": samples[0], "max": samples[-1]}
+
+    def kernel_ms(fn):
+        return stats(cs.samples_ms(fn, calls=10))
 
     return {
         "card": cs.card_line(),
@@ -84,6 +122,20 @@ def measure() -> dict:
         "cdist_sad_ms": stats(cs.samples_ms(lambda: torch.cdist(cd_src, cd_ref, p=1), calls=10)),
         "cdist_sad_multiref_ms": stats(cs.samples_ms(
             lambda: torch.cdist(cd_src, cd_refs, p=1), calls=10)),
+        "luma_p_sad_frame_ms": stats(cs.samples_ms(
+            lambda: encode_inter_frame(cur, ref, sad_cfg))),
+        "pu_decision_frame_ms": stats(cs.samples_ms(
+            lambda: encode_inter_frame(pan_cur, pan_ref, pu_cfg))),
+        "pu_decision_sad_frame_ms": stats(cs.samples_ms(
+            lambda: encode_inter_frame(pan_cur, pan_ref, pu_sad_cfg))),
+        "b9_510_ctus_r32_ms": kernel_ms(lambda: sad_grid(pan_src, p_win, num, num)),
+        "b9_8160_16x16_r32_ms": kernel_ms(lambda: sad_grid(*b9_16, num, num)),
+        "b9_pyramid_coarse_ms": kernel_ms(lambda: sad_grid(coarse_src, coarse_win, 17, 17)),
+        "b9_pyramid_fine_ms": kernel_ms(lambda: sad_grid(pan_src, fine_win, 7, 7)),
+        "b15_base16_ms": kernel_ms(lambda: base_layout_decide(pan_src, p_win, 16, lists16)),
+        "b15_base32_ms": kernel_ms(lambda: base_layout_decide(pan_src, p_win, 32, lists32)),
+        "b14_base8_ms": kernel_ms(lambda: base_grids_ctu(pan_src, p_win, 8)),
+        "b8_8160_16x16_r16_ms": kernel_ms(lambda: ssd_grid(*b8_16, 33, 33)),
     }
 
 

@@ -12,7 +12,7 @@ and times each beside the kernel at chip_smoke's 1080p shapes (510 CTUs, R
 of 20.  The copies give wrong results and serve only as timings.  It also
 times a kernel that issues only independent mma.sync m16n8k32 u8 products,
 which gives the instruction's own rate on this card (the published 1,979
-TOP/s is wgmma's).  Prints one JSON line with the card's name and power
+TOP/s is wgmma's; tools/b9_b15_phase_costs.py's instruction_rates).  Prints one JSON line with the card's name and power
 limit.  The copies are built under build/k1_phase_costs/.
 """
 
@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import statistics
 import sys
 from pathlib import Path
 
@@ -40,37 +39,13 @@ ABLATIONS = {
                                   "const int mt_count = min(4, (num + 15) / 16),")],
 }
 
-PEAK_CU = r"""
-#include <stdint.h>
-__global__ void mma_rate(int* out, int iters) {
-  int acc[8][4] = {};
-  const uint32_t a0 = threadIdx.x, a1 = threadIdx.x * 3u, a2 = threadIdx.x * 5u, a3 = 7u;
-  const uint32_t b0 = threadIdx.x * 11u, b1 = 13u;
-  for (int i = 0; i < iters; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-                   "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-                   : "+r"(acc[j][0]), "+r"(acc[j][1]), "+r"(acc[j][2]), "+r"(acc[j][3])
-                   : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-  }
-  int s = 0;
-  for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
-}
-extern "C" int mma_rate_launch(int* out, int blocks, int threads, int iters) {
-  mma_rate<<<blocks, threads>>>(out, iters);
-  return cudaGetLastError();
-}
-"""
-
-
 def main() -> int:
     import numpy as np
     import torch
 
     import chip_smoke as cs
     from hevcasm_tpu_torch.kernels import build
+    from tools.b9_b15_phase_costs import instruction_rates
 
     if not torch.cuda.is_available():
         print("k1_phase_costs: no CUDA device", file=sys.stderr)
@@ -89,9 +64,6 @@ def main() -> int:
         cu.write_text(text)
         libs[name] = out_dir / f"v{i}.so"
         cmds.append([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(libs[name]), str(cu)])
-    (out_dir / "peak.cu").write_text(PEAK_CU)
-    cmds.append([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(out_dir / "peak.so"),
-                 str(out_dir / "peak.cu")])
     build._run_all(cmds)
 
     dev = torch.device("cuda", 0)
@@ -116,18 +88,7 @@ def main() -> int:
 
         result[name] = {"k1_ms": cs.median_ms(lambda: launch(1), calls=10),
                         "b7_k4_ms": cs.median_ms(lambda: launch(4), calls=10)}
-    peak = ctypes.CDLL(str(out_dir / "peak.so"))
-    peak.mma_rate_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    blocks, threads, iters = 132 * 8, 256, 2000
-    buf = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
-    rates = []
-    for _ in range(5):
-        ms = cs.median_ms(lambda: peak.mma_rate_launch(buf.data_ptr(), blocks, threads, iters),
-                          reps=5)
-        rates.append(blocks * threads // 32 * iters * 8 / ms / 1e9)     # T products a s
-    products = statistics.median(rates)
-    result["mma.sync m16n8k32 u8"] = {"products_per_s": products * 1e12,
-                                      "tops": products * 2 * 16 * 8 * 32}
+    result["mma.sync m16n8k32 u8"] = instruction_rates()["mma.sync m16n8k32 u8"]
     print(json.dumps(result), flush=True)
     return 0
 
