@@ -10,8 +10,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build    compiles hevcasm_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
             process per source, into build/ and prints the build time; the
             SASS of the library (cuobjdump -sass, from nvcc's toolkit) must
-            show IMMA, the u8 tensor-core product, in K1/B7's kernel and in
-            B15's, and VABSDIFF4, the packed absolute difference, in B9's.
+            show IMMA, the u8 tensor-core product, in K1/B7's kernel, in
+            B15's, in B17's and in B19's, and VABSDIFF4, the packed absolute
+            difference, in B9's; the CUDA-core search loop that B17 and B19
+            ran before they took K1's core (csrc/search_core.cuh) must be
+            gone.
 3. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit on every output: the 1080p shapes (510 CTUs, R = 32), an
             odd grid width (3) at R = 8 (K1 also at R = 1, 2 and 31, and B7
@@ -41,7 +44,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             planes (on these two most minima must be non-zero and differ
             between CTUs, and on the noise most MVs too), and on a constant
             plane, where every candidate ties and the answer is (-32, -32);
-            B19 also at R = 8 on an odd grid width.  B9 at every block side
+            B19 also at R = 8 on an odd grid width.  Each B17 call (both
+            entries) must put exactly one operation on the card, its kernel
+            (torch.profiler: no memset, no decode kernel, no torch op).  B9 at every block side
             b in {8, 16, 32, 64} and num in {1, 7, 17, 33, 65} on the pan's
             blocks, with windows cut from wider rows at an odd offset; B15
             at bases 8, 16 and 32 and R = 1, 2, 31 and 32 with the default
@@ -129,8 +134,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             of B10's launch path beside the whole call and cdist's.  The
             card's own rates of mma.sync m16n8k32 u8 and of vabsdiff4 with
             .add (tools/b9_b15_phase_costs.py), and from them the design
-            floors of K1/B7, B9 (its terms, four an instruction) and B15
-            (the m16n8k32 products it issues) beside their bounds.
+            floors of K1/B7, B17 and B19 (the products of K1's core), B9 (its
+            terms, four an instruction) and B15 (the m16n8k32 products it
+            issues) beside their bounds.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -257,6 +263,19 @@ def device_ms(fn, calls: int = 10) -> float:
         torch.cuda.synchronize()
     us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
     return us / 1e3 / calls
+
+
+def device_ops(fn) -> list[str]:
+    """The names of the operations torch.profiler records on the card (kernels,
+    memsets, copies) during one call of fn, after a call that warms it up."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
@@ -477,16 +496,19 @@ def main() -> int:
     build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
-    imma = sass_count(build, "ssd_grid_plane_kernel", "IMMA")
-    imma_b15 = sass_count(build, "decide_kernel", "IMMA")
+    imma = {name: sass_count(build, kernel, "IMMA") for name, kernel in (
+        ("K1/B7", "ssd_grid_plane_kernel"), ("B15", "decide_kernel"),
+        ("B17", "search_mv_kernel"), ("B19", "mega_kernel"))}
     vabs_b9 = sass_count(build, "sad_grid_kernel", "VABSDIFF4")
-    log(f"SASS: {imma} IMMA instructions in K1/B7's kernel, {imma_b15} in B15's, "
-        f"{vabs_b9} VABSDIFF4 in B9's, "
+    log("SASS: IMMA instructions " + ", ".join(f"{k} {v}" for k, v in imma.items())
+        + f"; {vabs_b9} VABSDIFF4 in B9's, "
         f"{sass_count(build, 'sad_kernel', 'VABSDIFF4')} VABSDIFF4 in B10's (cuobjdump -sass)")
-    if not imma:
-        raise AssertionError("K1/B7's kernel has no IMMA (u8 tensor-core) instruction")
-    if not imma_b15:
-        raise AssertionError("B15's kernel has no IMMA (u8 tensor-core) instruction")
+    for name, count in imma.items():
+        if not count:
+            raise AssertionError(f"{name}'s kernel has no IMMA (u8 tensor-core) instruction")
+    if (build.CSRC / "search_core.cuh").exists() or any(
+            "search_core.cuh" in f.read_text() for f in build.CSRC.glob("*.cu*")):
+        raise AssertionError("B17/B19's former CUDA-core search loop (search_core.cuh) is back")
     if not vabs_b9:
         raise AssertionError("B9's kernel has no VABSDIFF4 (packed absolute difference)")
 
@@ -895,6 +917,15 @@ def main() -> int:
         if kind == "ties" and bool(mega_out[2].any()):
             raise AssertionError("B19 constant plane: the first fraction did not win")
     win128 = win128_of(padded, grid)
+    # B17 is one launch a call: no key scratch to clear, no decode kernel,
+    # and its wrappers add no torch op.
+    for name, fn in (("search_mv", lambda: search_mv(src, win128, 65)),
+                     ("search_mv_dma", lambda: search_mv_dma(src, padded, pos, SEARCH_RANGE))):
+        ops = device_ops(fn)
+        log(f"B17 {name}: operations on the card in one call (torch.profiler): {ops}")
+        if len(ops) != 1 or "search_mv_kernel" not in ops[0]:
+            raise AssertionError(f"B17 {name}: a call must launch its kernel and nothing "
+                                 f"else, got {ops}")
 
     # B10, B5, B6 and B18: the self-test's kernels, at every self-test shape
     # (strided views and 2-D inputs as the suites pass them) and at frame
@@ -1608,7 +1639,11 @@ def main() -> int:
             lib_ms = f", torch.cdist(p=1) {library[name]:.4f} ms (device {lib_dev:.4f})"
         log(f"{tag} {name} at 1080p{shape}: kernel {k_ms:.4f} ms{dev_ms}, plain {p_ms:.3f} "
             f"ms{lib_ms}")
-    for name, k_planes in (("ssd_grid_plane", 1), ("ssd_grid_plane_multi", 4)):
+    # B17 and B19 run K1's products on one plane; B19's floor leaves out its
+    # refinement and residual.
+    tc_kernels = (("ssd_grid_plane", 1), ("ssd_grid_plane_multi", 4), ("search_mv", 1),
+                  ("search_mv_dma", 1), ("encode_ctu_mega", 1))
+    for name, k_planes in tc_kernels:
         floor = tc_floor_ms(n, k_planes, SEARCH_RANGE)
         log(f"{tag} {name}: the tensor-core design's own floor {floor:.4f} ms (the m16n8k32 "
             f"products it issues at 1,979 TOP/s), kernel at {floor / times[name][0]:.3f} of it")
@@ -1622,7 +1657,7 @@ def main() -> int:
         f"{mma_tops:.1f} TOP/s; vabsdiff4.add {vabs / 1e12:.3f} T thread instructions/s "
         f"({vabs / (132 * 1.98e9):.1f} a clock an SM at 1.98 GHz; the bound assumes "
         f"{INT_INSTR_PER_S / (132 * 1.98e9):.0f})")
-    for name, k_planes in (("ssd_grid_plane", 1), ("ssd_grid_plane_multi", 4)):
+    for name, k_planes in tc_kernels:
         floor = tc_floor_ms(n, k_planes, SEARCH_RANGE) * 1979 / mma_tops
         log(f"{tag} {name}: design floor at mma.sync's own rate {floor:.4f} ms, kernel at "
             f"{floor / times[name][0]:.3f} of it")

@@ -9,7 +9,7 @@
 //
 //   1. the (64 + 2R)^2 search window at (py + 3, px + 3), every displacement
 //      (dy, dx) in [0, 2R]^2 scored by exact SSD, the first minimum in
-//      row-major [dy, dx] order kept (csrc/search_core.cuh);
+//      row-major [dy, dx] order kept (csrc/ssd_tc_core.cuh, as B17);
 //   2. the 71x71 refine window at (py + dy, px + dx), i.e. at the integer MV
 //      (dy - R, dx - R), refined by QPEL_SCORE (refine_select of
 //      csrc/refine_core.cuh), the winner recomputed;
@@ -20,75 +20,103 @@
 // (n, 8, 8) int32, equal to K1 + first minimum + K2.  No score grid and no
 // window reaches device memory between the stages.
 //
-// What bounds it on the H100: the search's integer work, as for B17
-// ((2R+1)^2 * 4096 subtract-multiply-adds a CTU, 17.3 M at R = 32), with
-// K2's refinement and residual (about 0.7 M multiply-adds a CTU) after it.
+// What bounds it on the H100: the search's correlation, 4096 (2R+1)^2
+// multiply-adds a CTU (17.3 M at R = 32) on the int8 tensor cores, as for
+// K1 and B17, with K2's refinement and residual (about 0.7 M multiply-adds
+// a CTU) after it.
 //
-// Design: one 256-thread block per CTU that loops over the dy rows (design
-// (b) of the two considered).  The whole (64 + 2R)^2 search window (at most
-// 128 rows of 140 bytes, 17.5 KB) is staged once in the shared memory that
-// the refinement's horizontal passes use afterwards, so the block holds K2's
-// 46.7 KB and four blocks share an SM: the 510 CTUs of a 1920x1088 frame run
-// in one wave on the 132 SMs.  The 65 x 9 (dy, 8-dx group) tasks at R = 32
-// take three passes of the 256 threads; the packed keys meet in one block
-// reduction, with no atomics and no second kernel.  The other design, a
-// thread-block cluster per CTU with one block per dy slice meeting through
-// distributed shared memory, would keep B17's several blocks a CTU but needs a
-// cluster launch and a cross-block barrier; it is left for a later
-// measurement.  The TPU kernel's (144, 256) slab, its P = R + 8 plane and
-// its lane rolls are Mosaic DMA devices and are not carried over.
+// Design: one 256-thread block per CTU (refine_core and residual_core want
+// NT = 256), 71 KB of shared memory and at most 128 registers a thread, so
+// two blocks share an SM and the 510 CTUs of a 1920x1088 frame take two
+// waves of 264 (K1's five warps hold 36 accumulators a thread at up to 102
+// registers; four 256-thread blocks an SM would allow 64).  Stage 1 is
+// csrc/ssd_tc_core.cuh's whole-CTU search: all 256 threads stage the CTU
+// (its words stay in shared memory for stages 2 and 3), Z, S and the
+// window; then warps 0-4 run the products (warp m the dy rows 16m .. 16m +
+// 15) while warps 5-7 compute E for all 2R + 1 dy rows at once, meeting at
+// a named barrier of their own, so that E overlaps the products.  The
+// keyed epilogue is B17's: packed keys (SSD << 32 | dy (2R+1) + dx) for dy,
+// dx < 2R + 1 only, reduced by shuffles and through shared memory, and the
+// winner reaches every thread through shared memory.  The search's window,
+// Z rows and E share their memory with the refinement's (a union).  The TPU
+// kernel's (144, 256) slab, its P = R + 8 plane and its lane rolls are
+// Mosaic DMA devices and are not carried over.
 
 #include "refine_core.cuh"
-#include "search_core.cuh"
+#include "ssd_tc_core.cuh"
 
 namespace {
 
-constexpr int NTU = B / 8;    // 8x8 TUs per CTU side
-static_assert(hevc_search::CTU == B, "one CTU size");
-static_assert((B + 2 * hevc_search::MAX_R) * hevc_search::WS <= sizeof(RefineSmem::hp),
-              "the search window fits in the horizontal passes' buffer");
+constexpr int NTU = B / 8;                        // 8x8 TUs per CTU side
+constexpr int PRODUCT_WARPS = hevc_tc::MAX_MT;    // warps 0-4: the products
+constexpr int E_FIRST = 32 * PRODUCT_WARPS;       // warps 5-7: E
+static_assert(hevc_tc::CTU == B && NT > E_FIRST, "one CTU size; warps left for E");
 
-__global__ void __launch_bounds__(NT)
+struct SearchSmem {
+  // s_z must follow the window: the m16 tiles read rows past it.
+  __align__(16) uint8_t win[hevc_tc::WIN_SMEM];
+  uint2 z[hevc_tc::CTU * hevc_tc::ZW];
+  int32_t e[hevc_tc::MAX_NUM * hevc_tc::E_STRIDE];
+};
+
+struct MegaSmem {
+  union {
+    SearchSmem search;     // stage 1
+    RefineSmem refine;     // stages 2 and 3
+  };
+  __align__(16) uint8_t src[B * B];
+  int nnz[NTU * NTU];
+  int bits[NTU * NTU];
+  unsigned long long keys[NT / 32];
+  int32_t red[NT / 32];
+};
+
+__global__ void __launch_bounds__(NT, 2)
 mega_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ plane,
             const int32_t* __restrict__ positions, uint8_t* __restrict__ rec,
             int32_t* __restrict__ mv_out, int32_t* __restrict__ frac_out,
             int32_t* __restrict__ best_out, int32_t* __restrict__ nnz_out, int plane_h,
             int plane_w, int radius, int qscale, int qshift, int qoffset, int dscale,
             int dshift) {
-  using namespace hevc_search;
-  // sm.hp holds the search window, then the horizontal passes, then the
-  // residual stage's two int32 planes; sm.win the refine window, then the
-  // prediction.
-  __shared__ RefineSmem sm;
-  __shared__ __align__(16) uint8_t s_src[B * B];
-  __shared__ int s_nnz[NTU * NTU];
-  __shared__ int s_bits[NTU * NTU];
-  __shared__ unsigned long long s_red[NT / 32];
-
+  extern __shared__ __align__(128) uint8_t smem[];
+  MegaSmem& m = *reinterpret_cast<MegaSmem*>(smem);
   const int i = blockIdx.x;
-  const int t = threadIdx.x;
+  const int t = threadIdx.x, warp = t >> 5;
   const int num = 2 * radius + 1;
-  const int groups = (num + DXT - 1) / DXT;
   const int wide = B + 2 * radius;
+  const int mt_count = (num + 15) / 16, nt_count = (num + 7) / 8;
+  const int ks_count = (wide + 31) / 32;
   const int py = positions[2 * i], px = positions[2 * i + 1];
 
   // ---- 1. search ------------------------------------------------------------
-  const uint8_t* s = src + static_cast<size_t>(i) * B * B;
-  for (int k = t; k < B * B; k += NT) s_src[k] = s[k];
+  const int s_total = hevc_tc::stage_source<NT>(src + static_cast<size_t>(i) * B * B,
+                                                reinterpret_cast<uint32_t*>(m.src),
+                                                m.search.z, m.red);
   // The window start, clamped so the window fits (as the plain version's
   // gather clamps).
   const int oy = clip3(0, plane_h - wide, py + 3);
   const int ox = clip3(0, plane_w - wide, px + 3);
-  uint8_t* s_win = reinterpret_cast<uint8_t*>(sm.hp);
-  stage_window(plane + static_cast<size_t>(oy) * plane_w + ox, plane_w, 0, wide, wide, s_win);
+  hevc_tc::stage_window<NT>(plane + static_cast<size_t>(oy) * plane_w + ox, plane_w, wide,
+                            m.search.win);
   __syncthreads();
-  unsigned long long key = NO_KEY;
-  for (int task = t; task < num * groups; task += NT) {
-    const int dy = task / groups, g = task - dy * groups;
-    const unsigned long long k = ssd_key8(s_win + dy * WS, s_src, dy, g * DXT, num);
-    key = k < key ? k : key;
+  int acc[hevc_tc::MAX_NT][4];
+  if (warp < PRODUCT_WARPS) {
+    if (warp < mt_count)
+      hevc_tc::tc_products(acc, m.search.win, m.search.z, warp, ks_count, nt_count);
+  } else {
+    hevc_tc::window_energy(m.search.win, m.search.e, 0, num, wide, num, t - E_FIRST,
+                           NT - E_FIRST, hevc_tc::NamedSync<1, NT - E_FIRST>());
   }
-  key = block_min_key(key, s_red);
+  __syncthreads();
+  unsigned long long key = hevc_tc::NO_SSD_KEY;
+  if (warp < mt_count)
+    hevc_tc::for_each_candidate(acc, warp, num, [&](int dy, int dx, int c) {
+      key = hevc_tc::min_key(
+          key, hevc_tc::ssd_key(s_total + m.search.e[dy * hevc_tc::E_STRIDE + dx] - 2 * c,
+                                dy * num + dx));
+    });
+  // The barrier inside also ends every read of the search's memory.
+  key = hevc_tc::block_min_key(key, m.keys);
   const int idx = static_cast<int>(key & 0xFFFFFFFFull);
   const int dy = idx / num, dx = idx % num;
   if (t == 0) {
@@ -98,18 +126,18 @@ mega_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ plane,
   }
 
   // ---- 2. refine at the integer MV (dy - R, dx - R) ------------------------
-  const int best = refine_select(plane, plane_h, plane_w, py + dy, px + dx, s_src, sm);
+  const int best = refine_select(plane, plane_h, plane_w, py + dy, px + dx, m.src, m.refine);
   if (t == 0) frac_out[i] = best;
-  uint8_t* s_pred = sm.win;  // (B, B), row stride B
+  uint8_t* s_pred = m.refine.win;  // (B, B), row stride B
   const int x = t % B, yg = t / B;
 #pragma unroll 4
   for (int yy = 0; yy < 16; ++yy)
     s_pred[(16 * yg + yy) * B + x] = static_cast<uint8_t>(
-        clip3(0, 255, (winner_acc(sm, best, x, yg, yy) + 2048) >> 12));
+        clip3(0, 255, (winner_acc(m.refine, best, x, yg, yy) + 2048) >> 12));
   __syncthreads();
 
   // ---- 3. residual ----------------------------------------------------------
-  residual_core<8>(s_src, s_pred, reinterpret_cast<int*>(sm.hp), s_nnz, s_bits,
+  residual_core<8>(m.src, s_pred, reinterpret_cast<int*>(m.refine.hp), m.nnz, m.bits,
                    rec + static_cast<size_t>(i) * B * B,
                    nnz_out + static_cast<size_t>(i) * NTU * NTU, nullptr, qscale, qshift,
                    qoffset, dscale, dshift);
@@ -131,7 +159,7 @@ extern "C" int hevc_mega(const uint8_t* src, const uint8_t* plane, const int32_t
                          int32_t* nnz, int n, int plane_h, int plane_w, int radius,
                          int qscale, int qshift, int qoffset, int dscale, int dshift,
                          int device, void* stream) {
-  if (radius < 1 || radius > hevc_search::MAX_R) return cudaErrorInvalidValue;
+  if (radius < 1 || radius > hevc_tc::MAX_R) return cudaErrorInvalidValue;
   const int wide = B + 2 * radius;
   if (plane_h < wide || plane_w < wide || plane_h < WIN || plane_w < WIN ||
       qshift < 16 || qshift > 27 || dshift < 1 || dshift > 31)
@@ -139,7 +167,10 @@ extern "C" int hevc_mega(const uint8_t* src, const uint8_t* plane, const int32_t
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n == 0) return cudaGetLastError();
-  mega_kernel<<<n, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  err = cudaFuncSetAttribute(mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(sizeof(MegaSmem)));
+  if (err != cudaSuccess) return err;
+  mega_kernel<<<n, NT, sizeof(MegaSmem), static_cast<cudaStream_t>(stream)>>>(
       src, plane, positions, rec, mv, frac, best, nnz, plane_h, plane_w, radius, qscale,
       qshift, qoffset, dscale, dshift);
   return cudaGetLastError();

@@ -53,8 +53,8 @@ _ENTRIES = {
     "hevc_ssd_grid": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P],
     # the same arguments as hevc_ssd_grid
     "hevc_sad_grid": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P],
-    # src, plane, offsets, keys, mv, best, n, plane_h, plane_w, radius, device, stream
-    "hevc_search_mv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # src, plane, offsets, shift, mv, best, n, plane_h, plane_w, radius, device, stream
+    "hevc_search_mv": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     # src, plane, positions, rec, mv, frac, best, nnz, n, plane_h, plane_w,
     # radius, qscale, qshift, qoffset, dscale, dshift, device, stream
     "hevc_mega": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

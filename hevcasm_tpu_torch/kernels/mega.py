@@ -5,8 +5,9 @@ refinement at the winner and the 8x8 residual pipeline.
 ``encode_ctu_mega`` replaces the TPU kernel
 ``hevcasm_tpu/kernels/mega_pallas.py`` ``encode_ctu_mega`` (body
 ``_mega_kernel``).  Its CUDA source is ``csrc/mega.cu`` (over
-``csrc/search_core.cuh``, ``refine_core.cuh`` and ``residual_core.cuh``);
-the header says what bounds it on the card and which design it takes.
+``csrc/ssd_tc_core.cuh``, K1's u8 tensor-core search with B17's keyed
+first minimum, then ``refine_core.cuh`` and ``residual_core.cuh``); the
+header says what bounds it on the card and which design it takes.
 Beside it stands its plain PyTorch version, ``encode_ctu_mega_ref``.
 
 Contract: ``encode_ctu_mega(src_ctus, ref_padded, positions, r, qscale,

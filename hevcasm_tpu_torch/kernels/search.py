@@ -246,8 +246,9 @@ def search_mv_dma_ref(src_ctus, ref_padded, positions, r: int):
     return search_mv_ref(src, windows, 2 * r + 1)
 
 
-def _search_launch(what: str, src, plane, offsets, r: int):
-    """Launch B17 on CTU i's window at offsets[i] in the plane."""
+def _search_launch(what: str, src, plane, offsets, shift: int, r: int):
+    """Launch B17, one kernel and nothing else, on CTU i's window at
+    offsets[i] + shift in the plane."""
     dev = build.on_card(what, src, plane, offsets)
     if src.dtype != torch.uint8 or plane.dtype != torch.uint8:
         raise TypeError(f"{what}: the CTUs and windows must be uint8")
@@ -255,18 +256,17 @@ def _search_launch(what: str, src, plane, offsets, r: int):
         raise ValueError(f"{what}: src must be (n, {CTU}, {CTU}), got {tuple(src.shape)}")
     if not 1 <= r <= MAX_RADIUS:
         raise ValueError(f"{what}: R={r}; the kernel takes 1 <= R <= {MAX_RADIUS}")
-    if not (src.is_contiguous() and plane.is_contiguous()):
-        raise ValueError(f"{what}: src and the windows must be contiguous")
+    if not (src.is_contiguous() and plane.is_contiguous() and offsets.is_contiguous()):
+        raise ValueError(f"{what}: src, the windows and the offsets must be contiguous")
     if plane.shape[0] >= 2 ** 31:
         raise ValueError(f"{what}: {plane.shape[0]} window rows pass 2^31")
     n = src.shape[0]
-    keys = torch.empty((n,), dtype=torch.int64, device=dev)
     mv = torch.empty((n, 2), dtype=torch.int32, device=dev)
     best = torch.empty((n,), dtype=torch.int32, device=dev)
     err = build.load().hevc_search_mv(
-        src.data_ptr(), plane.data_ptr(), offsets.data_ptr(), keys.data_ptr(),
-        mv.data_ptr(), best.data_ptr(), n, plane.shape[0], plane.shape[1], r,
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        src.data_ptr(), plane.data_ptr(), offsets.data_ptr(), shift, mv.data_ptr(),
+        best.data_ptr(), n, plane.shape[0], plane.shape[1], r, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, what)
     return mv, best
 
@@ -292,7 +292,7 @@ def search_mv(src, windows, num: int):
         raise ValueError("search_mv: the windows must be contiguous")
     n, wh, ww = windows.shape
     out = _search_launch("search_mv", src, windows.view(n * wh, ww),
-                         stack_offsets(n, wh, src.device), r)
+                         stack_offsets(n, wh, src.device), 0, r)
     search_mv.launches += 1
     return out
 
@@ -314,8 +314,7 @@ def search_mv_dma(src_ctus, ref_padded, positions, r: int):
     if min(plane.shape) < CTU + 2 * r:
         raise ValueError(f"search_mv_dma: ref_padded {tuple(plane.shape)} is smaller "
                          f"than one {CTU + 2 * r}-pixel window")
-    out =_search_launch("search_mv_dma", src, plane,
-                         (positions + PAD_L).contiguous(), r)
+    out = _search_launch("search_mv_dma", src, plane, positions.contiguous(), PAD_L, r)
     search_mv_dma.launches += 1
     return out
 

@@ -241,17 +241,23 @@ def test_tensor_work_against_k1s(base, low, high):
     assert low <= per_row / 26 <= high
 
 
-@pytest.mark.parametrize("kernel", ["B9", "B15"])
+@pytest.mark.parametrize("kernel", ["B9", "B15", "K1", "B17", "B19"])
 def test_phase_cost_ablations_still_match_the_kernel_sources(kernel):
-    # tools/b9_b15_phase_costs.py edits the sources by text; each edit must
-    # still find its text, or the tool stops on the card.
+    # tools/b9_b15_phase_costs.py (B9, B15) and tools/k1_phase_costs.py (K1,
+    # B17, B19, whose edits name the file: the kernel's source or the shared
+    # ssd_tc_core.cuh) edit the sources by text; each edit must still find
+    # its text once, or the tool stops on the card.
     from pathlib import Path
 
-    from tools.b9_b15_phase_costs import ABLATIONS
+    from tools import b9_b15_phase_costs, k1_phase_costs
 
-    source, entry, variants = ABLATIONS[kernel]
-    text = (Path(base_grids.build.CSRC) / source).read_text()
-    assert f'extern "C" int {entry}(' in text
+    tool = b9_b15_phase_costs if kernel in ("B9", "B15") else k1_phase_costs
+    source, entry, variants = tool.ABLATIONS[kernel]
+    csrc = Path(base_grids.build.CSRC)
+    assert f'extern "C" int {entry}(' in (csrc / source).read_text()
     for name, edits in variants.items():
-        for old, _ in edits:
-            assert text.count(old) == 1, (name, old)
+        for edit in edits:
+            fname, old = (source, edit[0]) if len(edit) == 2 else edit[:2]
+            assert (csrc / fname).read_text().count(old) == 1, (name, fname, old)
+        if tool is k1_phase_costs:
+            k1_phase_costs.edited_sources(kernel, edits, csrc)

@@ -15,13 +15,15 @@ min and max) of 20 samples of
   synchronised per frame;
 * the multi-reference P frame, encode_inter_frame_multiref on chip_smoke's
   multiref pan with k = 4 and the same config;
-* the luma P frame under me_metric="sad" (B9 + K2), and the RDO P frame
-  with pu_decision=True on chip_smoke's structured pan, with the SSD (B15 +
-  B13) and the SAD (B9 + B13) metric;
+* the luma P frame under me_metric="sad" (B9 + K2), under search_impl
+  "dma" and "mv" (B17 + K2) and under inter_impl "mega" (B19), and the RDO
+  P frame with pu_decision=True on chip_smoke's structured pan, with the
+  SSD (B15 + B13) and the SAD (B9 + B13) metric;
 * K1 (510 CTUs, R = 32), B7 (the same, k = 4), B10 sad (510 64x64 blocks)
   and sad_multiref (k = 4), B9 (510 CTUs and 8160 16x16 blocks, R = 32,
   and the pyramid's two levels), B15 (base 16 with the 26 default PU
-  lists, and base 32), B14 (base 8) and B8 (8160 16x16 blocks, R = 16), a
+  lists, and base 32), B14 (base 8), B8 (8160 16x16 blocks, R = 16), B17
+  search_mv and search_mv_dma and B19 (510 CTUs, R = 32, bench content), a
   sample being 10 launches between CUDA events, and torch.cdist(p=1) on
   float32 copies of B10's operands.
 
@@ -50,8 +52,10 @@ def measure() -> dict:
     from hevcasm_tpu_torch.encode import partition
     from hevcasm_tpu_torch.kernels import build
     from hevcasm_tpu_torch.kernels.base_grids import base_grids_ctu, base_layout_decide
+    from hevcasm_tpu_torch.kernels.mega import encode_ctu_mega
     from hevcasm_tpu_torch.kernels.sad import sad, sad_grid, sad_multiref
-    from hevcasm_tpu_torch.kernels.search import ssd_grid, ssd_grid_plane, ssd_grid_plane_multi
+    from hevcasm_tpu_torch.kernels.search import (search_mv, search_mv_dma, ssd_grid,
+                                                  ssd_grid_plane, ssd_grid_plane_multi)
 
     if not torch.cuda.is_available():
         raise SystemExit("ab_torch: no CUDA device")
@@ -67,6 +71,11 @@ def measure() -> dict:
     plane = ctu_mod.pad_frame(ref, pl, pr, pl, pr)[motion.PAD_L:motion.PAD_L + h + 2 * r,
                                                    motion.PAD_L:motion.PAD_L + w + 2 * r]
     plane = plane.contiguous()
+    padded = ctu_mod.pad_frame(ref, pl, pr, pl, pr)
+    pos = motion.ctu_positions(*grid, 64, dev)
+    win128 = motion.extract_aligned_windows(padded, (motion.PAD_L, motion.PAD_L), grid, 64,
+                                            64 + 2 * r).contiguous()
+    qargs = (*cfg.quant_params(False), *cfg.dequant_params())
     planes = torch.stack([ctu_mod.pad_frame(p, pl, pr, pl, pr) for p in mr_refs])
     view = planes[:, motion.PAD_L:motion.PAD_L + h + 2 * r, motion.PAD_L:motion.PAD_L + w + 2 * r]
     b_ref = ctu_mod.tile_frame(ref, 64).contiguous()
@@ -101,6 +110,11 @@ def measure() -> dict:
     sad_cfg = EncodeConfig(search_range=r, qp=32, inter_impl="fused_dma", me_metric="sad")
     pu_cfg = EncodeConfig(search_range=r, qp=32, pu_decision=True)
     pu_sad_cfg = EncodeConfig(search_range=r, qp=32, pu_decision=True, me_metric="sad")
+    search_cfgs = {"dma": EncodeConfig(search_range=r, qp=32, inter_impl="fused_dma",
+                                       search_impl="dma"),
+                   "mv": EncodeConfig(search_range=r, qp=32, inter_impl="fused_dma",
+                                      search_impl="mv"),
+                   "mega": EncodeConfig(search_range=r, qp=32, inter_impl="mega")}
 
     def stats(samples):
         return {"median": statistics.median(samples), "min": samples[0], "max": samples[-1]}
@@ -136,6 +150,11 @@ def measure() -> dict:
         "b15_base32_ms": kernel_ms(lambda: base_layout_decide(pan_src, p_win, 32, lists32)),
         "b14_base8_ms": kernel_ms(lambda: base_grids_ctu(pan_src, p_win, 8)),
         "b8_8160_16x16_r16_ms": kernel_ms(lambda: ssd_grid(*b8_16, 33, 33)),
+        "b17_search_mv_ms": kernel_ms(lambda: search_mv(src, win128, num)),
+        "b17_search_mv_dma_ms": kernel_ms(lambda: search_mv_dma(src, padded, pos, r)),
+        "b19_mega_ms": kernel_ms(lambda: encode_ctu_mega(src, padded, pos, r, *qargs)),
+        **{f"luma_p_{name}_frame_ms": stats(cs.samples_ms(
+            lambda c=c: encode_inter_frame(cur, ref, c))) for name, c in search_cfgs.items()},
     }
 
 
