@@ -376,6 +376,62 @@ def b15_products(n: int, base: int, r: int) -> int:
     return n * -(-num // 16) * 64 * per_row
 
 
+def narrow_pairs(bw: int, ks_count: int, nt_count: int) -> int:
+    """The m16n8k32 products a narrow band bw bytes wide issues a source row
+    and m tile (csrc/ssd_tc_core.cuh narrow_products): the (k step, n tile)
+    pairs with 32 ks - 8 nt in [-24, bw], ks < ks_count, nt < min(9,
+    nt_count)."""
+    ks_max = -(-(72 + bw - 1) // 32)
+    return sum(1 for ks in range(min(ks_max, ks_count)) for nt in range(min(9, nt_count))
+               if -24 <= 32 * ks - 8 * nt <= bw)
+
+
+def b14_products(n: int, base: int, r: int) -> int:
+    """The m16n8k32 products B14 issues for n CTUs (csrc/base_grids.cu): for
+    each m tile, sub-block and source row of it, the pairs of its band,
+    max(base, 16) bytes wide from a 16-aligned column, at most 3 k steps."""
+    num, bw = 2 * r + 1, max(base, 16)
+    pairs = narrow_pairs(bw, min(3, -(-(num + bw - 1) // 32)), -(-num // 8))
+    return n * -(-num // 16) * (64 // base) ** 2 * base * pairs
+
+
+def b8_plan(b: int, n: int, num_dy: int, num_dx: int) -> dict:
+    """B8's launch geometry (csrc/ssd_grid.cu make_plan): source blocks
+    (sb), m16 tiles (mb) and n8 tiles (ntb) a block, the staged window rows,
+    the E rows' stride, the shared bytes a source block (window, Z, E) and a
+    block, threads."""
+    max_mb, target_warps, smem_cap = 8, 8, 96 * 1024
+    ks = -(-(72 + b - 1) // 32)
+    ws, zp = 32 * ks + 16, b // 4 + 8
+    mt, nt = -(-num_dy // 16), -(-num_dx // 8)
+    mb = -(-mt // -(-mt // max_mb))
+    ntb = -(-nt // -(-nt // 9))
+    rows = 16 * mb + b - 1
+    es = (min(8 * ntb, num_dx) + b - 1) | 1
+    per = rows * ws + b * zp * 8 + -(-max(min(16 * mb, num_dy) * es * 4, b * b) // 16) * 16
+    sb = max(1, target_warps // mb)
+    if sb * per > smem_cap:
+        sb = max(1, smem_cap // per)
+    sb = min(sb, n)
+    return dict(sb=sb, mb=mb, ntb=ntb, rows=rows, es=es, per=per,
+                smem=sb * per + -(-4 * sb // 16) * 16, threads=32 * sb * mb)
+
+
+def b8_products(n: int, b: int, num_dy: int, num_dx: int) -> int:
+    """The m16n8k32 products B8 issues for n blocks: for each block of its
+    plan, each busy warp (m tile) and source row, its band's pairs inside
+    the block's columns."""
+    plan = b8_plan(b, n, num_dy, num_dx)
+    mb, ntb = plan["mb"], plan["ntb"]
+    total = 0
+    for dy0 in range(0, num_dy, 16 * mb):
+        busy = -(-min(16 * mb, num_dy - dy0) // 16)
+        for dx0 in range(0, num_dx, 8 * ntb):
+            cols = min(8 * ntb, num_dx - dx0)
+            total += busy * narrow_pairs(b, -(-(cols + b - 1) // 32), -(-cols // 8))
+    return n * b * total
+
+
 def pan_picture(h: int, w: int, seed: int = 0) -> np.ndarray:
     """bench.py's structured picture: its noise smoothed twice by a 3-tap
     box in each direction, (h + 64, w + 64) uint8."""
@@ -497,7 +553,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     imma = {name: sass_count(build, kernel, "IMMA") for name, kernel in (
-        ("K1/B7", "ssd_grid_plane_kernel"), ("B15", "decide_kernel"),
+        ("K1/B7", "ssd_grid_plane_kernel"), ("B8", "ssd_grid_tc_kernel"),
+        ("B14", "base_grids_kernel"), ("B15", "decide_kernel"),
         ("B17", "search_mv_kernel"), ("B19", "mega_kernel"))}
     vabs_b9 = sass_count(build, "sad_grid_kernel", "VABSDIFF4")
     log("SASS: IMMA instructions " + ", ".join(f"{k} {v}" for k, v in imma.items())
@@ -506,9 +563,10 @@ def main() -> int:
     for name, count in imma.items():
         if not count:
             raise AssertionError(f"{name}'s kernel has no IMMA (u8 tensor-core) instruction")
-    if (build.CSRC / "search_core.cuh").exists() or any(
-            "search_core.cuh" in f.read_text() for f in build.CSRC.glob("*.cu*")):
-        raise AssertionError("B17/B19's former CUDA-core search loop (search_core.cuh) is back")
+    for gone, whose in (("search_core.cuh", "B17/B19's"), ("grid_core.cuh", "B8/B14's")):
+        if (build.CSRC / gone).exists() or any(
+                gone in f.read_text() for f in build.CSRC.glob("*.cu*")):
+            raise AssertionError(f"{whose} former CUDA-core grid loop ({gone}) is back")
     if not vabs_b9:
         raise AssertionError("B9's kernel has no VABSDIFF4 (packed absolute difference)")
 
@@ -665,10 +723,12 @@ def main() -> int:
                      f"tiles={tuple(tiles.shape)} offsets [{int(offsets.min())}, "
                      f"{int(offsets.max())}]")
 
-    def check_b8(what, blocks, windows, num):
-        return check("ssd_grid", what, [ssd_grid(blocks, windows, num, num)],
-                     [ssd_grid_ref(blocks, windows, num, num)],
-                     f"blocks={tuple(blocks.shape)} windows={tuple(windows.shape)}")[0]
+    def check_b8(what, blocks, windows, num, num_dx=None):
+        num_dx = num_dx or num
+        return check("ssd_grid", what, [ssd_grid(blocks, windows, num, num_dx)],
+                     [ssd_grid_ref(blocks, windows, num, num_dx)],
+                     f"blocks={tuple(blocks.shape)} windows={tuple(windows.shape)} "
+                     f"num {num}x{num_dx}")[0]
 
     def sub_block_windows(ctu_win, base, r):
         """partition.base_grid_search's operands: the (base x base) blocks
@@ -699,6 +759,7 @@ def main() -> int:
     p_win = motion.extract_aligned_windows(p_padded, (motion.PAD_L, motion.PAD_L), grid,
                                            64, 64 + 2 * SEARCH_RANGE)
     default_layouts = EncodeConfig().pu_layouts
+    lists8 = partition._pu_lists(default_layouts, 8)
     lists16 = partition._pu_lists(default_layouts, 16)
     lists32 = partition._pu_lists(default_layouts[:4], 32)       # quarter needs base 16
     dec16 = check_b15("1080p base 16, default layouts", b_src, p_win, 16, lists16)
@@ -707,6 +768,7 @@ def main() -> int:
     mv8, _ = partition._argmin_grid(g8, SEARCH_RANGE)                      # (n, 8, 8, 2)
     del g8
     check_b14("1080p base 16", b_src, p_win, 16)
+    check_b14("1080p base 32", b_src, p_win, 32)
     # The quarter layout's PUs are the 16 base-16 tiles (lists 9..24).
     q0 = len(lists16) - 17
     starts16 = tile_offsets(16, dec16[:, q0:q0 + 16, :2])
@@ -737,9 +799,10 @@ def main() -> int:
         tiles = ctu_mod.split_blocks(b_src, b).contiguous()
         check_b12(f"1080p b={b} on gathered windows at the searched MVs", tiles,
                   motion.extract_windows(p_padded, starts, b + 7))
-    b8_r16 = sub_block_windows(p_win, 16, 16)
+    b8_r16, b8_8_r16 = sub_block_windows(p_win, 16, 16), sub_block_windows(p_win, 8, 16)
     for base, r in ((16, 16), (16, SEARCH_RANGE), (8, 16)):
-        blocks, wins = b8_r16 if (base, r) == (16, 16) else sub_block_windows(p_win, base, r)
+        blocks, wins = {(16, 16): b8_r16, (8, 16): b8_8_r16}.get((base, r)) \
+            or sub_block_windows(p_win, base, r)
         check_b8(f"1080p {base}x{base} blocks, R={r}", blocks, wins, 2 * r + 1)
     check_b8("1080p CTUs, R=32", b_src, p_win, 2 * SEARCH_RANGE + 1)
     # Constant inputs: every candidate and every fraction ties.
@@ -853,6 +916,23 @@ def main() -> int:
         for num_b9 in (1, 7, 17, 33, 65):
             check_b9(f"b={b} num={num_b9}, unaligned strided windows", b_src[:8, :b, :b]
                      .contiguous(), odd_rows[:, 1:, 3:3 + b + num_b9 - 1], num_b9)
+    # B8 on the same windows (also num_dy != num_dx), on the pyramid's two
+    # levels, and on windows up to 256 wide (past the TPU kernel's 128),
+    # which tile the m and n ranges over blocks.
+    for b in (8, 16, 32, 64):
+        for num_b8 in (1, 7, 17, 33, 65):
+            blocks_b8 = b_src[:8, :b, :b].contiguous()
+            win_b8 = odd_rows[:, 1:, 3:3 + b + num_b8 - 1]
+            check_b8(f"b={b} num={num_b8}, unaligned strided windows", blocks_b8, win_b8,
+                     num_b8)
+            check_b8(f"b={b} num={max(1, num_b8 // 2)}x{num_b8}, unaligned strided windows",
+                     blocks_b8, win_b8, max(1, num_b8 // 2), num_b8)
+    check_b8("1080p pyramid coarse level, 510 16x16 blocks", b9_src_c, b9_win_c, 17)
+    check_b8("1080p pyramid fine level, 510 CTUs", b_src, b9_win_f, 7)
+    wide_win = yuv_ref0.y.unfold(0, 256, 64).unfold(1, 256, 64)[:8, :8].reshape(64, 256, 256)
+    for b, num_dy, num_dx in ((8, 249, 249), (64, 193, 193), (64, 129, 129), (16, 150, 97)):
+        check_b8(f"b={b} windows {b + num_dy - 1}x{b + num_dx - 1}, 64 blocks",
+                 b_src[:64, :b, :b].contiguous(), wide_win, num_dy, num_dx)
 
     def win128_of(plane, g):
         """search_mv's operand: the gathered 128x128 windows at R = 32."""
@@ -1021,8 +1101,10 @@ def main() -> int:
                                                (0, k_b * k_b - 1), tuple(range(0, k_b * k_b, 3)))
         for r in (1, 2, 31, 32):
             o = SEARCH_RANGE - r
-            check_b15(f"R={r}, default and non-rectangular lists", b_src[:64],
-                      p_win[:64, o:o + 64 + 2 * r, o:o + 64 + 2 * r], base, lists_b)
+            win_r = p_win[:64, o:o + 64 + 2 * r, o:o + 64 + 2 * r]
+            check_b15(f"R={r}, default and non-rectangular lists", b_src[:64], win_r, base,
+                      lists_b)
+            check_b14(f"R={r}, 64 CTUs", b_src[:64], win_r, base)
 
     bad = {k: v for k, v in err.items() if v}
     if bad:
@@ -1590,6 +1672,21 @@ def main() -> int:
         "base_grids_ctu 510 CTUs, base 16": (
             median_ms(lambda: base_grids_ctu(b_src, p_win, 16), calls=10),
             median_ms(lambda: base_grids_ctu_ref(b_src, p_win, 16))),
+        "base_grids_ctu 510 CTUs, base 32": (
+            median_ms(lambda: base_grids_ctu(b_src, p_win, 32), calls=10),
+            median_ms(lambda: base_grids_ctu_ref(b_src, p_win, 32))),
+        "base_layout_decide 510 CTUs, base 8": (
+            median_ms(lambda: base_layout_decide(b_src, p_win, 8, lists8), calls=10),
+            median_ms(lambda: base_layout_decide_ref(b_src, p_win, 8, lists8))),
+        "ssd_grid 32640 8x8 blocks, R=16": (
+            median_ms(lambda: ssd_grid(*b8_8_r16, 33, 33), calls=10),
+            median_ms(lambda: ssd_grid_ref(*b8_8_r16, 33, 33))),
+        "ssd_grid 510 16x16 decimated blocks, num 17 (pyramid coarse level)": (
+            median_ms(lambda: ssd_grid(b9_src_c, b9_win_c, 17, 17), calls=10),
+            median_ms(lambda: ssd_grid_ref(b9_src_c, b9_win_c, 17, 17))),
+        "ssd_grid 510 CTUs, num 7 (pyramid fine level)": (
+            median_ms(lambda: ssd_grid(b_src, b9_win_f, 7, 7), calls=10),
+            median_ms(lambda: ssd_grid_ref(b_src, b9_win_f, 7, 7))),
         "ssd_grid 8160 16x16 blocks, R=32": (
             median_ms(lambda: ssd_grid(*b8_r32, 65, 65), calls=10),
             median_ms(lambda: ssd_grid_ref(*b8_r32, 65, 65))),
@@ -1671,7 +1768,9 @@ def main() -> int:
         log(f"{tag} {what}: bound {b_ms:.4f} ms (packed, at {INT_INSTR_PER_S / 1e12:.1f} T "
             f"instructions/s); design floor {floor:.4f} ms (its VABSDIFF4s at the card's "
             f"vabsdiff4 rate); kernel {k_ms:.4f} ms, at {floor / k_ms:.3f} of the floor")
-    for what, base, k_ms in (("base_layout_decide 510 CTUs, base 16", 16,
+    for what, base, k_ms in (("base_layout_decide 510 CTUs, base 8", 8,
+                              more["base_layout_decide 510 CTUs, base 8"][0]),
+                             ("base_layout_decide 510 CTUs, base 16", 16,
                               times["base_layout_decide"][0]),
                              ("base_layout_decide 510 CTUs, base 32", 32,
                               more["base_layout_decide 510 CTUs, base 32"][0]),
@@ -1681,6 +1780,40 @@ def main() -> int:
         floor = prods * 2 * 16 * 8 * 32 / (mma_tops * 1e12) * 1e3
         log(f"{tag} {what}: {prods} m16n8k32 products, design floor {floor:.4f} ms at "
             f"mma.sync's own rate; kernel {k_ms:.4f} ms, at {floor / k_ms:.3f} of the floor")
+    # B8 at each path shape and B14 at each base: the m16n8k32 products each
+    # issues (its tiling) at mma.sync's own rate, beside the bound (bytes in
+    # and grids out at 3.35 TB/s, multiply-adds at 1,979 TOP/s).
+    grid_rows = [(f"ssd_grid {name}", blocks, wins, nd, nd, k_ms)
+                 for name, blocks, wins, nd, k_ms in (
+        ("8160 16x16 blocks, R=16", *b8_r16, 33, times["ssd_grid"][0]),
+        ("32640 8x8 blocks, R=16", *b8_8_r16, 33, more["ssd_grid 32640 8x8 blocks, R=16"][0]),
+        ("510 16x16 decimated blocks, num 17 (pyramid coarse)", b9_src_c, b9_win_c, 17,
+         more["ssd_grid 510 16x16 decimated blocks, num 17 (pyramid coarse level)"][0]),
+        ("510 CTUs, num 7 (pyramid fine)", b_src, b9_win_f, 7,
+         more["ssd_grid 510 CTUs, num 7 (pyramid fine level)"][0]),
+        ("8160 16x16 blocks, R=32", *b8_r32, 65, more["ssd_grid 8160 16x16 blocks, R=32"][0]),
+        ("510 CTUs, R=32", b_src, p_win, 65, more["ssd_grid 510 CTUs, R=32"][0]))]
+    for what, blocks, wins, ndy, ndx, k_ms in grid_rows:
+        nb, b = blocks.shape[0], blocks.shape[-1]
+        prods = b8_products(nb, b, ndy, ndx)
+        plan = b8_plan(b, nb, ndy, ndx)
+        b_ms, b_by = bound(nbytes(blocks, wins) + nb * ndy * ndx * 4, 2 * nb * b * b * ndy * ndx)
+        floor = prods * 2 * 16 * 8 * 32 / (mma_tops * 1e12) * 1e3
+        log(f"{tag} {what}: {prods} m16n8k32 products ({plan['sb']} blocks of {plan['mb']} m "
+            f"tiles x {plan['ntb']} n tiles a thread block, {plan['smem']} B), design floor "
+            f"{floor:.4f} ms at mma.sync's own rate; bound {b_ms:.4f} ms ({b_by}); kernel "
+            f"{k_ms:.4f} ms, at {floor / k_ms:.3f} of the floor and {b_ms / k_ms:.3f} of the bound")
+    for base, k_ms in ((8, times["base_grids_ctu"][0]),
+                       (16, more["base_grids_ctu 510 CTUs, base 16"][0]),
+                       (32, more["base_grids_ctu 510 CTUs, base 32"][0])):
+        prods = b14_products(n, base, SEARCH_RANGE)
+        b_ms, b_by = bound(nbytes(b_src, p_win) + n * (64 // base) ** 2 * num * num * 4,
+                           2 * n * num * num * 4096)
+        floor = prods * 2 * 16 * 8 * 32 / (mma_tops * 1e12) * 1e3
+        log(f"{tag} base_grids_ctu 510 CTUs, base {base}: {prods} "
+            f"m16n8k32 products, design floor {floor:.4f} ms at mma.sync's own rate; bound "
+            f"{b_ms:.4f} ms ({b_by}); kernel {k_ms:.4f} ms, at {floor / k_ms:.3f} of the floor "
+            f"and {b_ms / k_ms:.3f} of the bound")
 
     sources = {
         "ssd_grid_plane": ("hevcasm_tpu_torch/csrc/ssd_grid_plane.cu",

@@ -17,11 +17,30 @@
 //
 // What bounds them on the H100: the correlation, (2R+1)^2 * 4096
 // multiply-adds per CTU, 8.8 G for a 1920x1088 frame at R = 32; B14 also
-// writes its grids, 138 MB a frame at BASE 16 and 552 MB at BASE 8.
+// writes its grids, 138 MB a frame at BASE 16 and 552 MB at BASE 8 (0.165
+// ms at 3.35 TB/s), which bound it.
 //
-// B14's design: the CUDA-core grid loop of csrc/grid_core.cuh (one int32
-// sum per sub-block column, k x 8 registers a thread, 64 at BASE 8) over
-// the (64 + 2R)^2 CTU windows.
+// B14's design: block (CTU i, m tile) stages the 79 window rows its 16 dy
+// rows read, Z and S as B15 does, and E_pq for every sub-block at once: the
+// column sums of height BASE of w^2 (a thread a column and half of the
+// rows) and their exclusive prefix along each row (a warp a row), so that
+// E_pq[dy][dx] is the difference of two prefix entries BASE apart.  Warp w
+// keeps one sub-block column q = w mod k and loops over its sub-blocks
+// (p, q) (8 of them at BASE 8): C_pq for its m tile and all 9 n tiles on
+// mma.sync m16n8k32 u8 (csrc/ssd_tc_core.cuh narrow_products) against the
+// band of K1's Z from the 16-aligned column o = BASE q rounded down, BW =
+// max(BASE, 16) bytes wide (32 ks - 8 nt in [-24, BW]), each band word
+// ANDed with the mask of the sub-block's columns; then S + E - 2C (8-byte
+// pairs of E read and written, free of bank conflicts) into the warp's 16 x
+// 72 tile in shared memory, and the slab's 16 whole dy rows of 2R + 1 int32
+// (4160 contiguous bytes at R = 32) written by the warp, three 4-byte
+// stores a row contiguous across it; the padded tile rows and columns
+// never leave.  q, o and the mask are the warp's for all its sub-blocks, so one
+// code path serves every column (B15's core instead compiles the column
+// into the warp's loop: at BASE 8 with one band a block that took 1.07 ms
+// a 1080p frame on an H100 at 700 W, against 0.97-1.01 for the CUDA-core
+// loop it replaces; its products took 0.66 ms of it, E 0.25).  The block
+// syncs three times, and the warps' loops run free of each other.
 //
 // B15's design: the grids never leave the block, as on the TPU.
 //   grid_pq = S_pq + E_pq - 2 C_pq,  C_pq[dy][dx] = sum_{y in band p} A_y B_{y,q},
@@ -57,14 +76,40 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "grid_core.cuh"
 #include "ssd_tc_core.cuh"
 
 namespace {
 
 using hevc_tc::CTU;
 using hevc_tc::MAX_R;
-constexpr int WS_B14 = 140;   // B14's staged window row: 8 * 9 + 64 bytes, 35 words
+
+// The exclusive prefix of a row of `count` int32 (count <= 32 PER) in
+// place, by one warp: entry x becomes the sum of entries 0 .. x - 1, for x
+// < count + 1 (the row holds count + 1 entries).
+template <int PER>
+__device__ __forceinline__ void warp_exclusive_prefix(int32_t* row, int count) {
+  const int lane = threadIdx.x & 31;
+  int v[PER], sum = 0;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int x = lane * PER + i;
+    v[i] = x < count ? row[x] : 0;
+    sum += v[i];
+  }
+  int inc = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += o;
+  }
+  int run = inc - sum;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int x = lane * PER + i;
+    if (x <= count) row[x] = run;
+    run += v[i];
+  }
+}
 
 // ---- B15 -----------------------------------------------------------------
 
@@ -288,29 +333,7 @@ decide_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ windo
       }
     }
     __syncthreads();
-    for (int r = warp; r < TILE; r += WARPS) {
-      int32_t* row = s_cs + r * CSS;
-      int v[PER], sum = 0;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int x = lane * PER + i;
-        v[i] = x < CW ? row[x] : 0;
-        sum += v[i];
-      }
-      int inc = sum;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int o = __shfl_up_sync(0xffffffffu, inc, off);
-        if (lane >= off) inc += o;
-      }
-      int run = inc - sum;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int x = lane * PER + i;
-        if (x < CSS) row[x] = run;
-        run += v[i];
-      }
-    }
+    for (int r = warp; r < TILE; r += WARPS) warp_exclusive_prefix<PER>(s_cs + r * CSS, CW);
     __syncthreads();
     for (int item = tid; item < K * CAND; item += THREADS) {
       const int q = item / CAND, c = item - q * CAND;
@@ -400,25 +423,189 @@ __global__ void decode_keys_kernel(const unsigned long long* __restrict__ keys,
 
 // ---- B14 -----------------------------------------------------------------
 
-// The grid kernel over n CTUs and their (64 + 2R)^2 windows.
-cudaError_t launch_grids(int base, int n, int radius, cudaStream_t stream,
-                         const uint8_t* src, const uint8_t* windows, int ctu_stride,
-                         int row_stride, int32_t* grids) {
-  const int num = 2 * radius + 1;
-  const int wide = CTU + 2 * radius;
-  switch (base) {
-    case 8:
-      return hevc_grid::launch_grid<CTU, 8, WS_B14>(n, src, windows, ctu_stride, row_stride,
-                                                    wide, wide, num, num, grids, stream);
-    case 16:
-      return hevc_grid::launch_grid<CTU, 16, WS_B14>(n, src, windows, ctu_stride, row_stride,
-                                                     wide, wide, num, num, grids, stream);
-    case 32:
-      return hevc_grid::launch_grid<CTU, 32, WS_B14>(n, src, windows, ctu_stride, row_stride,
-                                                     wide, wide, num, num, grids, stream);
-    default:
-      return cudaErrorInvalidValue;
+template <int BASE>
+struct B14Geometry {
+  static constexpr int K = CTU / BASE;
+  static constexpr int WARPS = K * K < 8 ? K * K : 8;       // warp w keeps column w % k
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BW = BASE < 16 ? 16 : BASE;         // the band, from a 16-aligned column
+  static constexpr int NB = BW / 8 + 2;                    // band words a lane
+  static constexpr int KS = 3;                             // k steps: 2R + BW <= 96 columns
+  static constexpr int ROWS = TILE + CTU - 1;              // window rows staged
+  static constexpr int WIN = (ROWS * hevc_tc::WS + 15) / 16 * 16;
+  static constexpr int EROWS = TILE + CTU - BASE;          // E rows: BASE p + dy, dy < 16
+  // E's rows: the prefix of 128 column sums (129 entries), 136 apart, so
+  // that the epilogue's 8-byte loads (lane (g, t): row g, column 2t) hit
+  // every bank once a half-warp.
+  static constexpr int ES = 2 * CTU + 8;
+  static constexpr int EBYTES = (EROWS * ES * 4 + 15) / 16 * 16;
+  static constexpr int TW = 8 * hevc_tc::MAX_NT;           // a warp's tile: 16 x 72 int32
+  static constexpr int OUT = WARPS * TILE * TW * 4;
+  static constexpr int BYTES = WIN + hevc_tc::Z_BYTES + EBYTES + OUT + K * K * 4;
+  static_assert(WARPS % K == 0, "a warp keeps one sub-block column");
+  static_assert(32 * KS >= hevc_tc::MAX_NUM + BW - 1, "the band's k steps");
+  static_assert(hevc_tc::MAX_NUM <= 96, "a row of the slab is three warp stores");
+  static_assert(CTU * CTU <= OUT, "the source is staged in the warps' tiles");
+  static_assert(ES % 32 == 8 && TW % 2 == 0 && BASE % 2 == 0, "8-byte pairs in E and tiles");
+};
+
+// Block (CTU i, m tile): grids[i][p][q][dy][dx] for the tile's dy rows.
+template <int BASE>
+__global__ void __launch_bounds__(B14Geometry<BASE>::THREADS)
+base_grids_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ windows,
+                  int ctu_stride, int row_stride, int radius, int32_t* __restrict__ grids) {
+  using namespace hevc_tc;
+  using G = B14Geometry<BASE>;
+  constexpr int K = G::K, THREADS = G::THREADS, WARPS = G::WARPS, TW = G::TW, ES = G::ES;
+  constexpr int STAGE = 8;                                 // window words a thread loads at once
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* s_win = smem;
+  uint2* s_z = reinterpret_cast<uint2*>(smem + G::WIN);
+  int32_t* s_e = reinterpret_cast<int32_t*>(smem + G::WIN + Z_BYTES);
+  int32_t* s_out = reinterpret_cast<int32_t*>(smem + G::WIN + Z_BYTES + G::EBYTES);
+  int32_t* s_sum = reinterpret_cast<int32_t*>(smem + G::WIN + Z_BYTES + G::EBYTES + G::OUT);
+
+  const int num = 2 * radius + 1, wide = CTU + 2 * radius;
+  const int ks_count = (num + G::BW - 1 + 31) / 32, nt_count = (num + 7) / 8;
+  const int ctu = blockIdx.x, dy0 = TILE * blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // The CTU's words into the warps' tiles (free until the products end) and
+  // the window rows dy0 .. dy0 + 78, WS bytes each; bytes past the window
+  // are 0 (they feed only dy or dx >= 2R + 1).
+  uint32_t* staged = reinterpret_cast<uint32_t*>(s_out);
+  const uint8_t* s = src + static_cast<size_t>(ctu) * CTU * CTU;
+  for (int i = tid; i < CTU * CTU / 4; i += THREADS) staged[i] = load_word(s + 4 * i);
+  const uint8_t* w = windows + static_cast<size_t>(ctu) * ctu_stride;
+  for (int i0 = tid; i0 < G::ROWS * (WS / 4); i0 += STAGE * THREADS) {
+    uint32_t v[STAGE];
+#pragma unroll
+    for (int u = 0; u < STAGE; ++u) {
+      const int i = i0 + u * THREADS;
+      const int r = i / (WS / 4), x = 4 * (i - r * (WS / 4));
+      v[u] = 0;
+      if (i < G::ROWS * (WS / 4) && dy0 + r < wide && x < wide) {
+        const uint8_t* rp = w + static_cast<size_t>(dy0 + r) * row_stride + x;
+        if (x + 4 <= wide) {
+          v[u] = load_word(rp);
+        } else {
+          for (int b = 0; b < wide - x; ++b) v[u] |= static_cast<uint32_t>(rp[b]) << (8 * b);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < STAGE; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i < G::ROWS * (WS / 4)) reinterpret_cast<uint32_t*>(s_win)[i] = v[u];
+    }
   }
+  __syncthreads();
+  // Z and S (a warp a sub-block); E's column sums, a thread a column and a
+  // run of rows: cs[r][c] = sum_{y < BASE} w[r + y][c]^2.
+  stage_z(staged, s_z);
+  for (int pq = warp; pq < K * K; pq += WARPS) {
+    const int p = pq / K, q = pq % K;
+    int acc = 0;
+    for (int i = lane; i < BASE * BASE / 4; i += 32) {
+      const int y = p * BASE + i / (BASE / 4), x = q * (BASE / 4) + i % (BASE / 4);
+      acc += sq_bytes(staged[y * (CTU / 4) + x]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) s_sum[pq] = acc;
+  }
+  constexpr int SEGS = THREADS / (2 * CTU) > 1 ? THREADS / (2 * CTU) : 1;
+  constexpr int SEG = (G::EROWS + SEGS - 1) / SEGS;
+  for (int item = tid; item < 2 * CTU * SEGS; item += THREADS) {
+    const int c = item % (2 * CTU), r0 = item / (2 * CTU) * SEG;
+    const int r1 = r0 + SEG < G::EROWS ? r0 + SEG : G::EROWS;
+    const uint8_t* col = s_win + c;
+    int cs = 0;
+#pragma unroll
+    for (int y = 0; y < BASE; ++y) {
+      const int v = col[(r0 + y) * WS];
+      cs += v * v;
+    }
+    s_e[r0 * ES + c] = cs;
+    for (int r = r0 + 1; r < r1; ++r) {
+      const int a = col[(r + BASE - 1) * WS], b = col[(r - 1) * WS];
+      cs += a * a - b * b;
+      s_e[r * ES + c] = cs;
+    }
+  }
+  __syncthreads();
+  for (int r = warp; r < G::EROWS; r += WARPS) warp_exclusive_prefix<5>(s_e + r * ES, 2 * CTU);
+  __syncthreads();
+
+  // The warp's sub-blocks (p, q), q = warp % k: the band from column o, its
+  // bytes of the sub-block's columns [lo, lo + BASE) kept.
+  const int q = warp % K, o = BASE * q / 16 * 16, lo = BASE * q - o;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t mask[G::NB];
+#pragma unroll
+  for (int i = 0; i < G::NB; ++i) {
+    mask[i] = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int c = -8 + 8 * i + 4 * t - g + b;
+      if (c >= lo && c < lo + BASE) mask[i] |= 0xFFu << (8 * b);
+    }
+  }
+  const BandLane bl = band_lane(lane);
+  const uint8_t* a_lane = s_win + (lane & 15) * WS + 16 * (lane >> 4) + o;
+  const uint2* z_lane = s_z + bl.zq + 2 * (o / 8);
+  int32_t* tile = s_out + warp * TILE * TW;
+  const int rows = min(TILE, num - dy0);
+  for (int pq = warp; pq < K * K; pq += WARPS) {
+    const int p = pq / K;
+    int acc[MAX_NT][4];
+    narrow_products<G::BW, BASE, G::KS, WS, ZW, true>(
+        acc, a_lane + BASE * p * WS, z_lane + BASE * p * ZW, bl.zsh, mask, ks_count, nt_count);
+    // S + E - 2C at the candidates, two a lane at once: accumulators 2h and
+    // 2h + 1 of n tile nt hold dy = dy0 + g + 8h, dx = 8 nt + 2t and dx + 1
+    // (the tiles' padded rows and columns are dropped; a pair's second
+    // column, past the last candidate, is written and never copied); E_pq
+    // is the difference of the prefix of row BASE p + dy - dy0 at BASE q +
+    // dx + BASE and at BASE q + dx.
+    const int s_pq = s_sum[pq];
+    const int32_t* e = s_e + BASE * p * ES + BASE * q;
+#pragma unroll
+    for (int nt = 0; nt < MAX_NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = g + 8 * h, dx = 8 * nt + 2 * t;
+        if (r < rows && dx < num) {
+          const int2 e0 = *reinterpret_cast<const int2*>(e + r * ES + dx);
+          const int2 e1 = *reinterpret_cast<const int2*>(e + r * ES + dx + BASE);
+          *reinterpret_cast<int2*>(tile + r * TW + dx) =
+              make_int2(s_pq + e1.x - e0.x - 2 * acc[nt][2 * h],
+                        s_pq + e1.y - e0.y - 2 * acc[nt][2 * h + 1]);
+        }
+      }
+    __syncwarp();
+    int32_t* out = grids + ((static_cast<size_t>(ctu) * K * K + pq) * num + dy0) * num;
+#pragma unroll 4
+    for (int r = 0; r < rows; ++r)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        if (lane + 32 * k < num) out[r * num + lane + 32 * k] = tile[r * TW + lane + 32 * k];
+    __syncwarp();
+  }
+}
+
+template <int BASE>
+cudaError_t launch_grids(int n, int radius, cudaStream_t stream, const uint8_t* src,
+                         const uint8_t* windows, int ctu_stride, int row_stride,
+                         int32_t* grids) {
+  using G = B14Geometry<BASE>;
+  const int mt = (2 * radius + 1 + 15) / 16;
+  auto kernel = base_grids_kernel<BASE>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         G::BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(n, mt), G::THREADS, G::BYTES, stream>>>(src, windows, ctu_stride, row_stride,
+                                                       radius, grids);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -431,11 +618,16 @@ extern "C" int hevc_base_grids(const uint8_t* src, const uint8_t* windows, int c
                                int row_stride, int32_t* grids, int n, int base, int radius,
                                int device, void* stream) {
   if (radius < 1 || radius > MAX_R) return cudaErrorInvalidValue;
+  if (base != 8 && base != 16 && base != 32) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n == 0) return cudaGetLastError();
-  return launch_grids(base, n, radius, static_cast<cudaStream_t>(stream), src, windows,
-                      ctu_stride, row_stride, grids);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (base) {
+    case 8: return launch_grids<8>(n, radius, s, src, windows, ctu_stride, row_stride, grids);
+    case 16: return launch_grids<16>(n, radius, s, src, windows, ctu_stride, row_stride, grids);
+    default: return launch_grids<32>(n, radius, s, src, windows, ctu_stride, row_stride, grids);
+  }
 }
 
 // B15.  src and windows as for B14; pu_table int32 [offsets (num_pu + 1),

@@ -1,7 +1,7 @@
 // The u8 tensor-core core of the exact SSD grids, shared by K1/B7
 // (csrc/ssd_grid_plane.cu), B17 (csrc/search_mv.cu), B19 (csrc/mega.cu) and,
-// for its fragments, B15 (csrc/base_grids.cu); B9 (csrc/sad_grid.cu) takes
-// its load_word.
+// for its fragments, B14/B15 (csrc/base_grids.cu) and B8 (csrc/ssd_grid.cu);
+// B9 (csrc/sad_grid.cu) takes its load_word.
 //
 // For a 64x64 source block s and a window w, the correlation of the SSD
 //
@@ -23,6 +23,15 @@
 // fragment is zero, and its product skipped, unless its band meets the
 // source columns a kernel sums: K1, B17 and B19 all 64 (d in [-24, 64]),
 // B15 one sub-block column.
+//
+// Narrow bands (narrow_products, after the whole-CTU search): B8
+// (csrc/ssd_grid.cu) and B14 (csrc/base_grids.cu) multiply one m16 tile of
+// dy at a time against a band BW bytes wide whose first column is 16-byte
+// aligned in the staged window: B8's b x b block (BW = b, Z_y narrow: s[y]
+// at byte 16 of b / 4 + 8 word pairs, band_lane<16>), and B14's sub-block
+// (BW = max(BASE, 16), K1's Z at a word offset, each word ANDed with the
+// mask of the sub-block's columns).  A lane needs BW / 8 + 2 band words, and
+// a fragment is skipped unless 32 ks - 8 nt lies in [-24, BW].
 //
 // The whole-CTU search (second half of this file) is the block-level form
 // that K1/B7, B17 and B19 share: the source staged once (stage_source:
@@ -105,15 +114,18 @@ __device__ __forceinline__ void stage_z(const uint32_t* staged, uint2* s_z) {
 }
 
 // This lane's place in Z_y: word i of its band words is the pair s_z[y][zq
-// + 2i] shifted right by zsh bits.
+// + 2i] shifted right by zsh bits.  ZOFF is the byte of Z_y that holds
+// s[y][0]: OFF here, 16 in B8's narrow rows (csrc/ssd_grid.cu).
 struct BandLane {
   int zq;
   unsigned zsh;
 };
 
+template <int ZOFF = OFF>
 __device__ __forceinline__ BandLane band_lane(int lane) {
+  static_assert(ZOFF % 4 == 0 && ZOFF >= 16, "a lane's first byte is ZOFF - 15");
   const int g = lane >> 2, t = lane & 3;
-  return {((OFF + 4 * t - g) >> 2) - 2, static_cast<unsigned>((OFF + 4 * t - g) & 3) * 8};
+  return {((ZOFF + 4 * t - g) >> 2) - 2, static_cast<unsigned>((ZOFF + 4 * t - g) & 3) * 8};
 }
 
 __device__ __forceinline__ uint32_t band_word(uint2 pair, unsigned zsh) {
@@ -353,6 +365,73 @@ __device__ __forceinline__ unsigned long long block_min_key(unsigned long long k
   key = s_keys[0];
   for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) key = min_key(key, s_keys[w]);
   return key;
+}
+
+// ---- Narrow bands (B8, B14) --------------------------------------------------
+
+// The fragment of k step ks and n tile nt meets a band BW bytes wide: 32 ks
+// - 8 nt in [-24, BW] (its rows j and columns dx give j - dx in [d - 7, d +
+// 31], which meets [0, BW - 1] iff -31 <= d <= BW + 6, d a multiple of 8).
+template <int BW>
+__host__ __device__ constexpr bool narrow_meets(int ks, int nt) {
+  return 32 * ks - 8 * nt >= -24 && 32 * ks - 8 * nt <= BW;
+}
+
+template <int BW>
+__host__ __device__ constexpr bool narrow_step(int ks) {
+  bool any = false;
+  for (int nt = 0; nt < MAX_NT; ++nt) any |= narrow_meets<BW>(ks, nt);
+  return any;
+}
+
+// C += the products of one m16 tile of dy over ROWS source rows: a_lane is
+// this lane's ldmatrix address at source row 0 and k step 0 (window rows
+// WSX bytes apart), z_lane its first Z pair of row 0 (Z rows ZWX pairs
+// apart): word i of row y is band_word(z_lane[y ZWX + 2i], zsh), ANDed with
+// mask[i] when MASKED.  b0 is zero below d = -8 and b1 above d = BW - 16.
+// acc is zeroed first; only k steps < ks_count and n tiles < nt_count run.
+template <int BW, int ROWS, int KS, int WSX, int ZWX, bool MASKED>
+__device__ __forceinline__ void narrow_products(int (&acc)[MAX_NT][4], const uint8_t* a_lane,
+                                                const uint2* z_lane, unsigned zsh,
+                                                const uint32_t (&mask)[BW / 8 + 2],
+                                                int ks_count, int nt_count) {
+  constexpr int NB = BW / 8 + 2;
+#pragma unroll
+  for (int nt = 0; nt < MAX_NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0;
+  uint2 zn[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) zn[i] = z_lane[2 * i];
+#pragma unroll 2
+  for (int y = 0; y < ROWS; ++y) {
+    uint32_t wd[NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) wd[i] = MASKED ? band_word(zn[i], zsh) & mask[i]
+                                                : band_word(zn[i], zsh);
+    if (y + 1 < ROWS) {
+      const uint2* zr = z_lane + (y + 1) * ZWX;
+#pragma unroll
+      for (int i = 0; i < NB; ++i) zn[i] = zr[2 * i];
+    }
+    const uint8_t* ar = a_lane + y * WSX;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if (!narrow_step<BW>(ks)) continue;
+      if (ks >= ks_count) break;
+      uint32_t a[4];
+      ldmatrix_x4(a, ar + 32 * ks);
+#pragma unroll
+      for (int nt = 0; nt < MAX_NT; ++nt) {
+        if (!narrow_meets<BW>(ks, nt)) continue;
+        if (nt >= nt_count) break;
+        const int d = 32 * ks - 8 * nt;
+        const uint32_t b0 = d >= -8 ? wd[(d + 8) / 8] : 0u;
+        const uint32_t b1 = d <= BW - 16 ? wd[(d + 24) / 8] : 0u;
+        mma_u8(acc[nt], a, b0, b1);
+      }
+    }
+  }
 }
 
 }  // namespace hevc_tc

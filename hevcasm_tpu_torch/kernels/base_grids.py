@@ -4,11 +4,12 @@ per-PU decision over them.
 ``base_grids_ctu`` replaces the TPU kernel
 ``hevcasm_tpu/kernels/search_pallas.py`` ``base_grids_ctu`` and
 ``base_layout_decide`` the TPU kernel ``base_layout_decide`` (both
-``_base_grids_kernel``).  Both are C entries of ``csrc/base_grids.cu``:
-B14 runs the CUDA-core grid loop of ``csrc/grid_core.cuh``, B15 the u8
-tensor-core products of ``csrc/ssd_tc_core.cuh`` with the grids kept in
-shared memory and the decision in the same kernel, so no grid reaches
-device memory; the file's header says what bounds each on the card.
+``_base_grids_kernel``).  Both are C entries of ``csrc/base_grids.cu`` on
+the u8 tensor-core products of ``csrc/ssd_tc_core.cuh``: B14 a sub-block
+at a time (``narrow_products``), each warp writing its sub-blocks' grids;
+B15 per sub-block column with the grids kept in shared memory and the
+decision in the same kernel, so no grid of it reaches device memory; the
+file's header says what bounds each on the card.
 ``base_layout_decide_fc`` replaces the TPU kernel of that name
 (``_fc_decide_kernel``), which has B15's contract at base 16 and gives its
 results bit for bit; its fine/coarse split of dx into 16c + f packs the

@@ -241,9 +241,9 @@ def test_tensor_work_against_k1s(base, low, high):
     assert low <= per_row / 26 <= high
 
 
-@pytest.mark.parametrize("kernel", ["B9", "B15", "K1", "B17", "B19"])
+@pytest.mark.parametrize("kernel", ["B9", "B15", "B14", "B8", "K1", "B17", "B19"])
 def test_phase_cost_ablations_still_match_the_kernel_sources(kernel):
-    # tools/b9_b15_phase_costs.py (B9, B15) and tools/k1_phase_costs.py (K1,
+    # tools/b9_b15_phase_costs.py (B9, B15, B14, B8) and tools/k1_phase_costs.py (K1,
     # B17, B19, whose edits name the file: the kernel's source or the shared
     # ssd_tc_core.cuh) edit the sources by text; each edit must still find
     # its text once, or the tool stops on the card.
@@ -251,7 +251,7 @@ def test_phase_cost_ablations_still_match_the_kernel_sources(kernel):
 
     from tools import b9_b15_phase_costs, k1_phase_costs
 
-    tool = b9_b15_phase_costs if kernel in ("B9", "B15") else k1_phase_costs
+    tool = b9_b15_phase_costs if kernel in ("B9", "B15", "B14", "B8") else k1_phase_costs
     source, entry, variants = tool.ABLATIONS[kernel]
     csrc = Path(base_grids.build.CSRC)
     assert f'extern "C" int {entry}(' in (csrc / source).read_text()

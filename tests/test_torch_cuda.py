@@ -181,8 +181,13 @@ def test_full_search_multi_launches_b7_and_matches_the_grid_route(cuda, joint):
 
 @pytest.mark.parametrize("b,n,ndy,ndx,extra", [
     (8, 37, 65, 65, 0), (16, 21, 65, 65, 0), (16, 50, 33, 33, 3), (32, 5, 17, 9, 0),
-    (64, 3, 65, 65, 0), (64, 2, 129, 129, 0), (8, 9, 5, 7, 2), (16, 8160, 33, 33, 0)])
+    (64, 3, 65, 65, 0), (64, 2, 129, 129, 0), (8, 9, 5, 7, 2), (16, 8160, 33, 33, 0),
+    (8, 32640, 33, 33, 0), (16, 510, 17, 17, 0), (64, 510, 7, 7, 0), (8, 3, 249, 249, 0),
+    (64, 2, 193, 150, 1), (16, 7, 97, 161, 0)])
 def test_b8_matches_plain(cuda, b, n, ndy, ndx, extra):
+    # The path shapes (the PU decision's 8160 16x16 and 32640 8x8 blocks at
+    # R = 16, the pyramid's two levels) and windows up to 256 wide, which
+    # tile the m and n ranges over blocks.
     rng = np.random.default_rng(b + n + ndy)
     src = random_u8(rng, (n, b, b), cuda)
     win = random_u8(rng, (n, b + ndy - 1 + extra, b + ndx - 1 + extra + 11), cuda)
@@ -204,6 +209,32 @@ def test_b8_constant_window_ties_and_largest_sum_fits_int32(cuda):
     got = search.ssd_grid(zeros, torch.full((2, 80, 80), 255, dtype=torch.uint8, device=cuda),
                           17, 17)
     assert int(got.min()) == int(got.max()) == 4096 * 255 * 255
+
+
+@pytest.mark.parametrize("num", [1, 7, 17, 33, 65])
+@pytest.mark.parametrize("b", [8, 16, 32, 64])
+def test_b8_tensor_core_tiling_at_every_block_side_and_count(cuda, b, num):
+    # Windows cut from wider rows at an odd byte offset: unaligned rows and
+    # base pointers; num_dy != num_dx as well.
+    rng = np.random.default_rng(11 * b + num)
+    n = 5
+    src = random_u8(rng, (n, b, b), cuda)
+    wide = random_u8(rng, (n, b + num + 2, b + num + 12), cuda)
+    win = wide[:, 1:, 3:3 + b + num - 1]
+    for ndy, ndx in ((num, num), (num, max(1, num - 6)), (max(1, num // 2), num)):
+        before = search.ssd_grid.launches
+        got = search.ssd_grid(src, win, ndy, ndx)
+        assert search.ssd_grid.launches == before + 1
+        assert_bit_equal([got], [search.ssd_grid_ref(src, win, ndy, ndx)])
+
+
+@pytest.mark.parametrize("b", [8, 16, 32, 64])
+def test_b8_extremes_at_every_block_side(cuda, b):
+    for sv, wv in ((0, 255), (255, 0), (255, 255)):
+        src = torch.full((3, b, b), sv, dtype=torch.uint8, device=cuda)
+        win = torch.full((3, b + 64, b + 64), wv, dtype=torch.uint8, device=cuda)
+        got = search.ssd_grid(src, win, 65, 65)
+        assert int(got.min()) == int(got.max()) == b * b * (sv - wv) ** 2
 
 
 def test_b8_rejects_what_it_does_not_take(cuda):
@@ -254,7 +285,7 @@ def test_b9_constant_window_ties_and_largest_sum(cuda):
 
 @pytest.mark.parametrize("b", [8, 16, 32, 64])
 def test_b8_b9_agree_where_the_square_is_the_absolute_value(cuda, b):
-    # On 0/1 pixels d^2 == |d|: the grid core's two metrics give one grid.
+    # On 0/1 pixels d^2 == |d|: B8's and B9's grids are one grid.
     rng = np.random.default_rng(b)
     src = torch.as_tensor(rng.integers(0, 2, (7, b, b), dtype=np.uint8), device=cuda)
     win = torch.as_tensor(rng.integers(0, 2, (7, b + 32, b + 32), dtype=np.uint8), device=cuda)
@@ -681,8 +712,11 @@ def b14_case(n, r, seed, device, strided=False):
 
 @pytest.mark.parametrize("base", [8, 16, 32])
 @pytest.mark.parametrize("n,r,strided", [(3, 32, False), (2, 8, True), (1, 1, False),
-                                         (7, 17, False)])
+                                         (7, 17, False), (2, 2, True), (3, 31, True),
+                                         (510, 32, False)])
 def test_b14_matches_plain(cuda, base, n, r, strided):
+    # R = 1, 2, 31 and 32: one m tile and n tile, a part k step, the edges
+    # of the tensor-core tiling; 510 CTUs: a 1080p frame.
     src, win = b14_case(n, r, base + n + r, cuda, strided)
     before = base_grids.base_grids_ctu.launches
     got = base_grids.base_grids_ctu(src, win, base)
@@ -735,6 +769,15 @@ def test_b14_b15_constant_window_ties_every_candidate(cuda):
     assert_bit_equal([got], [base_grids.base_layout_decide_ref(src, win, 16, pu_lists(16))])
     assert_bit_equal([base_grids.base_grids_ctu(src, win, 32)],
                      [base_grids.base_grids_ctu_ref(src, win, 32)])
+
+
+@pytest.mark.parametrize("base", [8, 16, 32])
+def test_b14_extremes_are_exact(cuda, base):
+    for sv, wv in ((0, 255), (255, 0), (255, 255)):
+        src = torch.full((2, 64, 64), sv, dtype=torch.uint8, device=cuda)
+        win = torch.full((2, 128, 128), wv, dtype=torch.uint8, device=cuda)
+        got = base_grids.base_grids_ctu(src, win, base)
+        assert int(got.min()) == int(got.max()) == base * base * (sv - wv) ** 2
 
 
 def test_b15_largest_sum_fits_int32(cuda):

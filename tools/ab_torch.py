@@ -16,13 +16,17 @@ min and max) of 20 samples of
 * the multi-reference P frame, encode_inter_frame_multiref on chip_smoke's
   multiref pan with k = 4 and the same config;
 * the luma P frame under me_metric="sad" (B9 + K2), under search_impl
-  "dma" and "mv" (B17 + K2) and under inter_impl "mega" (B19), and the RDO
-  P frame with pu_decision=True on chip_smoke's structured pan, with the
-  SSD (B15 + B13) and the SAD (B9 + B13) metric;
+  "dma" and "mv" (B17 + K2), under inter_impl "mega" (B19) and under
+  me_strategy "pyramid" (B8 twice + K2), and the RDO P frame with
+  pu_decision=True on chip_smoke's structured pan, with the SSD (B15 + B13)
+  and the SAD (B9 + B13) metric, at R = 16 (B8 + B13) and with all six
+  layouts (pu_amp+8x8: B14 at base 8 + B13);
 * K1 (510 CTUs, R = 32), B7 (the same, k = 4), B10 sad (510 64x64 blocks)
   and sad_multiref (k = 4), B9 (510 CTUs and 8160 16x16 blocks, R = 32,
   and the pyramid's two levels), B15 (base 16 with the 26 default PU
-  lists, and base 32), B14 (base 8), B8 (8160 16x16 blocks, R = 16), B17
+  lists, base 32, and base 8 with the default lists), B14 (bases 8, 16 and
+  32), B8 (8160 16x16 and 32640 8x8 blocks at R = 16, and the pyramid's
+  two levels: 510 decimated 16x16 blocks at num 17, 510 CTUs at num 7), B17
   search_mv and search_mv_dma and B19 (510 CTUs, R = 32, bench content), a
   sample being 10 launches between CUDA events, and torch.cdist(p=1) on
   float32 copies of B10's operands.
@@ -98,23 +102,29 @@ def measure() -> dict:
         win = win.unfold(1, wsub, base).unfold(2, wsub, base).reshape(-1, wsub, wsub)
         return ctu_mod.split_blocks(pan_src, base).contiguous(), win.contiguous()
 
-    b9_16, b8_16 = sub_blocks(16, r), sub_blocks(16, 16)
+    b9_16, b8_16, b8_8 = sub_blocks(16, r), sub_blocks(16, 16), sub_blocks(8, 16)
     coarse_src = motion._downsample4(pan_src).contiguous()
     coarse_win = motion.extract_aligned_windows(
         ctu_mod.pad_frame(motion._downsample4(pan_ref), 8, 8, 8, 8), (0, 0), grid, 16, 32)
     fine_win = motion.extract_windows(p_padded, motion.ctu_positions(*grid, 64, dev) + r
                                       + motion.PAD_L - 3, 70)
     layouts = EncodeConfig().pu_layouts
+    lists8 = partition._pu_lists(layouts, 8)
     lists16 = partition._pu_lists(layouts, 16)
     lists32 = partition._pu_lists(layouts[:4], 32)
     sad_cfg = EncodeConfig(search_range=r, qp=32, inter_impl="fused_dma", me_metric="sad")
     pu_cfg = EncodeConfig(search_range=r, qp=32, pu_decision=True)
     pu_sad_cfg = EncodeConfig(search_range=r, qp=32, pu_decision=True, me_metric="sad")
+    pu_r16_cfg = EncodeConfig(search_range=16, qp=32, pu_decision=True)
+    pu_amp_cfg = EncodeConfig(search_range=r, qp=32, pu_decision=True,
+                              pu_layouts=tuple(partition.PU_LAYOUTS))
     search_cfgs = {"dma": EncodeConfig(search_range=r, qp=32, inter_impl="fused_dma",
                                        search_impl="dma"),
                    "mv": EncodeConfig(search_range=r, qp=32, inter_impl="fused_dma",
                                       search_impl="mv"),
-                   "mega": EncodeConfig(search_range=r, qp=32, inter_impl="mega")}
+                   "mega": EncodeConfig(search_range=r, qp=32, inter_impl="mega"),
+                   "pyramid": EncodeConfig(search_range=r, qp=32, inter_impl="fused_dma",
+                                           me_strategy="pyramid")}
 
     def stats(samples):
         return {"median": statistics.median(samples), "min": samples[0], "max": samples[-1]}
@@ -142,14 +152,24 @@ def measure() -> dict:
             lambda: encode_inter_frame(pan_cur, pan_ref, pu_cfg))),
         "pu_decision_sad_frame_ms": stats(cs.samples_ms(
             lambda: encode_inter_frame(pan_cur, pan_ref, pu_sad_cfg))),
+        "pu_decision_r16_frame_ms": stats(cs.samples_ms(
+            lambda: encode_inter_frame(pan_cur, pan_ref, pu_r16_cfg))),
+        "pu_amp_8x8_frame_ms": stats(cs.samples_ms(
+            lambda: encode_inter_frame(pan_cur, pan_ref, pu_amp_cfg))),
         "b9_510_ctus_r32_ms": kernel_ms(lambda: sad_grid(pan_src, p_win, num, num)),
         "b9_8160_16x16_r32_ms": kernel_ms(lambda: sad_grid(*b9_16, num, num)),
         "b9_pyramid_coarse_ms": kernel_ms(lambda: sad_grid(coarse_src, coarse_win, 17, 17)),
         "b9_pyramid_fine_ms": kernel_ms(lambda: sad_grid(pan_src, fine_win, 7, 7)),
         "b15_base16_ms": kernel_ms(lambda: base_layout_decide(pan_src, p_win, 16, lists16)),
         "b15_base32_ms": kernel_ms(lambda: base_layout_decide(pan_src, p_win, 32, lists32)),
+        "b15_base8_ms": kernel_ms(lambda: base_layout_decide(pan_src, p_win, 8, lists8)),
         "b14_base8_ms": kernel_ms(lambda: base_grids_ctu(pan_src, p_win, 8)),
+        "b14_base16_ms": kernel_ms(lambda: base_grids_ctu(pan_src, p_win, 16)),
+        "b14_base32_ms": kernel_ms(lambda: base_grids_ctu(pan_src, p_win, 32)),
         "b8_8160_16x16_r16_ms": kernel_ms(lambda: ssd_grid(*b8_16, 33, 33)),
+        "b8_32640_8x8_r16_ms": kernel_ms(lambda: ssd_grid(*b8_8, 33, 33)),
+        "b8_pyramid_coarse_ms": kernel_ms(lambda: ssd_grid(coarse_src, coarse_win, 17, 17)),
+        "b8_pyramid_fine_ms": kernel_ms(lambda: ssd_grid(pan_src, fine_win, 7, 7)),
         "b17_search_mv_ms": kernel_ms(lambda: search_mv(src, win128, num)),
         "b17_search_mv_dma_ms": kernel_ms(lambda: search_mv_dma(src, padded, pos, r)),
         "b19_mega_ms": kernel_ms(lambda: encode_ctu_mega(src, padded, pos, r, *qargs)),

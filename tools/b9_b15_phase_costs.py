@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""What each phase of kernels B9 (hevcasm_tpu_torch/csrc/sad_grid.cu) and B15
-(csrc/base_grids.cu) costs on a CUDA card, and the rates of the two
-instructions their designs rest on.
+"""What each phase of kernels B9 (hevcasm_tpu_torch/csrc/sad_grid.cu), B15
+and B14 (csrc/base_grids.cu) and B8 (csrc/ssd_grid.cu) costs on a CUDA
+card, and the rates of the two instructions their designs rest on.
 
     python3 tools/b9_b15_phase_costs.py
 
 The card has no profiler that reads a kernel's stalls (ncu does not run
 there), so this ablates: it compiles copies of each kernel's source with
-one phase taken out, or one constant changed, and times each beside the
-kernel at chip_smoke's 1080p shapes, a sample being 10 launches between
-CUDA events, median of 20.  The copies that drop a phase give wrong
+one phase taken out, or one constant changed (B15's n tiles a block, B8's
+warps a block), and times each beside the kernel at chip_smoke's 1080p
+shapes, a sample being 10 launches between CUDA events, median of 20.  The copies that drop a phase give wrong
 results and serve only as timings.  It also times two kernels that issue
 only independent instructions: vabsdiff4 with .add (B9's packed term, four
 absolute differences added to a sum) and mma.sync m16n8k32 u8 (B15's
@@ -31,6 +31,10 @@ ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path[:0] = [str(ROOT)]
 
+# B14's copy of a slab row from the warp's tile.
+_B14_COPY = ("if (lane + 32 * k < num) out[r * num + lane + 32 * k] = "
+             "tile[r * TW + lane + 32 * k];")
+
 # kernel -> (source, C entry, {variant: [(text in the source, its replacement)]})
 ABLATIONS = {
     "B9": ("sad_grid.cu", "hevc_sad_grid", {
@@ -50,6 +54,37 @@ ABLATIONS = {
         "without the decision": [("for (int pu = 0; pu < num_pu; ++pu) {",
                                   "for (int pu = 0; pu < 0; ++pu) {")],
         "5 n tiles a block at base 16": [("launch_decide<16, 9>", "launch_decide<16, 5>")],
+    }),
+    "B14": ("base_grids.cu", "hevc_base_grids", {
+        "kernel": [],
+        "without the products": [("    narrow_products<G::BW, BASE, G::KS, WS, ZW, true>(",
+                                  "    if (false) narrow_products<G::BW, BASE, G::KS, WS, ZW, true>(")],
+        "without E": [("for (int item = tid; item < 2 * CTU * SEGS; item += THREADS) {",
+                       "for (int item = tid; item < 0; item += THREADS) {")],
+        "without the grid stores": [(_B14_COPY, _B14_COPY.replace("out[r * num + lane + 32 * k] =",
+                                                                  "if (r == -1) out[0] ="))],
+        "without the slab copy": [(_B14_COPY, _B14_COPY.replace("< num)", "< 0)"))],
+        "streaming stores (st.global.cs)": [
+            (_B14_COPY, "if (lane + 32 * k < num) __stcs(out + r * num + lane + 32 * k, "
+                        "tile[r * TW + lane + 32 * k]);")],
+        "16 warps a block, 2 blocks an SM (<= 64 registers)": [
+            ("static constexpr int WARPS = K * K < 8 ? K * K : 8;",
+             "static constexpr int WARPS = K * K < 16 ? K * K : 16;"),
+            ("__launch_bounds__(B14Geometry<BASE>::THREADS)",
+             "__launch_bounds__(B14Geometry<BASE>::THREADS, 2)")],
+        "the setup alone": [("  // The warp's sub-blocks (p, q), q = warp % k:",
+                             "  return;\n  // The warp's sub-blocks (p, q), q = warp % k:")],
+    }),
+    "B8": ("ssd_grid.cu", "hevc_ssd_grid", {
+        "kernel": [],
+        "without the products": [("if (busy) {\n    const BandLane bl",
+                                  "if (false) {\n    const BandLane bl")],
+        "without E": [("for (int k = tid; k < plan.sb * wcols; k += nth) {",
+                       "for (int k = tid; k < 0; k += nth) {")],
+        "without the grid rows": [("      if (lane + 32 * k3 < cols) o[lane",
+                                   "      if (lane + 32 * k3 < 0) o[lane")],
+        "16 warps a block": [("constexpr int TARGET_WARPS = 8;",
+                              "constexpr int TARGET_WARPS = 16;")],
     }),
 }
 
@@ -180,11 +215,15 @@ def main() -> int:
     def u8(*shape):
         return torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8), device=dev)
 
-    # B9 at the shapes chip_smoke times: (what, src, windows, num).
+    # B9 and B8 at the shapes chip_smoke times: (what, src, windows, num).
     b9_cases = [("510 CTUs, R=32", u8(510, 64, 64), u8(510, 128, 128), 65),
                 ("8160 16x16, R=32", u8(8160, 16, 16), u8(8160, 80, 80), 65),
                 ("510 16x16, num 17 (pyramid coarse)", u8(510, 16, 16), u8(510, 32, 32), 17),
                 ("510 CTUs, num 7 (pyramid fine)", u8(510, 64, 64), u8(510, 70, 70), 7)]
+    grid_cases = {"B9": b9_cases,
+                  "B8": [("8160 16x16, R=16", u8(8160, 16, 16), u8(8160, 48, 48), 33),
+                         ("32640 8x8, R=16", u8(32640, 8, 8), u8(32640, 40, 40), 33),
+                         *b9_cases[2:], b9_cases[0]]}
     b15_src, b15_win = u8(510, 64, 64), u8(510, 128, 128)
     layouts = EncodeConfig().pu_layouts
     b15_cases = [("510 CTUs, base 16, 26 PU lists", 16, partition._pu_lists(layouts, 16)),
@@ -197,8 +236,8 @@ def main() -> int:
         fn.argtypes = build._ENTRIES[entry]
         fn.restype = ctypes.c_int
         row = {}
-        if kernel == "B9":
-            for what, src, win, num in b9_cases:
+        if kernel in grid_cases:
+            for what, src, win, num in grid_cases[kernel]:
                 n = src.shape[0]
                 out = torch.empty((n, num, num), dtype=torch.int32, device=dev)
 
@@ -208,6 +247,18 @@ def main() -> int:
                                    src.shape[1], num, num, 0, stream), name)
 
                 row[what] = cs.median_ms(launch, calls=10)
+        elif kernel == "B14":
+            for base in (8, 16, 32):
+                grids = torch.empty((510, 64 // base, 64 // base, 65, 65), dtype=torch.int32,
+                                    device=dev)
+
+                def launch(base=base, grids=grids):
+                    build.check(fn(b15_src.data_ptr(), b15_win.data_ptr(), b15_win.stride(0),
+                                   b15_win.stride(1), grids.data_ptr(), 510, base, 32, 0,
+                                   stream), name)
+
+                row[f"510 CTUs, base {base}"] = cs.median_ms(launch, calls=10)
+                del grids
         else:
             for what, base, lists in b15_cases:
                 table = _device_table(tuple(lists), dev)
