@@ -10,8 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build    compiles hevcasm_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
             process per source, into build/ and prints the build time; the
             SASS of the library (cuobjdump -sass, from nvcc's toolkit) must
-            show IMMA, the u8 tensor-core product, in K1/B7's kernel, in
-            B15's, in B17's and in B19's, and VABSDIFF4, the packed absolute
+            show IMMA, the u8/s8 tensor-core product, in K1/B7's kernel, in
+            B8's, B14's, B15's, B17's, B19's, K2's (which B16 launches) and
+            B3's, and VABSDIFF4, the packed absolute
             difference, in B9's; the CUDA-core search loop that B17 and B19
             ran before they took K1's core (csrc/search_core.cuh) must be
             gone.
@@ -21,8 +22,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
             at R = 31), K1 and B7 on all-0 / all-255 and all-255 / all-255
             CTUs and planes (4096 * 255^2 and 0 everywhere), refine offsets
             at 0 and at the
-            maximum (in both stacked planes for B3), and constant planes on
-            which every candidate ties.  The partition kernels run on the
+            maximum (in both stacked planes for B3), constant planes on
+            which every candidate ties, and (K2, B3 and B16) 0/255 CTUs on
+            planes that drive the refinement's int16 intermediate to 22440
+            and -6120 and its vertical sums to both extremes.  The partition kernels run on the
             structured pan's luma: B15 at base 16 (the 26 PU lists of the
             default layouts) and base 32, B14 at base 8 and 16, B13 on the
             8160 16x16 and 32640 8x8 tiles at their searched MVs and at
@@ -135,8 +138,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
             card's own rates of mma.sync m16n8k32 u8 and of vabsdiff4 with
             .add (tools/b9_b15_phase_costs.py), and from them the design
             floors of K1/B7, B17 and B19 (the products of K1's core), B9 (its
-            terms, four an instruction) and B15 (the m16n8k32 products it
-            issues) beside their bounds.
+            terms, four an instruction), B15, B8, B14, and K2, B16 and B3
+            (the m16n8k32 products each issues) beside their bounds.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -432,6 +435,27 @@ def b8_products(n: int, b: int, num_dy: int, num_dx: int) -> int:
     return n * b * total
 
 
+def refine_tc_products(n: int, refs: int = 1) -> tuple[int, int]:
+    """The mma.sync products of K2's and B3's tensor-core refinement
+    (csrc/refine_tc_core.cuh) for n CTUs of refs references: m16n8k32, the
+    horizontal pass's 4 m tiles x 9 n tiles x 4 xf; m16n8k16, the vertical
+    pass's 32 tiles x 16 candidates x 2 (hi, lo) and the winner's 32 x 2."""
+    return n * refs * 4 * 9 * 4, n * refs * (32 * 16 * 2 + 32 * 2)
+
+
+def adversarial_plane(shape, device, invert: bool = False) -> torch.Tensor:
+    """A plane on which K2's and B3's refinement meets the extremes of its
+    intermediate: for xf = yf = 2 (taps -1 4 -11 40 40 -11 4 -1), 255 under
+    every positive tap and 0 under every negative one drives the horizontal
+    pass to 22440 (hi byte 87), the reverse to -6120 (hi byte -24); rows
+    alternate between the two in the same pattern, so the vertical pass
+    meets both extremes too."""
+    pos = torch.tensor([0, 1, 0, 1, 1, 0, 1, 0], dtype=torch.bool, device=device)
+    rows = torch.arange(shape[0], device=device)[:, None] % 8
+    cols = torch.arange(shape[1], device=device)[None, :] % 8
+    return ((pos[cols] ^ ~pos[rows] ^ invert).to(torch.uint8) * 255).contiguous()
+
+
 def pan_picture(h: int, w: int, seed: int = 0) -> np.ndarray:
     """bench.py's structured picture: its noise smoothed twice by a 3-tap
     box in each direction, (h + 64, w + 64) uint8."""
@@ -555,7 +579,8 @@ def main() -> int:
     imma = {name: sass_count(build, kernel, "IMMA") for name, kernel in (
         ("K1/B7", "ssd_grid_plane_kernel"), ("B8", "ssd_grid_tc_kernel"),
         ("B14", "base_grids_kernel"), ("B15", "decide_kernel"),
-        ("B17", "search_mv_kernel"), ("B19", "mega_kernel"))}
+        ("B17", "search_mv_kernel"), ("B19", "mega_kernel"),
+        ("K2/B16", "inter_fused_kernel"), ("B3", "bi_fused_kernel"))}
     vabs_b9 = sass_count(build, "sad_grid_kernel", "VABSDIFF4")
     log("SASS: IMMA instructions " + ", ".join(f"{k} {v}" for k, v in imma.items())
         + f"; {vabs_b9} VABSDIFF4 in B9's, "
@@ -697,6 +722,19 @@ def main() -> int:
     if int(c_got[1].abs().max()) or int(c_got[2].abs().max()):
         raise AssertionError("constant planes: the first fraction did not win")
     check_b3("constant planes (all fractions tie)", c_src, c_flat, *c_offsets)
+    # K2's and B3's intermediate at its extremes (22440 and -6120 after the
+    # horizontal pass, both extremes in the vertical pass), on 0/255 CTUs.
+    adv_src = (src > 127).to(torch.uint8) * 255
+    adv_offsets = mv_offsets(grid, SEARCH_RANGE, 13)
+    for invert in (False, True):
+        adv = adversarial_plane(padded.shape, dev, invert)
+        what = f"adversarial windows{' (inverted)' if invert else ''}"
+        check_k2(what, adv_src, adv, adv_offsets)
+        hp_b = b_flat.shape[0] // 2
+        adv_flat = torch.cat([adversarial_plane((hp_b, b_flat.shape[1]), dev, invert),
+                              adversarial_plane((hp_b, b_flat.shape[1]), dev, not invert)])
+        check_b3(what, adv_src, adv_flat.contiguous(), mv_offsets(grid, SEARCH_RANGE, 14),
+                 mv_offsets(grid, SEARCH_RANGE, 15) + lower)
 
     # B8 and B12-B15: the partition kernels on the structured pan's luma.
     def check(name, what, got, want, shape):
@@ -875,6 +913,12 @@ def main() -> int:
           inter_ctu_fused(src, b16_win, *qargs), b16_want, "n=510")
     check("inter_ctu_fused", "1080p batched, group 4 (510 % 4 = 2)",
           inter_ctu_fused_batched(src, b16_win, *qargs, group=4), b16_want, "n=510 group=4")
+    for invert in (False, True):
+        adv_win = motion.extract_windows(adversarial_plane(padded.shape, dev, invert),
+                                         adv_offsets, 71)
+        check("inter_ctu_fused", f"adversarial windows{' (inverted)' if invert else ''}",
+              inter_ctu_fused(adv_src, adv_win, *qargs),
+              inter_ctu_fused_ref(adv_src, adv_win, *qargs), "n=510")
     b4_pred = ctu_mod.tile_frame(yuv_ref0.y, 64).contiguous()
     b4_args = {}
     for tu, tr_type in ((4, 1), (4, 0), (8, 0), (16, 0), (32, 0)):
@@ -1622,8 +1666,9 @@ def main() -> int:
     }
     # Device time beside the CUDA-event time of 10 calls says whether the
     # kernel or the wrapper's host work bounds a call: for the small kernels,
-    # for K1 and B7, and for B10's library call, so that B10 is compared with
-    # cdist call with call and device with device.
+    # for K1 and B7, for K2, B3 and B16 (whose kernels take less than their
+    # wrappers' host work), and for B10's library call, so that
+    # B10 is compared with cdist call with call and device with device.
     profiled = {
         "ssd_grid_plane": lambda: ssd_grid_plane(src, plane, grid, num),
         "ssd_grid_plane_multi": lambda: ssd_grid_plane_multi(mr_src, mr_view, grid, num),
@@ -1637,8 +1682,9 @@ def main() -> int:
         "pred_uni chroma": lambda: mc.pred_uni(mc_chroma[0], *mc_chroma[2:4], 4),
         "pred_bi chroma": lambda: mc.pred_bi(*mc_chroma, 4),
         "base_layout_decide_fc": lambda: base_layout_decide_fc(b_src, p_win, lists16),
-        "inter_ctu_fused_dma (K2, for comparison)":
-            lambda: inter_ctu_fused_dma(src, padded, k2_offsets, *qargs),
+        "inter_ctu_fused_dma": lambda: inter_ctu_fused_dma(src, padded, k2_offsets, *qargs),
+        "bi_ctu_fused_dma": lambda: bi_ctu_fused_dma(b_src, b_flat, b3_off0, b3_off1, *qargs),
+        "inter_ctu_fused": lambda: inter_ctu_fused(src, b16_win, *qargs),
     }
     device = {}
     for what, fn in profiled.items():
@@ -1899,6 +1945,24 @@ def main() -> int:
         "pred_bi": (nbytes(*mc_luma) + n * 4096, 2 * 2 * n * mc_macs(64, 64, 8)),
     }
     costs["base_layout_decide_fc"] = costs["base_layout_decide"]
+    # K2 (and B16, its kernel on gathered windows) and B3: the refinement's
+    # m16n8k32 products at mma.sync's own rate, beside the bound.
+    mma16_pps = rates["mma.sync m16n8k16 s8"]["products_per_s"]
+    mma32_pps = rates["mma.sync m16n8k32 u8"]["products_per_s"]
+    log(f"{tag} the card's own rate of mma.sync m16n8k16 s8: "
+        f"{rates['mma.sync m16n8k16 s8']['tops']:.1f} TOP/s")
+    for name, refs in (("inter_ctu_fused_dma", 1), ("inter_ctu_fused", 1),
+                       ("bi_ctu_fused_dma", 2)):
+        k32, k16 = refine_tc_products(n, refs)
+        b_ms, b_by = bound(*costs[name])
+        k_ms = times[name][0]
+        d_ms = device[name]
+        floor = (k32 / mma32_pps + k16 / mma16_pps) * 1e3
+        log(f"{tag} {name} 510 CTUs: {k32} m16n8k32 + {k16} m16n8k16 products "
+            f"({(k32 + k16) // n} a CTU), design floor {floor:.4f} ms at mma.sync's own rates; "
+            f"bound {b_ms:.4f} ms ({b_by}); kernel {k_ms:.4f} ms a call (device {d_ms:.4f}), "
+            f"device at {floor / d_ms:.3f} of the floor and {b_ms / d_ms:.3f} of the bound"
+            if d_ms else f"{tag} {name}: device time not measured")
     kernels = []
     for name, (src_path, replaces) in sources.items():
         bound_ms, bound_by = bound(*costs[name])

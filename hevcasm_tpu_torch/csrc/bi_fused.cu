@@ -5,16 +5,21 @@
 // residual_core_stacked).  Per 64x64 CTU, with nothing written to device
 // memory between the steps:
 //
-//   1-3. refine_select (refine_core.cuh) on reference 0's window at
-//      offsets0[i]: fetch, 4 int16 horizontal passes, QPEL_SCORE of the 16
-//      candidates, first minimum in yf*4 + xf order;
-//   4a. each thread keeps its 16 pixels of reference 0's int16 bi
-//      intermediate p0 = wrap16(acc >> 6) of the winner, in registers;
-//   1-3. the same on reference 1's window at offsets1[i], through the same
-//      shared buffers;
-//   4b. p1 = wrap16(acc >> 6) of reference 1's winner, and the prediction
-//      pred = clip((p0 + p1 + 64) >> 7, 0, 255) into shared memory;
-//   5-7. residual_core<8> (residual_core.cuh): 8x8 DCT, quantize, per-TU
+//   1-4. reference 0's window at offsets0[i] through K2's tensor-core
+//      refinement (refine_tc_core.cuh): both 8-tap passes as mma.sync
+//      products, QPEL_SCORE from the accumulator fragments, first
+//      minimum in yf*4 + xf order; reference 1's window (offsets1[i]) is
+//      staged between reference 0's horizontal and vertical passes: the
+//      window buffer is free once the horizontal pass has read it, so the
+//      staging needs no barrier of its own;
+//   5a. each thread keeps its 16 pixels of reference 0's int16 bi
+//      intermediate p0 = wrap16(acc >> 6) of the winner, recomputed by one
+//      product pair a tile, in registers in the fragment's lane layout;
+//   1-4. the same for reference 1, through the same buffers;
+//   5b. p1 = wrap16(acc >> 6) of reference 1's winner arrives in the same
+//      layout, so pred = clip((p0 + p1 + 64) >> 7, 0, 255) needs no
+//      exchange; it goes to shared memory;
+//   6-8. residual_core<8> (residual_core.cuh): 8x8 DCT, quantize, per-TU
 //      nnz and Exp-Golomb bits, dequantize, inverse DCT, add and clip.
 //
 // The shift is arithmetic on the unbiased accumulator (the TPU kernel
@@ -24,23 +29,20 @@
 // padded planes stacked by rows; each start is clamped to the whole plane
 // exactly as the plain version's window gather does.
 //
-// What bounds it on the H100: per CTU about 1.4 M multiply-adds (twice
-// K2's refinement, one residual) against 14 KB of input, so, as for K2,
-// neither compute nor bandwidth is near its limit; latency is: one block
-// runs both refinements and the residual in eleven barrier-separated
-// phases.  The design reuses K2's shared buffers for the second reference
-// instead of holding two sets of horizontal passes (72 KB would need
-// dynamic shared memory and halve the blocks per SM): only the winner's
-// 16 intermediates per thread survive the first refinement, in registers,
-// so shared memory stays at K2's ~47 KB, under the 48 KB static limit.
+// What bounds it on the H100: per CTU 14 KB in and 4.6 KB out (0.003 ms for
+// 510 CTUs at 3.35 TB/s) and twice K2's products (~0.006 ms at mma.sync's
+// own rate), so, as for K2, the CUDA-core work around the
+// products (two scores, the hi/lo stores, one residual) and the barriers
+// bound it.  One set of buffers serves both references (K2's 51 KB, four
+// blocks an SM); only the 8 packed registers of p0 survive the first.
 
-#include "refine_core.cuh"
+#include "refine_tc_core.cuh"
 
 namespace {
 
 constexpr int NTU = B / 8;    // 8x8 TUs per CTU side
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 4)
 bi_fused_kernel(const uint8_t* __restrict__ src,
                 const uint8_t* __restrict__ plane,
                 const int32_t* __restrict__ offsets0,
@@ -49,50 +51,66 @@ bi_fused_kernel(const uint8_t* __restrict__ src,
                 int32_t* __restrict__ frac1_out, int32_t* __restrict__ nnz_out,
                 int32_t* __restrict__ bits_out, int plane_h, int plane_w,
                 int qscale, int qshift, int qoffset, int dscale, int dshift) {
-  __shared__ RefineSmem sm;
-  __shared__ __align__(16) uint8_t s_src[B * B];
-  __shared__ int s_nnz[NTU * NTU];
-  __shared__ int s_bits[NTU * NTU];
-
+  extern __shared__ __align__(128) uint8_t smem[];
+  const rtc::Smem sm = rtc::carve(smem);
   const int i = blockIdx.x;
-  const int t = threadIdx.x;
-  const int x = t % B, yg = t / B;
 
-  const uint8_t* s = src + static_cast<size_t>(i) * B * B;
-  for (int k = t; k < B * B; k += NT) s_src[k] = s[k];
+  rtc::stage_source(src + static_cast<size_t>(i) * B * B, sm.src);
+  uint32_t w[4];
+  rtc::band_words(w);
 
   // ---- reference 0: refine, keep the winner's intermediates ---------------
-  const int best0 = refine_select(plane, plane_h, plane_w, offsets0[2 * i],
-                                  offsets0[2 * i + 1], s_src, sm);
-  int p0[16];
+  rtc::stage_window(plane, plane_h, plane_w, offsets0[2 * i], offsets0[2 * i + 1], sm.win);
+  __syncthreads();
+  rtc::horizontal_pass(sm.win, sm.hp);
+  __syncthreads();
+  rtc::stage_window(plane, plane_h, plane_w, offsets1[2 * i], offsets1[2 * i + 1], sm.win);
+  rtc::vertical_scores(sm.hp, sm.src, w, sm.red);
+  int best_cost;
+  const int best0 = rtc::first_min(sm.red, best_cost);
+  if (threadIdx.x == 0) frac0_out[i] = best0;
+  // p0[2j + h]: rows y, y + 1 of column x + 8h in tile j, as two int16.
+  uint32_t p0[2 * rtc::TILES];
 #pragma unroll
-  for (int yy = 0; yy < 16; ++yy)
-    p0[yy] = wrap16(winner_acc(sm, best0, x, yg, yy) >> 6);
+  for (int j = 0; j < rtc::TILES; ++j) {
+    int d[4];
+    rtc::winner_acc(d, sm.hp, w, best0, j, 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      p0[2 * j + h] = __byte_perm(static_cast<uint32_t>(wrap16(d[2 * h] >> 6)),
+                                  static_cast<uint32_t>(wrap16(d[2 * h + 1] >> 6)), 0x5410);
+  }
+  // Every warp has read reference 0's intermediate and staged its share of
+  // reference 1's window.
+  __syncthreads();
 
   // ---- reference 1: refine through the same buffers, combine --------------
-  // refine_select's first barrier (after its window fetch, which touches
-  // only sm.win) orders every read of reference 0's passes above before
-  // the passes are overwritten.
-  const int best1 = refine_select(plane, plane_h, plane_w, offsets1[2 * i],
-                                  offsets1[2 * i + 1], s_src, sm);
-  if (t == 0) {
-    frac0_out[i] = best0;
-    frac1_out[i] = best1;
-  }
-  uint8_t* s_pred = sm.win;  // (B, B), row stride B
+  rtc::horizontal_pass(sm.win, sm.hp);
+  __syncthreads();
+  rtc::vertical_scores(sm.hp, sm.src, w, sm.red);
+  const int best1 = rtc::first_min(sm.red, best_cost);
+  if (threadIdx.x == 0) frac1_out[i] = best1;
+  // The prediction goes to sm.win (row stride B): the horizontal pass has
+  // read the window.
 #pragma unroll
-  for (int yy = 0; yy < 16; ++yy) {
-    const int p1 = wrap16(winner_acc(sm, best1, x, yg, yy) >> 6);
-    s_pred[(16 * yg + yy) * B + x] =
-        static_cast<uint8_t>(clip3(0, 255, (p0[yy] + p1 + 64) >> 7));
+  for (int j = 0; j < rtc::TILES; ++j) {
+    int d[4];
+    rtc::winner_acc(d, sm.hp, w, best1, j, 0);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const uint32_t q = p0[2 * j + (r >> 1)];
+      const int p = (r & 1) ? static_cast<int>(q) >> 16 : static_cast<int>(q << 16) >> 16;
+      sm.win[rtc::tile_y(j, r) * B + rtc::tile_x(r)] =
+          static_cast<uint8_t>(clip3(0, 255, (p + wrap16(d[r] >> 6) + 64) >> 7));
+    }
   }
   __syncthreads();
 
-  residual_core<8>(s_src, s_pred, reinterpret_cast<int*>(sm.hp), s_nnz, s_bits,
-                    rec + static_cast<size_t>(i) * B * B,
-                    nnz_out + static_cast<size_t>(i) * NTU * NTU,
-                    bits_out + static_cast<size_t>(i) * NTU * NTU, qscale,
-                    qshift, qoffset, dscale, dshift);
+  residual_core<8>(sm.src, sm.win, reinterpret_cast<int*>(sm.hp), sm.nnz, sm.bits,
+                   rec + static_cast<size_t>(i) * B * B,
+                   nnz_out + static_cast<size_t>(i) * NTU * NTU,
+                   bits_out + static_cast<size_t>(i) * NTU * NTU, qscale,
+                   qshift, qoffset, dscale, dshift);
 }
 
 }  // namespace
@@ -110,13 +128,16 @@ extern "C" int hevc_bi_fused(const uint8_t* src, const uint8_t* plane,
                              int32_t* nnz, int32_t* bits, int n, int plane_h,
                              int plane_w, int qscale, int qshift, int qoffset,
                              int dscale, int dshift, int device, void* stream) {
-  if (plane_h < WIN || plane_w < WIN || qshift < 16 || qshift > 27 ||
+  if (plane_h < rtc::WIN || plane_w < rtc::WIN || qshift < 16 || qshift > 27 ||
       dshift < 1 || dshift > 31)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n == 0) return cudaGetLastError();
-  bi_fused_kernel<<<n, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  err = cudaFuncSetAttribute(bi_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             rtc::SMEM);
+  if (err != cudaSuccess) return err;
+  bi_fused_kernel<<<n, NT, rtc::SMEM, static_cast<cudaStream_t>(stream)>>>(
       src, plane, offsets0, offsets1, rec, frac0, frac1, nnz, bits, plane_h,
       plane_w, qscale, qshift, qoffset, dscale, dshift);
   return cudaGetLastError();

@@ -5,29 +5,32 @@
 // residual_core_stacked).  Per 64x64 CTU, with nothing written to device
 // memory between the steps:
 //
-//   1-3. refine_select (refine_core.cuh): fetch the 71x71 window at
-//      offsets[i], 4 int16 horizontal passes, QPEL_SCORE of the 16
-//      candidates, first minimum in yf*4 + xf order;
-//   4. the winner is recomputed: pred = clip((acc + 2048) >> 12, 0, 255);
-//   5-7. residual_core<8> (residual_core.cuh): 8x8 DCT, quantize, per-TU
+//   1-4. rtc::refine (refine_tc_core.cuh): stage the window at offsets[i],
+//      both 8-tap passes as mma.sync products with the filter's band as one
+//      operand (m16n8k32 horizontally, m16n8k16 vertically), QPEL_SCORE of
+//      the 16 candidates from the accumulator fragments, first minimum in
+//      yf*4 + xf order;
+//   5. the winner's accumulator from one more product pair a tile:
+//      pred = clip((acc + 2048) >> 12, 0, 255) into shared memory;
+//   6-8. residual_core<8> (residual_core.cuh): 8x8 DCT, quantize, per-TU
 //      nnz and Exp-Golomb bits, dequantize, inverse DCT, add and clip.
 //
-// What bounds it on the H100: per CTU about 0.7 M multiply-adds (the 16
-// vertical candidates dominate) against 9 KB of input, so neither compute
-// nor bandwidth is near its limit; latency is: one block does a CTU's work
-// in seven phases separated by barriers.  The 16 full candidate planes
-// (256 KB of int32) do not fit in shared memory, so the design keeps only
-// the four int16 horizontal passes (36 KB) there, scores every candidate
-// from them, and recomputes the winner.  About 47 KB of shared memory per
-// block lets four CTUs share an SM, so a 510-CTU frame runs in one wave.
+// What bounds it on the H100: per CTU 9 KB in and 4.6 KB out (0.002 ms for
+// 510 CTUs at 3.35 TB/s), and 144 m16n8k32 products (horizontal) and 1,088
+// m16n8k16 (1,024 vertical, 64 for the winner): ~0.003 ms at mma.sync's own
+// rate, so neither bytes nor products; the CUDA-core work left (the score's
+// 16 x 4096 absolute differences, the hi/lo stores, the residual) and the
+// block's barriers are.  The design keeps every candidate in accumulator
+// registers (no candidate plane in shared memory), and 51 KB of shared
+// memory a block lets four CTUs share an SM, so 510 CTUs run in one wave.
 
-#include "refine_core.cuh"
+#include "refine_tc_core.cuh"
 
 namespace {
 
 constexpr int NTU = B / 8;    // 8x8 TUs per CTU side
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 4)
 inter_fused_kernel(const uint8_t* __restrict__ src,
                    const uint8_t* __restrict__ plane,
                    const int32_t* __restrict__ offsets,
@@ -36,40 +39,41 @@ inter_fused_kernel(const uint8_t* __restrict__ src,
                    int32_t* __restrict__ bits_out, int plane_h, int plane_w,
                    int qscale, int qshift, int qoffset, int dscale,
                    int dshift) {
-  // sm.win holds the window until the H passes are done, then the
-  // prediction; sm.hp holds the H passes until the winner is recomputed,
-  // then the residual stage's two int32 64x64 planes.
-  __shared__ RefineSmem sm;
-  __shared__ __align__(16) uint8_t s_src[B * B];
-  __shared__ int s_nnz[NTU * NTU];
-  __shared__ int s_bits[NTU * NTU];
-
+  // sm.win holds the window until the horizontal pass is done, then the
+  // prediction; sm.hp holds the intermediate until the winner is
+  // recomputed, then the residual stage's two int32 64x64 planes.
+  extern __shared__ __align__(128) uint8_t smem[];
+  const rtc::Smem sm = rtc::carve(smem);
   const int i = blockIdx.x;
-  const int t = threadIdx.x;
 
-  const uint8_t* s = src + static_cast<size_t>(i) * B * B;
-  for (int k = t; k < B * B; k += NT) s_src[k] = s[k];
-  const int best = refine_select(plane, plane_h, plane_w, offsets[2 * i],
-                                 offsets[2 * i + 1], s_src, sm);
-  if (t == 0) {
+  rtc::stage_source(src + static_cast<size_t>(i) * B * B, sm.src);
+  uint32_t w[4];
+  rtc::band_words(w);
+  int cost;
+  const int best = rtc::refine(plane, plane_h, plane_w, offsets[2 * i], offsets[2 * i + 1],
+                               sm, w, cost);
+  if (threadIdx.x == 0) {
     frac_out[i] = best;
-    cost_out[i] = sm.cost[best];
+    cost_out[i] = cost;
   }
 
-  // ---- 4. the winning prediction, into sm.win -----------------------------
-  uint8_t* s_pred = sm.win;  // (B, B), row stride B
-  const int x = t % B, yg = t / B;
-#pragma unroll 4
-  for (int yy = 0; yy < 16; ++yy)
-    s_pred[(16 * yg + yy) * B + x] = static_cast<uint8_t>(
-        clip3(0, 255, (winner_acc(sm, best, x, yg, yy) + 2048) >> 12));
+  // ---- 5. the winning prediction, into sm.win (row stride B) --------------
+  // The hi product starts from 8: 8 * 256 = 2048, the rounding of >> 12.
+#pragma unroll
+  for (int j = 0; j < rtc::TILES; ++j) {
+    int d[4];
+    rtc::winner_acc(d, sm.hp, w, best, j, 8);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      sm.win[rtc::tile_y(j, r) * B + rtc::tile_x(r)] = static_cast<uint8_t>(clip3(0, 255, d[r] >> 12));
+  }
   __syncthreads();
 
-  residual_core<8>(s_src, s_pred, reinterpret_cast<int*>(sm.hp), s_nnz, s_bits,
-                    rec + static_cast<size_t>(i) * B * B,
-                    nnz_out + static_cast<size_t>(i) * NTU * NTU,
-                    bits_out + static_cast<size_t>(i) * NTU * NTU, qscale,
-                    qshift, qoffset, dscale, dshift);
+  residual_core<8>(sm.src, sm.win, reinterpret_cast<int*>(sm.hp), sm.nnz, sm.bits,
+                   rec + static_cast<size_t>(i) * B * B,
+                   nnz_out + static_cast<size_t>(i) * NTU * NTU,
+                   bits_out + static_cast<size_t>(i) * NTU * NTU, qscale,
+                   qshift, qoffset, dscale, dshift);
 }
 
 }  // namespace
@@ -86,13 +90,16 @@ extern "C" int hevc_inter_fused(const uint8_t* src, const uint8_t* plane,
                                 int32_t* bits, int n, int plane_h, int plane_w,
                                 int qscale, int qshift, int qoffset, int dscale,
                                 int dshift, int device, void* stream) {
-  if (plane_h < WIN || plane_w < WIN || qshift < 16 || qshift > 27 ||
+  if (plane_h < rtc::WIN || plane_w < rtc::WIN || qshift < 16 || qshift > 27 ||
       dshift < 1 || dshift > 31)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n == 0) return cudaGetLastError();
-  inter_fused_kernel<<<n, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  err = cudaFuncSetAttribute(inter_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             rtc::SMEM);
+  if (err != cudaSuccess) return err;
+  inter_fused_kernel<<<n, NT, rtc::SMEM, static_cast<cudaStream_t>(stream)>>>(
       src, plane, offsets, rec, frac, cost, nnz, bits, plane_h, plane_w,
       qscale, qshift, qoffset, dscale, dshift);
   return cudaGetLastError();

@@ -1,5 +1,6 @@
-// The quarter-pel refinement shared by the CTU kernels (K2 inter_fused.cu,
-// B3 bi_fused.cu, B11 refine_fused.cu): hevcasm_tpu/kernels/interp_pallas.py
+// The quarter-pel refinement on the CUDA cores, shared by B11
+// (refine_fused.cu) and B19's refinement tail (mega.cu); K2 and B3 run the
+// tensor-core form (refine_tc_core.cuh).  hevcasm_tpu/kernels/interp_pallas.py
 // _refine_core for one BB x BB block (BB in {8, 16, 32, 64}) and its
 // (BB+7) x (BB+7) window:
 //
@@ -42,7 +43,7 @@ struct RefineSmemT {
   int best;
 };
 
-// The fused CTU kernels' refinement: 64x64, NT threads.
+// B19's refinement: 64x64, NT threads.
 using RefineSmem = RefineSmemT<B, NT>;
 constexpr int WIN = RefineSmem::WIN;     // 71
 
@@ -133,7 +134,7 @@ __device__ __forceinline__ int refine_select_at(const uint8_t* __restrict__ w,
   return sm.best;
 }
 
-// The fused CTU kernels' form: the 71x71 window at (oy, ox) in the plane,
+// B19's form: the 71x71 window at (oy, ox) in the plane,
 // a start past the plane's end clamped so the window fits.
 __device__ __forceinline__ int refine_select(const uint8_t* __restrict__ plane,
                                              int plane_h, int plane_w, int oy,

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hevcasm_tpu_torch import Tier
 from hevcasm_tpu_torch.encode import ctu as ctu_mod
 from hevcasm_tpu_torch.encode import motion
@@ -463,6 +464,18 @@ def test_k2_constant_plane_takes_the_first_fraction(cuda):
     assert_bit_equal(got, inter_fused.inter_ctu_fused_dma_ref(src, plane, offsets, *qargs))
 
 
+@pytest.mark.parametrize("invert", [False, True])
+def test_k2_b16_adversarial_windows_reach_the_intermediate_extremes(cuda, invert):
+    src, plane, offsets, qargs = k2_case(6, 32, 32, 192, 256, cuda)
+    plane = chip_smoke.adversarial_plane(plane.shape, cuda, invert)
+    src = (src > 127).to(torch.uint8) * 255
+    got = inter_fused.inter_ctu_fused_dma(src, plane, offsets, *qargs)
+    assert_bit_equal(got, inter_fused.inter_ctu_fused_dma_ref(src, plane, offsets, *qargs))
+    win = motion.extract_windows(plane, offsets, 71)
+    assert_bit_equal(inter_fused.inter_ctu_fused(src, win, *qargs), got)
+    assert_bit_equal(inter_fused.inter_ctu_fused_batched(src, win, *qargs, group=4), got)
+
+
 def test_k2_rejects_what_it_does_not_take(cuda):
     src, plane, offsets, qargs = k2_case(1, 8, 32, 128, 192, cuda)
     with pytest.raises(TypeError):
@@ -621,6 +634,17 @@ def test_b3_constant_planes_take_the_first_fractions(cuda):
 def test_b3_clamps_starts_past_the_plane_like_the_plain_version(cuda):
     src, flat, off0, off1, qargs = b3_case(5, 8, 32, 128, 192, cuda)
     off1 = off1 + 9                                  # past the stacked plane's end
+    got = bi_fused.bi_ctu_fused_dma(src, flat, off0, off1, *qargs)
+    assert_bit_equal(got, bi_fused.bi_ctu_fused_dma_ref(src, flat, off0, off1, *qargs))
+
+
+@pytest.mark.parametrize("invert", [False, True])
+def test_b3_adversarial_windows_reach_the_intermediate_extremes(cuda, invert):
+    src, flat, off0, off1, qargs = b3_case(6, 32, 32, 192, 256, cuda)
+    hp = flat.shape[0] // 2
+    flat = torch.cat([chip_smoke.adversarial_plane((hp, flat.shape[1]), cuda, invert),
+                      chip_smoke.adversarial_plane((hp, flat.shape[1]), cuda, not invert)]).contiguous()
+    src = (src > 127).to(torch.uint8) * 255
     got = bi_fused.bi_ctu_fused_dma(src, flat, off0, off1, *qargs)
     assert_bit_equal(got, bi_fused.bi_ctu_fused_dma_ref(src, flat, off0, off1, *qargs))
 

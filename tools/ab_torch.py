@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Time hevcasm_tpu_torch of two checkouts in turns on one CUDA card.
 
-    python3 tools/ab_torch.py BEFORE_DIR [AFTER_DIR]
+    python3 tools/ab_torch.py [--rounds N] BEFORE_DIR [AFTER_DIR]
 
 AFTER_DIR defaults to this checkout.  Each run imports one checkout's
 package in a process of its own (which builds that checkout's kernels into
-its own build/), in the order before, after, after, before, so that drift on
-the card shows as the spread between the two runs of one checkout.  A run
+its own build/), in the order before, after, after, before (N times, 1 by
+default), so that drift on the card and its host shows as the spread
+between the runs of one checkout.  A run
 prints one JSON line: the card's name and power limit, and medians (with
 min and max) of 20 samples of
 
@@ -29,7 +30,16 @@ min and max) of 20 samples of
   two levels: 510 decimated 16x16 blocks at num 17, 510 CTUs at num 7), B17
   search_mv and search_mv_dma and B19 (510 CTUs, R = 32, bench content), a
   sample being 10 launches between CUDA events, and torch.cdist(p=1) on
-  float32 copies of B10's operands.
+  float32 copies of B10's operands;
+* the refine + residual kernels at 510 CTUs of bench content, refine
+  windows at random MVs in [-32, 32]: K2 (inter_ctu_fused_dma), B16
+  (inter_ctu_fused on the gathered windows), B3 (bi_ctu_fused_dma on the
+  reference and chip_smoke's multiref reference 0 stacked by rows), B11
+  (refine_quarter_pel_fused on the same windows) and B4 at 8x8 TUs, each
+  also as device time (torch.profiler's kernel self time a call, over 10
+  calls, 5 samples), since their wrappers' host work can bound a call;
+* the 4:2:0 P and B frames, encode_inter_frame_yuv and encode_b_frame_yuv
+  on chip_smoke's structured pan with the luma P frame's config.
 
 Exits non-zero, with no result, when there is no CUDA card.
 """
@@ -53,6 +63,12 @@ def measure() -> dict:
     from hevcasm_tpu_torch.encode import ctu as ctu_mod, motion
     from hevcasm_tpu_torch.encode.loop import (EncodeConfig, encode_inter_frame,
                                                encode_inter_frame_multiref)
+    from hevcasm_tpu_torch.encode.video import (YuvFrame, encode_b_frame_yuv,
+                                                encode_inter_frame_yuv)
+    from hevcasm_tpu_torch.kernels.bi_fused import bi_ctu_fused_dma
+    from hevcasm_tpu_torch.kernels.inter_fused import (inter_ctu_fused, inter_ctu_fused_dma,
+                                                       refine_quarter_pel_fused)
+    from hevcasm_tpu_torch.kernels.residual_ctu import residual_pipeline_ctu
     from hevcasm_tpu_torch.encode import partition
     from hevcasm_tpu_torch.kernels import build
     from hevcasm_tpu_torch.kernels.base_grids import base_grids_ctu, base_layout_decide
@@ -126,11 +142,33 @@ def measure() -> dict:
                    "pyramid": EncodeConfig(search_range=r, qp=32, inter_impl="fused_dma",
                                            me_strategy="pyramid")}
 
+    # K2, B16, B3, B11 and B4: windows at random MVs, B3's second reference
+    # stacked below the first.
+    mvs = np.random.default_rng(11).integers(-r, r + 1, (n, 2))
+    k2_off = (pos + torch.as_tensor(mvs, device=dev) + r).to(torch.int32).contiguous()
+    k2_win = motion.extract_windows(padded, k2_off, 71)
+    b3_flat = torch.cat([padded, ctu_mod.pad_frame(mr_refs[0], pl, pr, pl, pr)]).contiguous()
+    b3_off1 = (k2_off.flip(0) + torch.tensor([padded.shape[0], 0], device=dev)).to(
+        torch.int32).contiguous()
+    yuv = [YuvFrame(*(torch.as_tensor(p, device=dev) for p in f))
+           for f in cs.structured_pan(h, w)]
+
     def stats(samples):
         return {"median": statistics.median(samples), "min": samples[0], "max": samples[-1]}
 
     def kernel_ms(fn):
         return stats(cs.samples_ms(fn, calls=10))
+
+    def device_ms(fn):
+        return stats(sorted(cs.device_ms(fn) for _ in range(5)))
+
+    refine_kernels = {
+        "k2": lambda: inter_ctu_fused_dma(src, padded, k2_off, *qargs),
+        "b16": lambda: inter_ctu_fused(src, k2_win, *qargs),
+        "b3": lambda: bi_ctu_fused_dma(src, b3_flat, k2_off, b3_off1, *qargs),
+        "b11": lambda: refine_quarter_pel_fused(src, k2_win),
+        "b4_8x8": lambda: residual_pipeline_ctu(src, b_ref, *qargs),
+    }
 
     return {
         "card": cs.card_line(),
@@ -173,23 +211,33 @@ def measure() -> dict:
         "b17_search_mv_ms": kernel_ms(lambda: search_mv(src, win128, num)),
         "b17_search_mv_dma_ms": kernel_ms(lambda: search_mv_dma(src, padded, pos, r)),
         "b19_mega_ms": kernel_ms(lambda: encode_ctu_mega(src, padded, pos, r, *qargs)),
+        **{f"{name}_ms": kernel_ms(fn) for name, fn in refine_kernels.items()},
+        **{f"{name}_device_ms": device_ms(fn) for name, fn in refine_kernels.items()},
+        "yuv_p_frame_ms": stats(cs.samples_ms(
+            lambda: encode_inter_frame_yuv(yuv[0], yuv[1], cfg))),
+        "yuv_b_frame_ms": stats(cs.samples_ms(
+            lambda: encode_b_frame_yuv(yuv[0], yuv[1], yuv[2], cfg))),
         **{f"luma_p_{name}_frame_ms": stats(cs.samples_ms(
             lambda c=c: encode_inter_frame(cur, ref, c))) for name, c in search_cfgs.items()},
     }
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--measure":
-        sys.path[:0] = [sys.argv[2]]
+    args = sys.argv[1:]
+    if len(args) == 2 and args[0] == "--measure":
+        sys.path[:0] = [args[1]]
         print(json.dumps(measure()), flush=True)
         return 0
-    if len(sys.argv) not in (2, 3):
+    rounds = 1
+    if args[:1] == ["--rounds"] and len(args) > 1 and args[1].isdigit():
+        rounds, args = int(args[1]), args[2:]
+    if len(args) not in (1, 2) or rounds < 1:
         print(__doc__, file=sys.stderr)
         return 2
-    before = Path(sys.argv[1]).resolve()
-    after = Path(sys.argv[2]).resolve() if len(sys.argv) == 3 else HERE
+    before = Path(args[0]).resolve()
+    after = Path(args[1]).resolve() if len(args) == 2 else HERE
     for label, root in (("before", before), ("after", after), ("after", after),
-                        ("before", before)):
+                        ("before", before)) * rounds:
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure",
                               str(root)], cwd=root, capture_output=True, text=True,
                              timeout=1200)

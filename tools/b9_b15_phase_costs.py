@@ -12,8 +12,9 @@ warps a block), and times each beside the kernel at chip_smoke's 1080p
 shapes, a sample being 10 launches between CUDA events, median of 20.  The copies that drop a phase give wrong
 results and serve only as timings.  It also times two kernels that issue
 only independent instructions: vabsdiff4 with .add (B9's packed term, four
-absolute differences added to a sum) and mma.sync m16n8k32 u8 (B15's
-product), which give each instruction's own rate on this card; chip_smoke
+absolute differences added to a sum), mma.sync m16n8k32 u8 (B15's
+product) and mma.sync m16n8k16 s8 (the vertical pass of K2's and B3's
+refinement), which give each instruction's own rate on this card; chip_smoke
 takes its design floors from ``instruction_rates``.  Prints one JSON line
 with the card's name and power limit.  The copies are built under
 build/b9_b15_phase_costs/.
@@ -106,6 +107,21 @@ __global__ void mma_rate(int* out, int iters) {
   for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
+__global__ void mma16_rate(int* out, int iters) {
+  int acc[8][4] = {};
+  const uint32_t a0 = threadIdx.x, a1 = threadIdx.x * 3u, b0 = threadIdx.x * 11u;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+                   "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+                   : "+r"(acc[j][0]), "+r"(acc[j][1]), "+r"(acc[j][2]), "+r"(acc[j][3])
+                   : "r"(a0), "r"(a1), "r"(b0));
+  }
+  int s = 0;
+  for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
 __global__ void vabsdiff4_rate(unsigned* out, int iters) {
   unsigned acc[8] = {};
   const unsigned a = threadIdx.x * 0x01010101u, b = blockIdx.x * 0x00FF00FFu + 3u;
@@ -121,6 +137,10 @@ __global__ void vabsdiff4_rate(unsigned* out, int iters) {
 }
 extern "C" int mma_rate_launch(int* out, int blocks, int threads, int iters) {
   mma_rate<<<blocks, threads>>>(out, iters);
+  return cudaGetLastError();
+}
+extern "C" int mma16_rate_launch(int* out, int blocks, int threads, int iters) {
+  mma16_rate<<<blocks, threads>>>(out, iters);
   return cudaGetLastError();
 }
 extern "C" int vabsdiff4_rate_launch(unsigned* out, int blocks, int threads, int iters) {
@@ -152,7 +172,7 @@ def _rates_of(lib_path: Path) -> dict:
     blocks, threads, iters = 132 * 8, 256, 2000
     buf = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
     out = {}
-    for name in ("mma_rate_launch", "vabsdiff4_rate_launch"):
+    for name in ("mma_rate_launch", "mma16_rate_launch", "vabsdiff4_rate_launch"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
         fn.restype = ctypes.c_int
@@ -161,15 +181,19 @@ def _rates_of(lib_path: Path) -> dict:
                  for _ in range(5)]
         out[name] = statistics.median(rates)        # thread instructions a second
     mma = out["mma_rate_launch"] / 32               # one product a warp instruction
+    mma16 = out["mma16_rate_launch"] / 32
     return {"mma.sync m16n8k32 u8": {"products_per_s": mma, "tops": mma * 2 * 16 * 8 * 32 / 1e12},
+            "mma.sync m16n8k16 s8": {"products_per_s": mma16,
+                                     "tops": mma16 * 2 * 16 * 8 * 16 / 1e12},
             "vabsdiff4.add": {"thread_instr_per_s": out["vabsdiff4_rate_launch"],
                               "terms_per_s": 4 * out["vabsdiff4_rate_launch"]}}
 
 
 def instruction_rates() -> dict:
-    """The card's own rates of mma.sync m16n8k32 u8 (products and TOP/s)
-    and of vabsdiff4 with .add (thread instructions and SAD terms a
-    second), each from a kernel of independent instructions on every SM."""
+    """The card's own rates of mma.sync m16n8k32 u8 and m16n8k16 s8
+    (products and TOP/s) and of vabsdiff4 with .add (thread instructions
+    and SAD terms a second), each from a kernel of independent
+    instructions on every SM."""
     from hevcasm_tpu_torch.kernels import build
 
     cmd, lib = _rates_cmd(build, _out_dir())
