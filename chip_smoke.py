@@ -12,10 +12,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
             SASS of the library (cuobjdump -sass, from nvcc's toolkit) must
             show IMMA, the u8/s8 tensor-core product, in K1/B7's kernel, in
             B8's, B14's, B15's, B17's, B19's, K2's (which B16 launches) and
-            B3's, and VABSDIFF4, the packed absolute
+            B3's, and in every instance of B11's, B12's and B13's kernels
+            (each tile side), and VABSDIFF4, the packed absolute
             difference, in B9's; the CUDA-core search loop that B17 and B19
             ran before they took K1's core (csrc/search_core.cuh) must be
-            gone.
+            gone, and B11 must no longer include the CUDA-core refinement
+            (csrc/refine_core.cuh).
 3. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit on every output: the 1080p shapes (510 CTUs, R = 32), an
             odd grid width (3) at R = 8 (K1 also at R = 1, 2 and 31, and B7
@@ -29,7 +31,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             structured pan's luma: B15 at base 16 (the 26 PU lists of the
             default layouts) and base 32, B14 at base 8 and 16, B13 on the
             8160 16x16 and 32640 8x8 tiles at their searched MVs and at
-            offsets 0..max, B12 at b = 64/32/16/8 on gathered windows, B8
+            offsets 0..max, B12 at b = 64/32/16/8 on gathered windows (B11,
+            B12 and B13 also on constant inputs, where every fraction ties:
+            B11 must take fraction 0 and B12/B13 give 16 equal costs), B8
             on the sub-block windows of the 8160 16x16 blocks at R = 16 and
             32, the 32640 8x8 blocks at R = 16, and the 510 CTUs at R = 32.
             The multi-reference kernels run on the multiref pan (below): B7
@@ -138,8 +142,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             card's own rates of mma.sync m16n8k32 u8 and of vabsdiff4 with
             .add (tools/b9_b15_phase_costs.py), and from them the design
             floors of K1/B7, B17 and B19 (the products of K1's core), B9 (its
-            terms, four an instruction), B15, B8, B14, and K2, B16 and B3
-            (the m16n8k32 products each issues) beside their bounds.
+            terms, four an instruction), B15, B8, B14, and K2, B16, B3, B11,
+            B12 and B13 (the m16n8k32 and m16n8k16 products each issues)
+            beside their bounds and device times.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -148,6 +153,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -336,20 +342,32 @@ def residual_ops(tu: int) -> int:
     return 2 * 4 * 4096 * tu
 
 
-def sass_count(build, kernel: str, opcode: str) -> int:
-    """Instructions of ``opcode`` in the SASS of every function of the
-    built library whose name holds ``kernel`` (cuobjdump -sass, from the
-    toolkit of the nvcc that built it)."""
-    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build.build())], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    count, inside = 0, False
-    for line in sass.splitlines():
+@functools.lru_cache(maxsize=None)
+def _sass(nvcc: str, lib: str) -> str:
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", lib], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+
+
+def sass_counts(build, kernel: str, opcode: str) -> dict[str, int]:
+    """{function: instructions of ``opcode``} in the SASS of each function
+    of the built library whose name holds ``kernel`` (cuobjdump -sass, from
+    the toolkit of the nvcc that built it, run once a library)."""
+    counts, name = {}, None
+    for line in _sass(build._nvcc(), str(build.build())).splitlines():
         if "Function :" in line:
-            inside = kernel in line
-        elif inside and opcode in line:
-            count += 1
-    return count
+            name = line.split("Function :")[1].strip()
+            name = name if kernel in name else None
+            if name:
+                counts[name] = 0
+        elif name and opcode in line:
+            counts[name] += 1
+    return counts
+
+
+def sass_count(build, kernel: str, opcode: str) -> int:
+    """sass_counts summed over the functions."""
+    return sum(sass_counts(build, kernel, opcode).values())
 
 
 def tc_floor_ms(n: int, k: int, r: int) -> float:
@@ -441,6 +459,22 @@ def refine_tc_products(n: int, refs: int = 1) -> tuple[int, int]:
     horizontal pass's 4 m tiles x 9 n tiles x 4 xf; m16n8k16, the vertical
     pass's 32 tiles x 16 candidates x 2 (hi, lo) and the winner's 32 x 2."""
     return n * refs * 4 * 9 * 4, n * refs * (32 * 16 * 2 + 32 * 2)
+
+
+def refine_tile_products(n: int, b: int, winner: bool) -> tuple[int, int]:
+    """The mma.sync products of B11 (winner) and B12/B13 for n tiles of side
+    b: at b = 64 K2's block core (refine_tc_products, less the winner's 64
+    m16n8k16 for a cost map); below, a warp's tile or pair of 8x8 tiles
+    (csrc/refine_tile_tc.cuh): m16n8k32, its m groups x n tiles of window
+    rows x 4 xf; m16n8k16, its fragments x 16 candidates x 2 (hi, lo), and
+    for B11 the winners' fragments x 2 a tile."""
+    if b == 64:
+        k32, k16 = refine_tc_products(n)
+        return k32, k16 - (0 if winner else n * 32 * 2)
+    per_warp, cg = (2 if b == 8 else 1), (2 if b == 32 else 1)
+    warps, frags = -(-n // per_warp), cg * b // 8
+    k16 = warps * frags * 16 * 2 + (warps * frags * per_warp * 2 if winner else 0)
+    return warps * cg * -(-(b + 7) // 8) * 4, k16
 
 
 def adversarial_plane(shape, device, invert: bool = False) -> torch.Tensor:
@@ -588,6 +622,17 @@ def main() -> int:
     for name, count in imma.items():
         if not count:
             raise AssertionError(f"{name}'s kernel has no IMMA (u8 tensor-core) instruction")
+    # B11, B12 and B13: every instance (tile side) of each kernel.
+    for name, kernels, sides in (("B11", ("refine_tile_kernel", "refine_ctu_kernel"), 4),
+                                 ("B12", ("costmap_windows_kernel", "costmap_ctu_kernel"), 4),
+                                 ("B13", ("costmap_plane_kernel",), 3)):
+        counts = {f: c for kernel in kernels for f, c in sass_counts(build, kernel, "IMMA").items()}
+        log(f"SASS: IMMA instructions in {name}'s {len(counts)} kernel instances: "
+            f"{sorted(counts.values())}")
+        if len(counts) != sides or not min(counts.values()):
+            raise AssertionError(f"{name}: a kernel instance has no IMMA instruction ({counts})")
+    if "refine_core.cuh" in (build.CSRC / "refine_fused.cu").read_text():
+        raise AssertionError("B11 includes the CUDA-core refinement (refine_core.cuh) again")
     for gone, whose in (("search_core.cuh", "B17/B19's"), ("grid_core.cuh", "B8/B14's")):
         if (build.CSRC / gone).exists() or any(
                 gone in f.read_text() for f in build.CSRC.glob("*.cu*")):
@@ -859,6 +904,16 @@ def main() -> int:
                       torch.full((tiles8.shape[0], 15, 15), 97, dtype=torch.uint8, device=dev))
     if not (bool((c_cost == c_cost[:, :1, :1]).all()) and bool((c_map == c_map[:, :1, :1]).all())):
         raise AssertionError("B12/B13 constant inputs: the fractions do not tie")
+    for b in (8, 16, 32, 64):
+        c_tiles = ctu_mod.split_blocks(b_src, b).contiguous()
+        c_win = torch.full((c_tiles.shape[0], b + 7, b + 7), 97, dtype=torch.uint8, device=dev)
+        c_pred, c_frac, _ = check("refine_quarter_pel_fused",
+                                  f"constant windows (all fractions tie), b={b}",
+                                  refine_quarter_pel_fused(c_tiles, c_win),
+                                  refine_quarter_pel_fused_ref(c_tiles, c_win),
+                                  f"tiles={tuple(c_tiles.shape)}")
+        if bool(c_frac.any()) or not bool((c_pred == 97).all()):
+            raise AssertionError(f"B11 constant windows, b={b}: not fraction 0 and the constant")
 
     # B7, B11, B16 and B4: the multi-reference P frame's kernels.
     mr_cur_np, mr_refs_np = multiref_pan(H, W)
@@ -1963,6 +2018,43 @@ def main() -> int:
             f"bound {b_ms:.4f} ms ({b_by}); kernel {k_ms:.4f} ms a call (device {d_ms:.4f}), "
             f"device at {floor / d_ms:.3f} of the floor and {b_ms / d_ms:.3f} of the bound"
             if d_ms else f"{tag} {name}: device time not measured")
+    # B11, B12 and B13: the products of their tensor-core tilings (a warp's
+    # tile below 64, K2's block core at 64) at mma.sync's own rates, beside
+    # the bound and the device time, at each shape timed.
+    n8 = tiles8.shape[0]
+    tile_rows = (
+        ("refine_quarter_pel_fused", "510 64x64 windows", 64, True,
+         lambda: refine_quarter_pel_fused(mr_src, mr_win), times["refine_quarter_pel_fused"][0],
+         costs["refine_quarter_pel_fused"]),
+        ("refine_quarter_pel_fused", "8160 16x16 tiles", 16, True,
+         lambda: refine_quarter_pel_fused(tiles16, win16),
+         more["refine_quarter_pel_fused 8160 16x16 tiles"][0],
+         (nbytes(tiles16, win16) + n16 * (256 + 8), n16 * refine_ops(16))),
+        ("refine_qpel_costmap", "8160 16x16 tiles", 16, False,
+         lambda: refine_qpel_costmap(tiles16, win16), times["refine_qpel_costmap"][0],
+         costs["refine_qpel_costmap"]),
+        ("refine_qpel_costmap", "510 64x64 tiles", 64, False,
+         lambda: refine_qpel_costmap(b_src, p_win[:, 32:103, 32:103]),
+         more["refine_qpel_costmap 510 64x64 tiles"][0],
+         (nbytes(b_src, p_win[:, 32:103, 32:103]) + n * 64, n * refine_ops(64))),
+        ("refine_qpel_costmap_dma", "8160 16x16 tiles", 16, False,
+         lambda: refine_qpel_costmap_dma(tiles16, p_padded, starts16),
+         times["refine_qpel_costmap_dma"][0], costs["refine_qpel_costmap_dma"]),
+        ("refine_qpel_costmap_dma", "32640 8x8 tiles", 8, False,
+         lambda: refine_qpel_costmap_dma(tiles8, p_padded, starts8),
+         more["refine_qpel_costmap_dma 32640 8x8 tiles"][0],
+         (nbytes(tiles8, p_padded, starts8) + n8 * (64 + 15 * 15), n8 * refine_ops(8))))
+    for name, what, b, winner, fn, k_ms, cost in tile_rows:
+        tiles_n = {64: n, 16: n16, 8: n8}[b]
+        k32, k16 = refine_tile_products(tiles_n, b, winner)
+        floor = (k32 / mma32_pps + k16 / mma16_pps) * 1e3
+        b_ms, b_by = bound(*cost)
+        d_ms = device_ms(fn)
+        log(f"{tag} {name} {what}: {k32} m16n8k32 + {k16} m16n8k16 products, design floor "
+            f"{floor:.4f} ms at mma.sync's own rates; bound {b_ms:.4f} ms ({b_by}); kernel "
+            f"{k_ms:.4f} ms a call (device {d_ms:.4f}), device at {floor / d_ms:.3f} of the "
+            f"floor and {b_ms / d_ms:.3f} of the bound" if d_ms else
+            f"{tag} {name} {what}: device time not measured")
     kernels = []
     for name, (src_path, replaces) in sources.items():
         bound_ms, bound_by = bound(*costs[name])

@@ -1,8 +1,9 @@
-// The quarter-pel refinement on the CUDA cores, shared by B11
-// (refine_fused.cu) and B19's refinement tail (mega.cu); K2 and B3 run the
-// tensor-core form (refine_tc_core.cuh).  hevcasm_tpu/kernels/interp_pallas.py
-// _refine_core for one BB x BB block (BB in {8, 16, 32, 64}) and its
-// (BB+7) x (BB+7) window:
+// The quarter-pel refinement on the CUDA cores, now serving only B19's
+// refinement tail (mega.cu); B5/B6 (mc.cu) take only its K8 table.  K2, B3,
+// B11, B12 and B13 run the tensor-core forms (refine_tc_core.cuh,
+// refine_tile_tc.cuh).  hevcasm_tpu/kernels/interp_pallas.py _refine_core
+// for one BB x BB block (BB in {8, 16, 32, 64}) and its (BB+7) x (BB+7)
+// window:
 //
 //   1. stage the window from device memory (rows row_stride bytes apart);
 //   2. 4 horizontal 8-tap passes (one per xf), each wrapped to int16;

@@ -2,7 +2,10 @@
 // K2 (inter_fused.cu, which B16 also launches) and B3 (bi_fused.cu):
 // hevcasm_tpu/kernels/interp_pallas.py _refine_core, which runs both FIR
 // passes as matrix products, carried over to Hopper's mma.sync with u8 and
-// s8 operands and exact s32 sums.
+// s8 operands and exact s32 sums.  B11 (refine_fused.cu) and B12
+// (costmap.cu) run it at side 64 on a gathered window (stage_gathered,
+// scores_gathered); their smaller tiles take its products, bands and score
+// in refine_tile_tc.cuh.
 //
 // Both passes multiply by the filter's band, band[o][k] = K8[f][k - o] for
 // 0 <= k - o < 8, else 0: 16 outputs read 23 consecutive inputs, 8 outputs
@@ -179,6 +182,32 @@ __device__ __forceinline__ void stage_window(const uint8_t* __restrict__ plane, 
   }
 }
 
+// Words of a window row of w bytes: the last one, short of the row's end,
+// is read byte by byte, the others as the aligned words that hold their
+// bytes (each holds a byte of the row), so no read leaves the row.
+__device__ __forceinline__ uint32_t row_word(const uint8_t* __restrict__ row, int c, int w) {
+  if (c + 4 <= w) return hevc_tc::load_word(row + c);
+  uint32_t v = 0u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (c + b < w) v |= static_cast<uint32_t>(__ldg(row + c + b)) << (8 * b);
+  return v;
+}
+
+// B11's and B12's form of stage_window for a gathered window (rows
+// row_stride bytes apart, w its top-left byte): only the 71 x 71 corner is
+// read and staged, by all NT threads; the rows and columns 71..79 that the
+// products also read keep whatever shared memory held, and meet only zero
+// taps.
+__device__ __forceinline__ void stage_gathered(const uint8_t* __restrict__ w,
+                                               long long row_stride, uint8_t* win) {
+  constexpr int WORDS = (WIN + 3) / 4;
+  for (int k = threadIdx.x; k < WIN * WORDS; k += NT) {
+    const int r = k / WORDS, q = k - r * WORDS;
+    *reinterpret_cast<uint32_t*>(win + r * WS + 4 * q) = row_word(w + r * row_stride, 4 * q, WIN);
+  }
+}
+
 // Step 2, by all warps: the 36 (m tile, n tile) pairs, each multiplied by
 // the 4 xf bands.  The A fragment of band xf: register 0 holds output
 // column g, inputs 4t .. 4t + 3 (the vertical pass's word); 1 column
@@ -347,6 +376,18 @@ __device__ __forceinline__ int refine(const uint8_t* __restrict__ plane, int pla
   __syncthreads();
   vertical_scores(sm.hp, sm.src, w, sm.red);
   return first_min(sm.red, best_cost);
+}
+
+// Steps 1-3 on a gathered window (B11 and B12 at 64), by all NT threads,
+// with s_src already staged: each warp's 16 sums are in s_red, visible
+// after the caller's next barrier; hp holds the intermediate.
+__device__ __forceinline__ void scores_gathered(const uint8_t* __restrict__ win, long long row_stride,
+                                                const Smem& sm, const uint32_t (&w)[4]) {
+  stage_gathered(win, row_stride, sm.win);
+  __syncthreads();
+  horizontal_pass(sm.win, sm.hp);
+  __syncthreads();
+  vertical_scores(sm.hp, sm.src, w, sm.red);
 }
 
 }  // namespace rtc

@@ -719,6 +719,59 @@ def test_b12_b13_reject_what_they_do_not_take(cuda):
         costmap.refine_qpel_costmap_dma(src[:, :8, :8].contiguous(), plane[:12], offs)
 
 
+# ---- B11, B12 and B13 on the tensor cores: every side, layouts and extremes -------
+
+TILE_COUNTS = {8: 33, 16: 17, 32: 9, 64: 5}
+
+
+def refine_windows(b, n, seed, device, layout, content):
+    """Sources and gathered windows for B11/B12: exactly (n, b+7, b+7) (the
+    last window ends where its allocation does), or a view of a larger
+    stack with odd strides and an unaligned first byte; random content or
+    the planes that drive the horizontal pass to 22440 / -6120."""
+    rng = np.random.default_rng(seed)
+    w = b + 7
+    if content == "random":
+        src = random_u8(rng, (n, b, b), device)
+        big = random_u8(rng, (n, w + 5, w + 9), device)
+    else:
+        src = torch.as_tensor(np.where(rng.random((n, b, b)) < 0.5, 0, 255).astype(np.uint8),
+                              device=device)
+        plane = chip_smoke.adversarial_plane((w + 5, n * (w + 9)), device,
+                                             content.endswith("inverted"))
+        big = plane.reshape(w + 5, n, w + 9).transpose(0, 1).contiguous()
+    win = big[:, 2:2 + w, 3:3 + w]
+    return src, (win.contiguous() if layout == "exact" else win)
+
+
+@pytest.mark.parametrize("b", [8, 16, 32, 64])
+@pytest.mark.parametrize("layout", ["exact", "strided"])
+@pytest.mark.parametrize("content", ["random", "adversarial", "adversarial inverted"])
+def test_b11_b12_tensor_cores_at_every_side_and_layout(cuda, b, layout, content):
+    src, win = refine_windows(b, TILE_COUNTS[b], b + len(content), cuda, layout, content)
+    assert (win.stride(0) == (b + 7) ** 2) == (layout == "exact")
+    assert_bit_equal(inter_fused.refine_quarter_pel_fused(src, win),
+                     inter_fused.refine_quarter_pel_fused_ref(src, win))
+    assert_bit_equal([costmap.refine_qpel_costmap(src, win)],
+                     [costmap.refine_qpel_costmap_ref(src, win)])
+
+
+@pytest.mark.parametrize("b", [8, 16, 32])
+@pytest.mark.parametrize("content", ["random", "adversarial", "adversarial inverted", "constant"])
+def test_b13_tensor_cores_at_every_side(cuda, b, content):
+    n = TILE_COUNTS[b]
+    src, plane, offs = b13_case(b, n, 7 * b, cuda, hp=3 * b + 20, wp=4 * b + 30)
+    if content == "constant":
+        plane = torch.full_like(plane, 40)
+    elif content != "random":
+        plane = chip_smoke.adversarial_plane(plane.shape, cuda, content.endswith("inverted"))
+        src = torch.where(src < 128, 0, 255).to(torch.uint8)
+    cost, win = costmap.refine_qpel_costmap_dma(src, plane, offs)
+    assert_bit_equal((cost, win), costmap.refine_qpel_costmap_dma_ref(src, plane, offs))
+    if content == "constant":
+        assert bool((cost == cost[:, :1, :1]).all())
+
+
 # ---- B14 and B15: base_grids_ctu and base_layout_decide --------------------------
 
 DEFAULT_LAYOUTS = ("2Nx2N", "2NxN", "Nx2N", "NxN", "quarter")

@@ -15,7 +15,8 @@ min and max) of 20 samples of
   1920x1088, EncodeConfig(search_range=32, qp=32, inter_impl="fused_dma"),
   synchronised per frame;
 * the multi-reference P frame, encode_inter_frame_multiref on chip_smoke's
-  multiref pan with k = 4 and the same config;
+  multiref pan with k = 4 and the same config, and with k = 2,
+  fused_refine=True and residual_impl="pallas" (B7 + B11 + B4);
 * the luma P frame under me_metric="sad" (B9 + K2), under search_impl
   "dma" and "mv" (B17 + K2), under inter_impl "mega" (B19) and under
   me_strategy "pyramid" (B8 twice + K2), and the RDO P frame with
@@ -35,9 +36,13 @@ min and max) of 20 samples of
   windows at random MVs in [-32, 32]: K2 (inter_ctu_fused_dma), B16
   (inter_ctu_fused on the gathered windows), B3 (bi_ctu_fused_dma on the
   reference and chip_smoke's multiref reference 0 stacked by rows), B11
-  (refine_quarter_pel_fused on the same windows) and B4 at 8x8 TUs, each
-  also as device time (torch.profiler's kernel self time a call, over 10
-  calls, 5 samples), since their wrappers' host work can bound a call;
+  (refine_quarter_pel_fused on the same windows) and B4 at 8x8 TUs, and
+  the PU decision's cost maps on the structured pan: B13
+  (refine_qpel_costmap_dma) on its 8160 16x16 and 32640 8x8 tiles, B12
+  (refine_qpel_costmap) and B11 on the 16x16 tiles' gathered windows, each
+  tile's window at a random MV in [-32, 32]; each also as device time
+  (torch.profiler's kernel self time a call, over 10 calls, 5 samples),
+  since their wrappers' host work can bound a call;
 * the 4:2:0 P and B frames, encode_inter_frame_yuv and encode_b_frame_yuv
   on chip_smoke's structured pan with the luma P frame's config.
 
@@ -72,6 +77,7 @@ def measure() -> dict:
     from hevcasm_tpu_torch.encode import partition
     from hevcasm_tpu_torch.kernels import build
     from hevcasm_tpu_torch.kernels.base_grids import base_grids_ctu, base_layout_decide
+    from hevcasm_tpu_torch.kernels.costmap import refine_qpel_costmap, refine_qpel_costmap_dma
     from hevcasm_tpu_torch.kernels.mega import encode_ctu_mega
     from hevcasm_tpu_torch.kernels.sad import sad, sad_grid, sad_multiref
     from hevcasm_tpu_torch.kernels.search import (search_mv, search_mv_dma, ssd_grid,
@@ -129,6 +135,7 @@ def measure() -> dict:
     lists16 = partition._pu_lists(layouts, 16)
     lists32 = partition._pu_lists(layouts[:4], 32)
     sad_cfg = EncodeConfig(search_range=r, qp=32, inter_impl="fused_dma", me_metric="sad")
+    refine_cfg = EncodeConfig(search_range=r, qp=32, fused_refine=True, residual_impl="pallas")
     pu_cfg = EncodeConfig(search_range=r, qp=32, pu_decision=True)
     pu_sad_cfg = EncodeConfig(search_range=r, qp=32, pu_decision=True, me_metric="sad")
     pu_r16_cfg = EncodeConfig(search_range=16, qp=32, pu_decision=True)
@@ -153,6 +160,21 @@ def measure() -> dict:
     yuv = [YuvFrame(*(torch.as_tensor(p, device=dev) for p in f))
            for f in cs.structured_pan(h, w)]
 
+    # B13, B12 and B11 at the PU decision's tiles: tile i's window at its
+    # position plus a random MV plus R in the pan's padded plane.
+    def pu_tiles(b):
+        k = 64 // b
+        tiles = ctu_mod.split_blocks(pan_src, b).contiguous()
+        offs = torch.tensor([(ty * b, tx * b) for ty in range(k) for tx in range(k)],
+                            dtype=torch.int32, device=dev)
+        mv = torch.as_tensor(np.random.default_rng(b).integers(-r, r + 1, (n, k * k, 2)),
+                             device=dev)
+        starts = (pos[:, None] + offs[None] + mv + r).reshape(-1, 2).to(torch.int32).contiguous()
+        return tiles, starts, motion.extract_windows(p_padded, starts, b + 7)
+
+    t16, s16, w16 = pu_tiles(16)
+    t8, s8, _ = pu_tiles(8)
+
     def stats(samples):
         return {"median": statistics.median(samples), "min": samples[0], "max": samples[-1]}
 
@@ -168,6 +190,10 @@ def measure() -> dict:
         "b3": lambda: bi_ctu_fused_dma(src, b3_flat, k2_off, b3_off1, *qargs),
         "b11": lambda: refine_quarter_pel_fused(src, k2_win),
         "b4_8x8": lambda: residual_pipeline_ctu(src, b_ref, *qargs),
+        "b13_8160_16x16": lambda: refine_qpel_costmap_dma(t16, p_padded, s16),
+        "b13_32640_8x8": lambda: refine_qpel_costmap_dma(t8, p_padded, s8),
+        "b12_8160_16x16": lambda: refine_qpel_costmap(t16, w16),
+        "b11_8160_16x16": lambda: refine_quarter_pel_fused(t16, w16),
     }
 
     return {
@@ -175,6 +201,8 @@ def measure() -> dict:
         "luma_p_frame_ms": stats(cs.samples_ms(lambda: encode_inter_frame(cur, ref, cfg))),
         "multiref_k4_frame_ms": stats(cs.samples_ms(
             lambda: encode_inter_frame_multiref(mr_cur, mr_refs, cfg))),
+        "multiref_k2_refine_frame_ms": stats(cs.samples_ms(
+            lambda: encode_inter_frame_multiref(mr_cur, mr_refs[:2], refine_cfg))),
         "k1_ms": stats(cs.samples_ms(lambda: ssd_grid_plane(src, plane, grid, num), calls=10)),
         "b7_k4_ms": stats(cs.samples_ms(lambda: ssd_grid_plane_multi(src, view, grid, num),
                                         calls=10)),
