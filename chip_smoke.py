@@ -13,11 +13,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
             show IMMA, the u8/s8 tensor-core product, in K1/B7's kernel, in
             B8's, B14's, B15's, B17's, B19's, K2's (which B16 launches) and
             B3's, and in every instance of B11's, B12's and B13's kernels
-            (each tile side), and VABSDIFF4, the packed absolute
-            difference, in B9's; the CUDA-core search loop that B17 and B19
-            ran before they took K1's core (csrc/search_core.cuh) must be
-            gone, and B11 must no longer include the CUDA-core refinement
-            (csrc/refine_core.cuh).
+            (each tile side), at least 16 in every instance of B4's (each
+            TU size: a warp's four transform passes), and VABSDIFF4, the
+            packed absolute difference, in B9's; the CUDA-core search loop
+            that B17 and B19 ran before they took K1's core
+            (csrc/search_core.cuh) must be gone, B11 must no longer include
+            the CUDA-core refinement (csrc/refine_core.cuh), and
+            csrc/residual_core.cuh must no longer hold the CUDA-core
+            residual stage (tmat).
 3. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit on every output: the 1080p shapes (510 CTUs, R = 32), an
             odd grid width (3) at R = 8 (K1 also at R = 1, 2 and 31, and B7
@@ -42,7 +45,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
             at the searched MVs and on the 8160 16x16 tiles; B16 on 510
             windows at random MVs, unbatched and in groups of 4 (which do
             not divide 510); B4 on 510 CTUs at 4x4 TUs with the DST-VII and
-            the DCT, and at 8, 16 and 32.  The search configurations'
+            the DCT, and at 8, 16 and 32, and at each of them on the
+            residual's full-swing CTUs (255 over 0 and the reverse,
+            checkerboards, random 0/255, beside random ones) at qp 32 and at
+            the quantizer parameters' range edges (RESIDUAL_EDGE_QARGS).
+            The search configurations'
             kernels: B9 on the pyramid's shapes (510 16x16 decimated blocks
             at num 17, 510 CTUs at num 7), the full search (510 CTUs, R =
             32) and the PU decision's 8160 16x16 blocks at R = 32; B17
@@ -143,8 +150,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
             .add (tools/b9_b15_phase_costs.py), and from them the design
             floors of K1/B7, B17 and B19 (the products of K1's core), B9 (its
             terms, four an instruction), B15, B8, B14, and K2, B16, B3, B11,
-            B12 and B13 (the m16n8k32 and m16n8k16 products each issues)
-            beside their bounds and device times.
+            B12 and B13 (the m16n8k32 and m16n8k16 products each issues,
+            K2's, B16's and B3's with their residual stage's) beside their
+            bounds and device times; B4's at each TU size: its products at
+            mma.sync's own rates plus its other SASS instructions (a warp
+            runs each once for its tile) at the CUDA cores' issue rate,
+            beside its bound and device time (torch.profiler), and B19's
+            device time.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -340,6 +352,53 @@ def residual_ops(tu: int) -> int:
     """Operations of one 64x64 CTU's residual: four separable transform
     passes of 4096 outputs, each tu multiply-adds."""
     return 2 * 4 * 4096 * tu
+
+
+def residual_tc_products(n: int, tu: int) -> tuple[int, int]:
+    """(m16n8k16, m16n8k32) products the tensor-core residual stage issues
+    for n CTUs (csrc/residual_core.cuh): a warp's W x W tile takes 2 a pass
+    and n8 tile for each of its W / 16 m tiles, four passes; W = 16 with
+    k16 up to 16x16 TUs, W = 32 with k32 at 32x32."""
+    w = 32 if tu == 32 else 16
+    per_ctu = (64 // w) ** 2 * 4 * (w // 16) * (w // 8) * 2
+    return (n * per_ctu, 0) if w == 16 else (0, n * per_ctu)
+
+
+# The residual stage's content: name -> the CTUs [start, stop) it has in
+# residual_ctus' stack.
+RESIDUAL_CONTENTS = {"random": (0, 2), "src 255 over pred 0": (2, 3),
+                     "src 0 over pred 255": (3, 4), "checkerboards": (4, 5),
+                     "random 0 and 255": (5, 6)}
+# Quantizer parameters (qscale, qshift, qoffset, dscale, dshift) at the ends
+# of the ranges the C entries take: levels near half the coefficient with a
+# dequantizer past its clip; the largest shifts with a dequantizer product
+# that wraps int32; a dequantizer product far past 2^32.
+RESIDUAL_EDGE_QARGS = {
+    "qscale 2^15-1, qshift 16, dshift 1": (32767, 16, 32767, 18432, 1),
+    "qshift 27, dshift 31": (32767, 27, 32767, 1 << 28, 31),
+    "dequantizer product past 2^32": (32767, 16, 0, (1 << 20) + 3, 16),
+}
+
+
+def b4_name(tu: int, tr_type: int) -> str:
+    """The name B4 is timed under at (tu, tr_type): 8x8 DCT is its row."""
+    if (tu, tr_type) == (8, 0):
+        return "residual_pipeline_ctu"
+    return f"residual_pipeline_ctu 510 CTUs, tu={tu} {'DST' if tr_type else 'DCT'}"
+
+
+def residual_ctus(rng) -> tuple[np.ndarray, np.ndarray]:
+    """(src, pred) (6, 64, 64) uint8 of RESIDUAL_CONTENTS: random CTUs, and
+    full-swing ones that drive every transform pass to its extremes."""
+    src = rng.integers(0, 256, (6, 64, 64), dtype=np.uint8)
+    pred = rng.integers(0, 256, (6, 64, 64), dtype=np.uint8)
+    src[2], pred[2] = 255, 0
+    src[3], pred[3] = 0, 255
+    checker = (np.add.outer(np.arange(64), np.arange(64)) & 1).astype(np.uint8) * 255
+    src[4], pred[4] = checker, 255 - checker
+    src[5] = rng.integers(0, 2, (64, 64), dtype=np.uint8) * 255
+    pred[5] = rng.integers(0, 2, (64, 64), dtype=np.uint8) * 255
+    return src, pred
 
 
 @functools.lru_cache(maxsize=None)
@@ -633,6 +692,15 @@ def main() -> int:
             raise AssertionError(f"{name}: a kernel instance has no IMMA instruction ({counts})")
     if "refine_core.cuh" in (build.CSRC / "refine_fused.cu").read_text():
         raise AssertionError("B11 includes the CUDA-core refinement (refine_core.cuh) again")
+    # B4: every instance (TU size) runs its four passes on the tensor cores,
+    # at least 16 products a warp's tile, and the CUDA-core stage is gone.
+    b4_imma = sass_counts(build, "residual_ctu_kernel", "IMMA")
+    log(f"SASS: IMMA instructions in B4's {len(b4_imma)} kernel instances: "
+        f"{sorted(b4_imma.values())}")
+    if len(b4_imma) != 5 or min(b4_imma.values()) < 16:
+        raise AssertionError(f"B4: an instance lacks its tensor-core passes ({b4_imma})")
+    if "tmat<" in (build.CSRC / "residual_core.cuh").read_text():
+        raise AssertionError("the CUDA-core residual stage (tmat) is back in residual_core.cuh")
     for gone, whose in (("search_core.cuh", "B17/B19's"), ("grid_core.cuh", "B8/B14's")):
         if (build.CSRC / gone).exists() or any(
                 gone in f.read_text() for f in build.CSRC.glob("*.cu*")):
@@ -984,6 +1052,17 @@ def main() -> int:
                                     tr_type=tr_type),
               residual_pipeline_ctu_ref(b_src, b4_pred, *b4_args[(tu, tr_type)], tu=tu,
                                         tr_type=tr_type), "n=510")
+    # Full-swing CTUs (255 over 0 and the reverse, checkerboards, random
+    # 0/255) beside random ones, at qp 32 and at the quantizer's range edges.
+    rs_src, rs_pred = (torch.as_tensor(a, device=dev)
+                       for a in residual_ctus(np.random.default_rng(13)))
+    for (tu, tr_type), q32 in b4_args.items():
+        for qname, q in (("qp 32", q32), *RESIDUAL_EDGE_QARGS.items()):
+            check("residual_pipeline_ctu",
+                  f"full swing, tu={tu} {'DST' if tr_type else 'DCT'}, {qname}",
+                  residual_pipeline_ctu(rs_src, rs_pred, *q, tu=tu, tr_type=tr_type),
+                  residual_pipeline_ctu_ref(rs_src, rs_pred, *q, tu=tu, tr_type=tr_type),
+                  "n=6")
 
     # B9, B17 and B19: the search configurations' kernels.
     def check_b9(what, blocks, windows, num):
@@ -1740,6 +1819,9 @@ def main() -> int:
         "inter_ctu_fused_dma": lambda: inter_ctu_fused_dma(src, padded, k2_offsets, *qargs),
         "bi_ctu_fused_dma": lambda: bi_ctu_fused_dma(b_src, b_flat, b3_off0, b3_off1, *qargs),
         "inter_ctu_fused": lambda: inter_ctu_fused(src, b16_win, *qargs),
+        "encode_ctu_mega": lambda: encode_ctu_mega(src, padded, pos, SEARCH_RANGE, *qargs),
+        **{b4_name(tu, tr): lambda tu=tu, tr=tr: residual_pipeline_ctu(
+            b_src, b4_pred, *b4_args[(tu, tr)], tu=tu, tr_type=tr) for tu, tr in b4_args},
     }
     device = {}
     for what, fn in profiled.items():
@@ -1804,7 +1886,7 @@ def main() -> int:
             median_ms(lambda: inter_ctu_fused_batched(src, b16_win, *qargs, group=4),
                       calls=10),
             median_ms(lambda: inter_ctu_fused_ref(src, b16_win, *qargs))),
-        **{f"residual_pipeline_ctu 510 CTUs, tu={tu} {'DST' if tr else 'DCT'}": (
+        **{b4_name(tu, tr): (
             median_ms(lambda: residual_pipeline_ctu(b_src, b4_pred, *b4_args[(tu, tr)], tu=tu,
                                                     tr_type=tr), calls=10),
             median_ms(lambda: residual_pipeline_ctu_ref(b_src, b4_pred, *b4_args[(tu, tr)],
@@ -2001,7 +2083,8 @@ def main() -> int:
     }
     costs["base_layout_decide_fc"] = costs["base_layout_decide"]
     # K2 (and B16, its kernel on gathered windows) and B3: the refinement's
-    # m16n8k32 products at mma.sync's own rate, beside the bound.
+    # and the residual stage's products at mma.sync's own rates, beside the
+    # bound.
     mma16_pps = rates["mma.sync m16n8k16 s8"]["products_per_s"]
     mma32_pps = rates["mma.sync m16n8k32 u8"]["products_per_s"]
     log(f"{tag} the card's own rate of mma.sync m16n8k16 s8: "
@@ -2009,6 +2092,7 @@ def main() -> int:
     for name, refs in (("inter_ctu_fused_dma", 1), ("inter_ctu_fused", 1),
                        ("bi_ctu_fused_dma", 2)):
         k32, k16 = refine_tc_products(n, refs)
+        k16 += residual_tc_products(n, 8)[0]      # the residual stage's
         b_ms, b_by = bound(*costs[name])
         k_ms = times[name][0]
         d_ms = device[name]
@@ -2017,6 +2101,31 @@ def main() -> int:
             f"({(k32 + k16) // n} a CTU), design floor {floor:.4f} ms at mma.sync's own rates; "
             f"bound {b_ms:.4f} ms ({b_by}); kernel {k_ms:.4f} ms a call (device {d_ms:.4f}), "
             f"device at {floor / d_ms:.3f} of the floor and {b_ms / d_ms:.3f} of the bound"
+            if d_ms else f"{tag} {name}: device time not measured")
+    # B4 at each TU size: its products at mma.sync's own rates, plus the rest
+    # of its instructions (quantizer, byte splits, loads, stores, shuffles)
+    # at the CUDA cores' issue rate: each instance's SASS instructions,
+    # which a warp runs once for its tile (the code has no loop).
+    b4_all, b4_nop = (sass_counts(build, "residual_ctu_kernel", op) for op in (" ;", "NOP"))
+    b4_sass = {f: (b4_all[f] - b4_nop[f], imma)
+               for f, imma in sass_counts(build, "residual_ctu_kernel", "IMMA").items()}
+    for tu, tr in b4_args:
+        name = b4_name(tu, tr)
+        k16, k32 = residual_tc_products(n, tu)
+        instr, imma = next(v for f, v in b4_sass.items() if f"ILi{tu}ELb{tr}E" in f)
+        warps = n * (64 // (32 if tu == 32 else 16)) ** 2
+        t_mma = (k16 / mma16_pps + k32 / mma32_pps) * 1e3
+        t_cores = (instr - imma) * warps * 32 / INT_INSTR_PER_S * 1e3
+        b_ms, b_by = bound(nbytes(b_src, b4_pred) + n * (4096 + 4 * (64 // tu) ** 2),
+                           n * residual_ops(tu))
+        k_ms = (times if name == "residual_pipeline_ctu" else more)[name][0]
+        d_ms = device[name]
+        log(f"{tag} {name}: {k16} m16n8k16 + {k32} m16n8k32 products ({t_mma:.4f} ms at "
+            f"mma.sync's own rates) and {instr - imma} other SASS instructions a warp's tile "
+            f"x {warps} tiles ({t_cores:.4f} ms at {INT_INSTR_PER_S / 1e12:.1f} T thread "
+            f"instructions/s): design floor {t_mma + t_cores:.4f} ms; bound {b_ms:.4f} ms "
+            f"({b_by}); kernel {k_ms:.4f} ms a call (device {d_ms:.4f}), device at "
+            f"{(t_mma + t_cores) / d_ms:.3f} of the floor and {b_ms / d_ms:.3f} of the bound"
             if d_ms else f"{tag} {name}: device time not measured")
     # B11, B12 and B13: the products of their tensor-core tilings (a warp's
     # tile below 64, K2's block core at 64) at mma.sync's own rates, beside

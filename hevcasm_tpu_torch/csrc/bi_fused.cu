@@ -19,8 +19,10 @@
 //   5b. p1 = wrap16(acc >> 6) of reference 1's winner arrives in the same
 //      layout, so pred = clip((p0 + p1 + 64) >> 7, 0, 255) needs no
 //      exchange; it goes to shared memory;
-//   6-8. residual_core<8> (residual_core.cuh): 8x8 DCT, quantize, per-TU
-//      nnz and Exp-Golomb bits, dequantize, inverse DCT, add and clip.
+//   6-8. residual_ctu8 (residual_core.cuh): 8x8 DCT, quantize, per-TU nnz
+//      and Exp-Golomb bits, dequantize, inverse DCT, add and clip, the
+//      transform passes on mma.sync; each warp codes the pixels whose
+//      prediction it wrote, after a __syncwarp only.
 //
 // The shift is arithmetic on the unbiased accumulator (the TPU kernel
 // carries a +2048 rounding bias in its raw quadrants and subtracts it
@@ -91,7 +93,7 @@ bi_fused_kernel(const uint8_t* __restrict__ src,
   const int best1 = rtc::first_min(sm.red, best_cost);
   if (threadIdx.x == 0) frac1_out[i] = best1;
   // The prediction goes to sm.win (row stride B): the horizontal pass has
-  // read the window.
+  // read the window.  Each warp writes the pixels residual_ctu8 gives it.
 #pragma unroll
   for (int j = 0; j < rtc::TILES; ++j) {
     int d[4];
@@ -104,13 +106,12 @@ bi_fused_kernel(const uint8_t* __restrict__ src,
           static_cast<uint8_t>(clip3(0, 255, (p + wrap16(d[r] >> 6) + 64) >> 7));
     }
   }
-  __syncthreads();
+  __syncwarp();
 
-  residual_core<8>(sm.src, sm.win, reinterpret_cast<int*>(sm.hp), sm.nnz, sm.bits,
-                   rec + static_cast<size_t>(i) * B * B,
-                   nnz_out + static_cast<size_t>(i) * NTU * NTU,
-                   bits_out + static_cast<size_t>(i) * NTU * NTU, qscale,
-                   qshift, qoffset, dscale, dshift);
+  residual_ctu8(sm.src, sm.win, rec + static_cast<size_t>(i) * B * B,
+                nnz_out + static_cast<size_t>(i) * NTU * NTU,
+                bits_out + static_cast<size_t>(i) * NTU * NTU,
+                {qscale, qshift, qoffset, dscale, dshift});
 }
 
 }  // namespace

@@ -12,17 +12,21 @@
 //      yf*4 + xf order;
 //   5. the winner's accumulator from one more product pair a tile:
 //      pred = clip((acc + 2048) >> 12, 0, 255) into shared memory;
-//   6-8. residual_core<8> (residual_core.cuh): 8x8 DCT, quantize, per-TU
-//      nnz and Exp-Golomb bits, dequantize, inverse DCT, add and clip.
+//   6-8. residual_ctu8 (residual_core.cuh): 8x8 DCT, quantize, per-TU nnz
+//      and Exp-Golomb bits, dequantize, inverse DCT, add and clip, the four
+//      transform passes on mma.sync too; each warp codes the 32 x 16
+//      pixels whose prediction it wrote in step 5, so no block barrier
+//      separates the two steps.
 //
 // What bounds it on the H100: per CTU 9 KB in and 4.6 KB out (0.002 ms for
 // 510 CTUs at 3.35 TB/s), and 144 m16n8k32 products (horizontal) and 1,088
-// m16n8k16 (1,024 vertical, 64 for the winner): ~0.003 ms at mma.sync's own
-// rate, so neither bytes nor products; the CUDA-core work left (the score's
-// 16 x 4096 absolute differences, the hi/lo stores, the residual) and the
-// block's barriers are.  The design keeps every candidate in accumulator
-// registers (no candidate plane in shared memory), and 51 KB of shared
-// memory a block lets four CTUs share an SM, so 510 CTUs run in one wave.
+// m16n8k16 (1,024 vertical, 64 for the winner, 256 the residual's): ~0.003
+// ms at mma.sync's own rate, so neither bytes nor products; the CUDA-core
+// work left (the score's 16 x 4096 absolute differences, the hi/lo stores,
+// the quantizer) and the block's barriers are.  The design keeps every
+// candidate in accumulator registers (no candidate plane in shared
+// memory), and 51 KB of shared memory a block lets four CTUs share an SM,
+// so 510 CTUs run in one wave.
 
 #include "refine_tc_core.cuh"
 
@@ -40,8 +44,7 @@ inter_fused_kernel(const uint8_t* __restrict__ src,
                    int qscale, int qshift, int qoffset, int dscale,
                    int dshift) {
   // sm.win holds the window until the horizontal pass is done, then the
-  // prediction; sm.hp holds the intermediate until the winner is
-  // recomputed, then the residual stage's two int32 64x64 planes.
+  // prediction; sm.hp holds the intermediate.
   extern __shared__ __align__(128) uint8_t smem[];
   const rtc::Smem sm = rtc::carve(smem);
   const int i = blockIdx.x;
@@ -58,6 +61,8 @@ inter_fused_kernel(const uint8_t* __restrict__ src,
   }
 
   // ---- 5. the winning prediction, into sm.win (row stride B) --------------
+  // Each warp writes the pixels of its vertical-pass tiles, the pixels
+  // residual_ctu8 gives it.
   // The hi product starts from 8: 8 * 256 = 2048, the rounding of >> 12.
 #pragma unroll
   for (int j = 0; j < rtc::TILES; ++j) {
@@ -67,13 +72,12 @@ inter_fused_kernel(const uint8_t* __restrict__ src,
     for (int r = 0; r < 4; ++r)
       sm.win[rtc::tile_y(j, r) * B + rtc::tile_x(r)] = static_cast<uint8_t>(clip3(0, 255, d[r] >> 12));
   }
-  __syncthreads();
+  __syncwarp();
 
-  residual_core<8>(sm.src, sm.win, reinterpret_cast<int*>(sm.hp), sm.nnz, sm.bits,
-                   rec + static_cast<size_t>(i) * B * B,
-                   nnz_out + static_cast<size_t>(i) * NTU * NTU,
-                   bits_out + static_cast<size_t>(i) * NTU * NTU, qscale,
-                   qshift, qoffset, dscale, dshift);
+  residual_ctu8(sm.src, sm.win, rec + static_cast<size_t>(i) * B * B,
+                nnz_out + static_cast<size_t>(i) * NTU * NTU,
+                bits_out + static_cast<size_t>(i) * NTU * NTU,
+                {qscale, qshift, qoffset, dscale, dshift});
 }
 
 }  // namespace

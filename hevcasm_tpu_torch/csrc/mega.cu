@@ -13,8 +13,9 @@
 //   2. the 71x71 refine window at (py + dy, px + dx), i.e. at the integer MV
 //      (dy - R, dx - R), refined by QPEL_SCORE (refine_select of
 //      csrc/refine_core.cuh), the winner recomputed;
-//   3. residual_core<8> (csrc/residual_core.cuh): 8x8 DCT, quantize, per-TU
-//      nnz, dequantize, inverse DCT, add and clip.
+//   3. residual_ctu8 (csrc/residual_core.cuh): 8x8 DCT, quantize, per-TU
+//      nnz, dequantize, inverse DCT, add and clip, the transform passes on
+//      mma.sync.
 //
 // Outputs rec (n, 64, 64) uint8, mv (n, 2), frac (n,), best SSD (n,) and nnz
 // (n, 8, 8) int32, equal to K1 + first minimum + K2.  No score grid and no
@@ -25,7 +26,7 @@
 // K1 and B17, with K2's refinement and residual (about 0.7 M multiply-adds
 // a CTU) after it.
 //
-// Design: one 256-thread block per CTU (refine_core and residual_core want
+// Design: one 256-thread block per CTU (refine_core and residual_ctu8 want
 // NT = 256), 71 KB of shared memory and at most 128 registers a thread, so
 // two blocks share an SM and the 510 CTUs of a 1920x1088 frame take two
 // waves of 264 (K1's five warps hold 36 accumulators a thread at up to 102
@@ -65,8 +66,6 @@ struct MegaSmem {
     RefineSmem refine;     // stages 2 and 3
   };
   __align__(16) uint8_t src[B * B];
-  int nnz[NTU * NTU];
-  int bits[NTU * NTU];
   unsigned long long keys[NT / 32];
   int32_t red[NT / 32];
 };
@@ -137,10 +136,9 @@ mega_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ plane,
   __syncthreads();
 
   // ---- 3. residual ----------------------------------------------------------
-  residual_core<8>(m.src, s_pred, reinterpret_cast<int*>(m.refine.hp), m.nnz, m.bits,
-                   rec + static_cast<size_t>(i) * B * B,
-                   nnz_out + static_cast<size_t>(i) * NTU * NTU, nullptr, qscale, qshift,
-                   qoffset, dscale, dshift);
+  residual_ctu8(m.src, s_pred, rec + static_cast<size_t>(i) * B * B,
+                nnz_out + static_cast<size_t>(i) * NTU * NTU, nullptr,
+                {qscale, qshift, qoffset, dscale, dshift});
 }
 
 }  // namespace

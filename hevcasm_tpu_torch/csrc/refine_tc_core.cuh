@@ -63,31 +63,25 @@ constexpr int MT = B / 16;                 // 4 m16 tiles of output columns
 constexpr int H_NT = ROWS / 8;             // 9 n8 tiles of window rows
 constexpr int TILES = 4;                   // a warp's vertical tiles of 16 x 8
 static_assert(NWARPS * TILES * 16 * 8 == B * B, "the warps' vertical tiles cover the CTU");
-static_assert(2 * B * B * 4 <= HP_BYTES, "the residual's two int32 planes reuse hp");
 static_assert(B * B <= WIN_BYTES, "the prediction reuses the window");
 
-// Shared memory of a block: hp, the window, the source, the per-warp sums
-// and the residual's per-TU counts.
+// Shared memory of a block: hp, the window, the source and the per-warp
+// sums (the residual stage needs none).
 constexpr int SM_HP = 0;
 constexpr int SM_WIN = SM_HP + HP_BYTES;
 constexpr int SM_SRC = SM_WIN + WIN_BYTES;
 constexpr int SM_RED = SM_SRC + B * B;
-constexpr int SM_NNZ = SM_RED + NWARPS * 16 * 4;
-constexpr int SM_BITS = SM_NNZ + (B / 8) * (B / 8) * 4;
-constexpr int SMEM = SM_BITS + (B / 8) * (B / 8) * 4;    // 51840: four blocks an SM
+constexpr int SMEM = SM_RED + NWARPS * 16 * 4;    // 51328: four blocks an SM
 
 struct Smem {
   uint8_t* hp;
   uint8_t* win;
   uint8_t* src;
   int* red;
-  int* nnz;
-  int* bits;
 };
 
 __device__ __forceinline__ Smem carve(uint8_t* smem) {
-  return {smem + SM_HP, smem + SM_WIN, smem + SM_SRC, reinterpret_cast<int*>(smem + SM_RED),
-          reinterpret_cast<int*>(smem + SM_NNZ), reinterpret_cast<int*>(smem + SM_BITS)};
+  return {smem + SM_HP, smem + SM_WIN, smem + SM_SRC, reinterpret_cast<int*>(smem + SM_RED)};
 }
 
 // KERNEL8[f] as 8 signed bytes, tap 0 in the low byte.
@@ -144,10 +138,6 @@ __device__ __forceinline__ void mma_k16_u8s8(int (&d)[4], uint32_t a0, uint32_t 
       "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(a1), "r"(b));
-}
-
-__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // The CTU's 64 rows of 64 bytes in device memory (any alignment) into

@@ -567,6 +567,41 @@ def test_b4_matches_plain(cuda, tu, tr_type, qp, n):
                                                                   tr_type=tr_type))
 
 
+@pytest.mark.parametrize("qset", ["qp 32", *chip_smoke.RESIDUAL_EDGE_QARGS])
+@pytest.mark.parametrize("tu,tr_type", [(4, 1), (4, 0), (8, 0), (16, 0), (32, 0)])
+def test_b4_full_swing_and_quantizer_range_edges(cuda, tu, tr_type, qset):
+    # tests/test_torch_residual_tc.py's cases: random, full-swing (255 over
+    # 0 and the reverse, checkerboards, random 0/255) CTUs, at qp 32 and at
+    # the quantizer parameters' range edges.
+    src, pred = (torch.as_tensor(a, device=cuda)
+                 for a in chip_smoke.residual_ctus(np.random.default_rng(tu + 5 * tr_type)))
+    if qset in chip_smoke.RESIDUAL_EDGE_QARGS:
+        qargs = chip_smoke.RESIDUAL_EDGE_QARGS[qset]
+    else:
+        cfg = EncodeConfig(qp=32, tu=tu)
+        qargs = (*cfg.quant_params(bool(tr_type)), *cfg.dequant_params())
+    before = residual_ctu.residual_pipeline_ctu.launches
+    got = residual_ctu.residual_pipeline_ctu(src, pred, *qargs, tu=tu, tr_type=tr_type)
+    assert residual_ctu.residual_pipeline_ctu.launches == before + 1
+    assert_bit_equal(got, residual_ctu.residual_pipeline_ctu_ref(src, pred, *qargs, tu=tu,
+                                                                  tr_type=tr_type))
+
+
+@pytest.mark.parametrize("qset", list(chip_smoke.RESIDUAL_EDGE_QARGS))
+def test_k2_and_b3_residual_at_quantizer_range_edges(cuda, qset):
+    # K2's and B3's residual stage (residual_ctu8) at the quantizer's range
+    # edges, on full-swing CTUs.
+    # 128x192 frames: 6 CTUs, as many as residual_ctus gives.
+    _, plane, offsets, _ = k2_case(3, 8, 32, 128, 192, cuda)
+    _, flat, off0, off1, _ = b3_case(4, 8, 32, 128, 192, cuda)
+    src = torch.as_tensor(chip_smoke.residual_ctus(np.random.default_rng(1))[0], device=cuda)
+    qargs = chip_smoke.RESIDUAL_EDGE_QARGS[qset]
+    assert_bit_equal(inter_fused.inter_ctu_fused_dma(src, plane, offsets, *qargs),
+                     inter_fused.inter_ctu_fused_dma_ref(src, plane, offsets, *qargs))
+    assert_bit_equal(bi_fused.bi_ctu_fused_dma(src, flat, off0, off1, *qargs),
+                     bi_fused.bi_ctu_fused_dma_ref(src, flat, off0, off1, *qargs))
+
+
 def test_b4_matches_k2s_residual_stage(cuda):
     # B4 at 8x8 TUs and K2 share residual_core.cuh: the same CTUs coded
     # against the prediction K2 picks give the same recon and nnz.

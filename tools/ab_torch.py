@@ -29,14 +29,17 @@ min and max) of 20 samples of
   lists, base 32, and base 8 with the default lists), B14 (bases 8, 16 and
   32), B8 (8160 16x16 and 32640 8x8 blocks at R = 16, and the pyramid's
   two levels: 510 decimated 16x16 blocks at num 17, 510 CTUs at num 7), B17
-  search_mv and search_mv_dma and B19 (510 CTUs, R = 32, bench content), a
+  search_mv and search_mv_dma and B19 (510 CTUs, R = 32, bench content; B19
+  also as device time), a
   sample being 10 launches between CUDA events, and torch.cdist(p=1) on
   float32 copies of B10's operands;
 * the refine + residual kernels at 510 CTUs of bench content, refine
   windows at random MVs in [-32, 32]: K2 (inter_ctu_fused_dma), B16
   (inter_ctu_fused on the gathered windows), B3 (bi_ctu_fused_dma on the
   reference and chip_smoke's multiref reference 0 stacked by rows), B11
-  (refine_quarter_pel_fused on the same windows) and B4 at 8x8 TUs, and
+  (refine_quarter_pel_fused on the same windows) and B4 (the bench
+  content's CTUs against the reference's, qp 32) at 8x8, 4x4 DST-VII, 4x4,
+  16x16 and 32x32 TUs, and
   the PU decision's cost maps on the structured pan: B13
   (refine_qpel_costmap_dma) on its 8160 16x16 and 32640 8x8 tiles, B12
   (refine_qpel_costmap) and B11 on the 16x16 tiles' gathered windows, each
@@ -175,6 +178,10 @@ def measure() -> dict:
     t16, s16, w16 = pu_tiles(16)
     t8, s8, _ = pu_tiles(8)
 
+    def b4_qargs(tu, tr_type):
+        c = EncodeConfig(search_range=r, qp=32, tu=tu)
+        return (*c.quant_params(bool(tr_type)), *c.dequant_params())
+
     def stats(samples):
         return {"median": statistics.median(samples), "min": samples[0], "max": samples[-1]}
 
@@ -190,6 +197,9 @@ def measure() -> dict:
         "b3": lambda: bi_ctu_fused_dma(src, b3_flat, k2_off, b3_off1, *qargs),
         "b11": lambda: refine_quarter_pel_fused(src, k2_win),
         "b4_8x8": lambda: residual_pipeline_ctu(src, b_ref, *qargs),
+        **{f"b4_{tu}x{tu}{'_dst' if tr else ''}": lambda tu=tu, tr=tr, q=b4_qargs(tu, tr):
+           residual_pipeline_ctu(src, b_ref, *q, tu=tu, tr_type=tr)
+           for tu, tr in ((4, 1), (4, 0), (16, 0), (32, 0))},
         "b13_8160_16x16": lambda: refine_qpel_costmap_dma(t16, p_padded, s16),
         "b13_32640_8x8": lambda: refine_qpel_costmap_dma(t8, p_padded, s8),
         "b12_8160_16x16": lambda: refine_qpel_costmap(t16, w16),
@@ -239,6 +249,7 @@ def measure() -> dict:
         "b17_search_mv_ms": kernel_ms(lambda: search_mv(src, win128, num)),
         "b17_search_mv_dma_ms": kernel_ms(lambda: search_mv_dma(src, padded, pos, r)),
         "b19_mega_ms": kernel_ms(lambda: encode_ctu_mega(src, padded, pos, r, *qargs)),
+        "b19_mega_device_ms": device_ms(lambda: encode_ctu_mega(src, padded, pos, r, *qargs)),
         **{f"{name}_ms": kernel_ms(fn) for name, fn in refine_kernels.items()},
         **{f"{name}_device_ms": device_ms(fn) for name, fn in refine_kernels.items()},
         "yuv_p_frame_ms": stats(cs.samples_ms(

@@ -47,7 +47,7 @@ HERE = Path(__file__).resolve().parents[1]
 if str(HERE) not in sys.path:
     sys.path[:0] = [str(HERE)]
 
-_RESIDUAL_TC = "  residual_core<8>(sm.src, sm.win, reinterpret_cast<int*>(sm.hp), sm.nnz, sm.bits,"
+_RESIDUAL_TC = "  residual_ctu8(sm.src, sm.win, rec + static_cast<size_t>(i) * B * B,"
 _RESIDUAL_CC = "  residual_core<8>(s_src, s_pred, reinterpret_cast<int*>(sm.hp), s_nnz, s_bits,"
 
 
