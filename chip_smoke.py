@@ -14,13 +14,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
             B8's, B14's, B15's, B17's, B19's, K2's (which B16 launches) and
             B3's, and in every instance of B11's, B12's and B13's kernels
             (each tile side), at least 16 in every instance of B4's (each
-            TU size: a warp's four transform passes), and VABSDIFF4, the
-            packed absolute difference, in B9's; the CUDA-core search loop
-            that B17 and B19 ran before they took K1's core
-            (csrc/search_core.cuh) must be gone, B11 must no longer include
-            the CUDA-core refinement (csrc/refine_core.cuh), and
-            csrc/residual_core.cuh must no longer hold the CUDA-core
-            residual stage (tmat).
+            TU size: a warp's four transform passes), at least 6 in every
+            instance of B5's and B6's (taps 8 and 4, uni and bi: both FIR
+            passes), and VABSDIFF4, the packed absolute difference, in B9's;
+            the CUDA-core search loop that B17 and B19 ran before they took
+            K1's core (csrc/search_core.cuh) must be gone, neither B11 nor
+            B5/B6 (csrc/mc.cu) may include the CUDA-core refinement
+            (csrc/refine_core.cuh), and csrc/residual_core.cuh must no
+            longer hold the CUDA-core residual stage (tmat).  Prints B5's
+            and B6's registers and local memory (cuobjdump -res-usage).
 3. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit on every output: the 1080p shapes (510 CTUs, R = 32), an
             odd grid width (3) at R = 8 (K1 also at R = 1, 2 and 31, and B7
@@ -155,8 +157,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
             bounds and device times; B4's at each TU size: its products at
             mma.sync's own rates plus its other SASS instructions (a warp
             runs each once for its tile) at the CUDA cores' issue rate,
-            beside its bound and device time (torch.profiler), and B19's
-            device time.
+            beside its bound and device time (torch.profiler), the same
+            for B5 and B6 (luma and chroma, uni and bi: their m16n8k32
+            products plus their other SASS instructions once a warp task),
+            and B19's device time.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -429,6 +433,23 @@ def sass_count(build, kernel: str, opcode: str) -> int:
     return sum(sass_counts(build, kernel, opcode).values())
 
 
+def resource_usage(build, kernel: str) -> dict[str, str]:
+    """{instance: "REG:n STACK:n LOCAL:n"} of each function of the built
+    library whose name holds ``kernel`` (cuobjdump -res-usage: registers a
+    thread, and the stack and local memory that spills would take)."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-res-usage", str(build.build())], capture_output=True,
+                         text=True, check=True, timeout=300).stdout.splitlines()
+    usage = {}
+    for line, nxt in zip(out, out[1:] + [""]):
+        if "Function " in line and kernel in line:
+            name = line.split("Function ")[1].strip().rstrip(":")
+            name = name[name.index(kernel):][:len(kernel) + 12]
+            usage[name] = " ".join(f for f in nxt.split()
+                                   if f.split(":")[0] in ("REG", "STACK", "LOCAL"))
+    return usage
+
+
 def tc_floor_ms(n: int, k: int, r: int) -> float:
     """The least time of K1/B7's own tensor-core work at the published int8
     rate: 2 x 16 x 8 x 32 operations for each m16n8k32 product it issues, m
@@ -534,6 +555,17 @@ def refine_tile_products(n: int, b: int, winner: bool) -> tuple[int, int]:
     warps, frags = -(-n // per_warp), cg * b // 8
     k16 = warps * frags * 16 * 2 + (warps * frags * per_warp * 2 if winner else 0)
     return warps * cg * -(-(b + 7) // 8) * 4, k16
+
+
+def mc_tc_products(n: int, h: int, w: int, bi: bool) -> int:
+    """The mma.sync m16n8k32 products B5 (bi False) or B6 issues for n h x w
+    blocks (csrc/mc_tc.cuh): for each 16-column strip and run of up to 4
+    steps of 16 rows, 2 horizontal products a chunk of 16 window rows (a
+    run's steps + 1 chunks) and 4 vertical ones a step (two 8-column
+    halves, hi and lo), for each window."""
+    steps = -(-h // 16)
+    runs = [min(4, steps - q0) for q0 in range(0, steps, 4)]
+    return n * -(-w // 16) * sum(2 * (k + 1) + 4 * k for k in runs) * (2 if bi else 1)
 
 
 def adversarial_plane(shape, device, invert: bool = False) -> torch.Tensor:
@@ -692,6 +724,16 @@ def main() -> int:
             raise AssertionError(f"{name}: a kernel instance has no IMMA instruction ({counts})")
     if "refine_core.cuh" in (build.CSRC / "refine_fused.cu").read_text():
         raise AssertionError("B11 includes the CUDA-core refinement (refine_core.cuh) again")
+    # B5 and B6: both FIR passes on the tensor cores in each of the four
+    # instances (taps 8 and 4, uni and bi), and no CUDA-core refinement.
+    mc_imma = sass_counts(build, "pred_kernel", "IMMA")
+    log(f"SASS: IMMA instructions in B5's and B6's {len(mc_imma)} kernel instances: "
+        f"{sorted(mc_imma.values())}; their registers and local memory (cuobjdump "
+        f"-res-usage): {resource_usage(build, 'pred_kernel')}")
+    if len(mc_imma) != 4 or min(mc_imma.values()) < 6:
+        raise AssertionError(f"B5/B6: an instance lacks its tensor-core passes ({mc_imma})")
+    if "refine_core.cuh" in (build.CSRC / "mc.cu").read_text():
+        raise AssertionError("B5/B6 include the CUDA-core refinement (refine_core.cuh) again")
     # B4: every instance (TU size) runs its four passes on the tensor cores,
     # at least 16 products a warp's tile, and the CUDA-core stage is gone.
     b4_imma = sass_counts(build, "residual_ctu_kernel", "IMMA")
@@ -2127,6 +2169,36 @@ def main() -> int:
             f"({b_by}); kernel {k_ms:.4f} ms a call (device {d_ms:.4f}), device at "
             f"{(t_mma + t_cores) / d_ms:.3f} of the floor and {b_ms / d_ms:.3f} of the bound"
             if d_ms else f"{tag} {name}: device time not measured")
+    # B5 and B6, luma and chroma: the m16n8k32 products of their tiling
+    # (csrc/mc_tc.cuh) at mma.sync's own rate, plus the rest of each
+    # instance's SASS instructions at the CUDA cores' issue rate, counted once
+    # a warp task (a warp runs its step loop unrolled once; the staging loop,
+    # a few 16-byte copies a thread, counted once), beside the bound and the
+    # device time of a call (torch.profiler).
+    mc_all, mc_nop = (sass_counts(build, "pred_kernel", op) for op in (" ;", "NOP"))
+    mc_rows = (("pred_uni", "510 64x64 luma", mc_luma[0], None, 8, False),
+               ("pred_bi", "510 64x64 luma", mc_luma[0], mc_luma[1], 8, True),
+               ("pred_uni chroma", "1020 32x32 chroma", mc_chroma[0], None, 4, False),
+               ("pred_bi chroma", "1020 32x32 chroma", mc_chroma[0], mc_chroma[1], 4, True))
+    for name, what, w0, w1, taps, bi in mc_rows:
+        nb, b = w0.shape[0], w0.shape[-1] - taps + 1
+        inst = next(f for f in mc_all if f"ILi{taps}ELb{int(bi)}E" in f)
+        instr = mc_all[inst] - mc_nop[inst] - mc_imma[inst]
+        steps = -(-b // 16)
+        tasks = -(-b // 16) * -(-steps // 4)          # strips x runs of 4 steps
+        prods = mc_tc_products(nb, b, b, bi)
+        t_mma = prods / mma32_pps * 1e3
+        t_cores = instr * nb * tasks * 32 / INT_INSTR_PER_S * 1e3
+        b_ms, b_by = bound(nbytes(*(w0, w1)[:1 + bi]) + nb * (16 if bi else 8) + nb * b * b,
+                           2 * nb * mc_macs(b, b, taps) * (2 if bi else 1))
+        d_ms = device[name]
+        log(f"{tag} {name} {what}: {prods} m16n8k32 products ({t_mma:.4f} ms at mma.sync's "
+            f"own rate) and {instr} other SASS instructions a warp task x {nb * tasks} tasks "
+            f"({t_cores:.4f} ms at {INT_INSTR_PER_S / 1e12:.1f} T thread instructions/s): "
+            f"design floor {t_mma + t_cores:.4f} ms; bound {b_ms:.4f} ms ({b_by}); device "
+            f"{d_ms:.4f} ms a call, at {(t_mma + t_cores) / d_ms:.3f} of the floor and "
+            f"{b_ms / d_ms:.3f} of the bound" if d_ms else
+            f"{tag} {name} {what}: device time not measured")
     # B11, B12 and B13: the products of their tensor-core tilings (a warp's
     # tile below 64, K2's block core at 64) at mma.sync's own rates, beside
     # the bound and the device time, at each shape timed.

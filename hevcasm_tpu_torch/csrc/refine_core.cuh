@@ -1,7 +1,7 @@
 // The quarter-pel refinement on the CUDA cores, now serving only B19's
-// refinement tail (mega.cu); B5/B6 (mc.cu) take only its K8 table.  K2, B3,
-// B11, B12 and B13 run the tensor-core forms (refine_tc_core.cuh,
-// refine_tile_tc.cuh).  hevcasm_tpu/kernels/interp_pallas.py _refine_core
+// refinement tail (mega.cu).  K2, B3, B11, B12 and B13 run the tensor-core
+// forms (refine_tc_core.cuh, refine_tile_tc.cuh), and B5/B6 theirs
+// (mc_tc.cuh).  hevcasm_tpu/kernels/interp_pallas.py _refine_core
 // for one BB x BB block (BB in {8, 16, 32, 64}) and its (BB+7) x (BB+7)
 // window:
 //

@@ -6,9 +6,9 @@ interface, on first use, into ``build/hevcasm_tpu_torch/<hash>/`` beside
 the package (the hash covers the sources, the ``csrc/*.cuh`` headers they
 share and the flags, so an edited kernel is rebuilt and an unchanged one is
 not).  The library is loaded with ``ctypes``; each C entry takes device
-pointers, ints and a CUDA stream (B10's two, whose calls are host-bound,
-take them packed in one block), launches one kernel on that stream and
-returns ``cudaGetLastError()``.
+pointers, ints and a CUDA stream (B10's, B5's and B6's, whose calls are
+host-bound, take them packed in one block), launches one kernel on that
+stream and returns ``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -80,14 +80,11 @@ _ENTRIES = {
     # refs, ref_stride, ref_k_stride, ref_row, out, n, k, h, w, device, stream
     "hevc_sad": [ctypes.c_char_p],
     "hevc_sad_multiref": [ctypes.c_char_p],
-    # windows, win_stride, win_row, xfrac, yfrac (device int32 or NULL), xval,
-    # yval, out, n, h, w, taps, device, stream
-    "hevc_pred_uni": [_P, _L, _L, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P],
-    # windows0, win0_stride, win0_row, windows1, win1_stride, win1_row,
-    # xfrac0, yfrac0, xfrac1, yfrac1 (or NULL), xval0, yval0, xval1, yval1,
-    # out, n, h, w, taps, device, stream
-    "hevc_pred_bi": [_P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I,
-                     _I, _I, _I, _P],
+    # one block of 25 int64 (csrc/mc_tc.cuh McArgs): win[2], win_stride[2],
+    # win_row[2], frac[4], frac_stride[4], val[4], out, n, h, w, taps,
+    # device, stream
+    "hevc_pred_uni": [ctypes.c_char_p],
+    "hevc_pred_bi": [ctypes.c_char_p],
 }
 
 

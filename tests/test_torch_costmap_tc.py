@@ -455,7 +455,7 @@ def test_the_cuda_core_refinement_left_b11_b12_and_b13():
     assert '#include "refine_tile_tc.cuh"' in cm and '#include "refine_tile_tc.cuh"' in rf
     assert "refine_core.cuh" not in rf and "refine_select_at" not in rf
     users = sorted(f.name for f in csrc.glob("*.cu") if '"refine_core.cuh"' in f.read_text())
-    assert users == ["mc.cu", "mega.cu"]
+    assert users == ["mega.cu"]
     assert "B19" in (csrc / "refine_core.cuh").read_text().split("\n\n")[0]
 
 

@@ -1369,6 +1369,63 @@ def test_b5_b6_leading_axes_numpy_fractions_and_out_of_range(cuda):
         mc.pred_bi_batched(wide_rows, wide_rows, 0, 0, 0, 0, 4, 8000)
 
 
+# The tensor-core tiling's edges (csrc/mc_tc.cuh): strips of 16 columns and
+# steps of 16 rows, masked past the block; odd widths (byte stores), a
+# block over several strips and several warps' runs of steps, tiny blocks
+# (a CTA of one warp), 128x128.
+MC_GEOMETRY = [(5, 3, 7), (33, 17, 9), (48, 40, 5), (2, 4, 13), (1, 1, 6), (4, 8, 9),
+               (128, 128, 3), (80, 72, 4), (16, 8, 31), (7, 65, 2)]
+
+
+@pytest.mark.parametrize("taps", [8, 4])
+@pytest.mark.parametrize("w,h,n", MC_GEOMETRY)
+def test_b5_b6_tiling_edges_match_plain(cuda, taps, w, h, n):
+    rng = np.random.default_rng(taps * 7 + w * 3 + h + n)
+    p = 4 if taps == 8 else 8
+    wins = random_u8(rng, (2, n, h + taps + 2, w + taps + 12), cuda)
+    w0, w1 = wins[0, :, 1:, 3:], wins[1]               # rows and blocks strided, unaligned
+    fr = mc_fracs(rng, n, taps, cuda)
+    got, launches = launched(lambda: [mc.pred_uni_batched(w0, fr[0], fr[1], h, w, taps),
+                                      mc.pred_bi_batched(w0, w1, *fr, h, w, taps)])
+    assert launches == {"b5batched": 1, "b6batched": 1}
+    assert_bit_equal(got, [mc.pred_uni_batched_ref(w0, fr[0], fr[1], h, w, taps),
+                           mc.pred_bi_batched_ref(w0, w1, *fr, h, w, taps)])
+    # One fraction for every block: an int, and a one-element tensor.
+    one = torch.tensor([p - 1], dtype=torch.int32, device=cuda)
+    assert_bit_equal([mc.pred_uni_batched(w0, 1, one, h, w, taps),
+                      mc.pred_bi_batched(w0, w1, one, 0, p - 1, one, h, w, taps)],
+                     [mc.pred_uni_batched_ref(w0, 1, p - 1, h, w, taps),
+                      mc.pred_bi_batched_ref(w0, w1, p - 1, 0, p - 1, p - 1, h, w, taps)])
+
+
+@pytest.mark.parametrize("taps", [8, 4])
+def test_b5_b6_full_swing_content(cuda, taps):
+    # Full-swing content at every fraction: 0/255 checkerboards and stripes,
+    # and for each horizontal fraction rows that put 255 under its positive
+    # (or negative) taps and 0 under the others, which drive the int16
+    # intermediate's hi byte to its ends (KERNEL8 f = 2: 22440 and -6120).
+    p = 4 if taps == 8 else 8
+    kern = np.array([[0, 0, 0, 64, 0, 0, 0, 0], [-1, 4, -10, 58, 17, -5, 1, 0],
+                     [-1, 4, -11, 40, 40, -11, 4, -1], [0, 1, -5, 17, 58, -10, 4, -1]]) \
+        if taps == 8 else np.array([[0, 64, 0, 0], [-2, 58, 10, -2], [-4, 54, 16, -2],
+                                    [-6, 46, 28, -4], [-4, 36, 36, -4], [-4, 28, 46, -6],
+                                    [-2, 16, 54, -4], [-2, 10, 58, -2]])
+    size = 32 + taps - 1
+    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    planes = [((yy + xx) & 1) * 255, (xx & 1) * 255, (yy & 1) * 255, ((yy >> 1) + xx & 1) * 255]
+    planes += [255 - q for q in planes]
+    blocks = [(q, xf, yf) for q in planes for xf in range(p) for yf in range(p)]
+    blocks += [(np.broadcast_to((sign * kern[xf][xx % taps] > 0) * 255, (size, size)), xf, yf)
+               for sign in (1, -1) for xf in range(p) for yf in range(p)]
+    win = torch.as_tensor(np.stack([b[0] for b in blocks]).astype(np.uint8), device=cuda)
+    xf = torch.tensor([b[1] for b in blocks], dtype=torch.int32, device=cuda)
+    yf = torch.tensor([b[2] for b in blocks], dtype=torch.int32, device=cuda)
+    w1 = win.flip(0)
+    assert_bit_equal([mc.pred_uni(win, xf, yf, taps), mc.pred_bi(win, w1, xf, yf, yf, xf, taps)],
+                     [mc.pred_uni_ref(win, xf, yf, taps),
+                      mc.pred_bi_ref(win, w1, xf, yf, yf, xf, taps)])
+
+
 # ---- B18: base_layout_decide_fc ------------------------------------------------------
 
 @pytest.mark.parametrize("n", [3, 17, 510])

@@ -5,7 +5,7 @@
 // mma.sync wrappers are replaced by emu_mma (the test that compiles the
 // header does the replacement), which forms the product from the lanes'
 // registers with the PTX ISA's fragment layouts of mma.m16n8k16 and
-// mma.m16n8k32 with 8-bit integer types.
+// mma.m16n8k32 with 8-bit integer types.  A kernel's block is one warp.
 #pragma once
 
 #include <algorithm>
@@ -30,7 +30,14 @@ inline uint64_t g_lane_slots[32][16];
 
 inline int emu_lane() { return threadIdx.x & 31; }
 
-inline uint32_t __ldg(const uint32_t* p) { return *p; }
+template <class T>
+T __ldg(const T* p) {
+  return *p;
+}
+
+inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned shift) {
+  return static_cast<uint32_t>(((static_cast<uint64_t>(hi) << 32) | lo) >> (shift & 31));
+}
 
 inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
   const uint64_t v = (static_cast<uint64_t>(y) << 32) | x;
@@ -52,6 +59,9 @@ T __shfl_xor_sync(unsigned, T v, int offset) {
 }
 
 inline void __syncwarp() { g_warp_barrier->arrive_and_wait(); }
+
+// A block of one warp: its barrier is the warp's.
+inline void __syncthreads() { g_warp_barrier->arrive_and_wait(); }
 
 inline int emu_element(uint32_t word, int i, bool is_signed) {
   const int b = (word >> (8 * i)) & 255;

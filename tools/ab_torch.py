@@ -46,6 +46,12 @@ min and max) of 20 samples of
   tile's window at a random MV in [-32, 32]; each also as device time
   (torch.profiler's kernel self time a call, over 10 calls, 5 samples),
   since their wrappers' host work can bound a call;
+* B5 (pred_uni) and B6 (pred_bi), the registry's MC kernels, which no
+  frame launches: 510 64x64 luma blocks (8-tap) on K2's windows (B6's second
+  window from chip_smoke's multiref reference 0 at other random MVs) and
+  1020 32x32 chroma blocks (4-tap) on the structured pan's cb and cr planes
+  at random MVs in [-4, 4], random per-block fractions, a call and device
+  time;
 * the 4:2:0 P and B frames, encode_inter_frame_yuv and encode_b_frame_yuv
   on chip_smoke's structured pan with the luma P frame's config.
 
@@ -78,7 +84,7 @@ def measure() -> dict:
                                                        refine_quarter_pel_fused)
     from hevcasm_tpu_torch.kernels.residual_ctu import residual_pipeline_ctu
     from hevcasm_tpu_torch.encode import partition
-    from hevcasm_tpu_torch.kernels import build
+    from hevcasm_tpu_torch.kernels import build, mc
     from hevcasm_tpu_torch.kernels.base_grids import base_grids_ctu, base_layout_decide
     from hevcasm_tpu_torch.kernels.costmap import refine_qpel_costmap, refine_qpel_costmap_dma
     from hevcasm_tpu_torch.kernels.mega import encode_ctu_mega
@@ -175,6 +181,33 @@ def measure() -> dict:
         starts = (pos[:, None] + offs[None] + mv + r).reshape(-1, 2).to(torch.int32).contiguous()
         return tiles, starts, motion.extract_windows(p_padded, starts, b + 7)
 
+    # B5 and B6: luma windows as K2's, chroma windows of every 32x32 block
+    # of the pan's cb and cr planes.
+    mc_rng = np.random.default_rng(14)
+    mv2 = torch.as_tensor(mc_rng.integers(-r, r + 1, (n, 2)), device=dev)
+    mr_padded = ctu_mod.pad_frame(mr_refs[0], pl, pr, pl, pr)
+    mc_luma = [k2_win, motion.extract_windows(mr_padded, (pos + mv2 + r).to(torch.int32), 71)]
+    mc_chroma = []
+    for c_plane in (yuv[1].cb, yuv[1].cr):
+        gr_c, gc_c = c_plane.shape[0] // 32, c_plane.shape[1] // 32
+        mv_c = torch.as_tensor(mc_rng.integers(-4, 5, (gr_c * gc_c, 2)), device=dev)
+        mc_chroma.append(motion.extract_windows(ctu_mod.pad_frame(c_plane, 8, 8, 8, 8),
+                                                motion.ctu_positions(gr_c, gc_c, 32, dev)
+                                                + mv_c + 7, 35))
+    mc_chroma = [torch.cat(mc_chroma).contiguous(), torch.cat(mc_chroma).flip(0).contiguous()]
+
+    def mc_fracs(m, phases):
+        return [torch.as_tensor(mc_rng.integers(0, phases, (m,)), dtype=torch.int32, device=dev)
+                for _ in range(4)]
+
+    fl, fc = mc_fracs(n, 4), mc_fracs(mc_chroma[0].shape[0], 8)
+    mc_kernels = {
+        "b5_luma": lambda: mc.pred_uni(mc_luma[0], fl[0], fl[1]),
+        "b6_luma": lambda: mc.pred_bi(*mc_luma, *fl),
+        "b5_chroma": lambda: mc.pred_uni(mc_chroma[0], fc[0], fc[1], 4),
+        "b6_chroma": lambda: mc.pred_bi(*mc_chroma, *fc, 4),
+    }
+
     t16, s16, w16 = pu_tiles(16)
     t8, s8, _ = pu_tiles(8)
 
@@ -252,6 +285,8 @@ def measure() -> dict:
         "b19_mega_device_ms": device_ms(lambda: encode_ctu_mega(src, padded, pos, r, *qargs)),
         **{f"{name}_ms": kernel_ms(fn) for name, fn in refine_kernels.items()},
         **{f"{name}_device_ms": device_ms(fn) for name, fn in refine_kernels.items()},
+        **{f"{name}_ms": kernel_ms(fn) for name, fn in mc_kernels.items()},
+        **{f"{name}_device_ms": device_ms(fn) for name, fn in mc_kernels.items()},
         "yuv_p_frame_ms": stats(cs.samples_ms(
             lambda: encode_inter_frame_yuv(yuv[0], yuv[1], cfg))),
         "yuv_b_frame_ms": stats(cs.samples_ms(
