@@ -23,6 +23,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
             (csrc/refine_core.cuh), and csrc/residual_core.cuh must no
             longer hold the CUDA-core residual stage (tmat).  Prints B5's
             and B6's registers and local memory (cuobjdump -res-usage).
+            K2's and B3's kernels must each have two instances, the
+            host-int one and the device-q one (the quantizer parameters
+            read from an int32[5] on the card), both with IMMA; prints
+            their registers and local memory.
 3. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit on every output: the 1080p shapes (510 CTUs, R = 32), an
             odd grid width (3) at R = 8 (K1 also at R = 1, 2 and 31, and B7
@@ -75,7 +79,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
             int fractions, on 510 64x64 luma blocks (8-tap, per-block
             fractions 0-3) and 1020 32x32 chroma blocks (4-tap, 0-7); B18
             on the structured pan's 510 CTUs at R = 32 with the 26 default
-            PU lists, where it must also equal B15 at base 16.
+            PU lists, where it must also equal B15 at base 16.  K2, B16 and
+            B3 through their device-q C entries (the parameters as 0-d int32
+            tensors, read by the kernel) at 1080p and qp 10, 32 and 49, equal
+            to their host-int entries and plain versions; a qshift of 28 or
+            a dshift of 0 must set its bit in the range flag and leave the
+            fractions as they were.
 4. main     the paths below, each with every launch count set to 0 just
             before it and read just after.  With
             EncodeConfig(search_range=32, qp=32, inter_impl="fused_dma"):
@@ -114,7 +123,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
             B4 2 (once a case of their suites) and nothing else.  The PU
             decision, partition.select_pu_layout_pruned, with B18 as its
             decide_fn (base 16 at the default layouts, R = 32) must launch
-            exactly B18 and B13 and equal the decision through B15.
+            exactly B18 and B13 and equal the decision through B15.  The
+            rate-controlled GOP (encode.rate) on 9 frames of the rate tests'
+            clip at 1920x1088 (smoothed noise panned (2, 3) a frame, +-12
+            noise a frame, seed 0), R = 32, qp0 = 40, the target the
+            geometric mean of frame 1's bits at qp 38 and 22: its loop
+            (rate._gop_rc_body) must run under
+            torch.cuda.set_sync_debug_mode("error") and launch exactly K1 x8
+            and K2 x8 through its device-q entry (IPPP, fused_dma), K1 x8
+            and B16 x8 (IPPP, fused), K1 x8 and B11 x8 (IPPP, stages,
+            fused_refine), K1 x12, K2 x4 and B3 x4 (IBPBP, fused_dma); each
+            must equal encode_gop_rate_controlled and the plain path on the
+            card in recon, bits and qp (PSNR within 1e-3 dB), move qp from
+            40, land frames 4-8 within 2.5x the target (a B/P pair within
+            2.5x twice it) and code its first P frame as
+            encode_inter_frame at qp 40 does; qp0 = 60 in [55, 70] must
+            raise ValueError ("outside") under fused_dma and stages.
 5. timing   CUDA-event medians over 20 samples after warm-up: each path per
             frame, synchronised after each (ms per frame and CTU/s), the luma
             path also 20 frames back to back, and each path's plain version;
@@ -160,7 +184,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
             beside its bound and device time (torch.profiler), the same
             for B5 and B6 (luma and chroma, uni and bi: their m16n8k32
             products plus their other SASS instructions once a warp task),
-            and B19's device time.
+            and B19's device time.  The rate-controlled IPPP GOP (fused_dma)
+            in turns with a closed loop of fixed-qp encode_inter_frame
+            calls over the same frames, ms a frame with min and max of 20
+            samples; K2's and B3's device time through each C entry at the
+            1080p shapes, and a call of each, in turns.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -255,10 +283,10 @@ def samples_ms(fn, calls: int = 1, reps: int = REPS) -> list[float]:
     return sorted(sample_ms(fn, calls) for _ in range(reps))
 
 
-def turns_ms(fns: dict, calls: int = 10, reps: int = REPS) -> dict:
-    """The median per-call CUDA-event time of each fn, sampled in turns (a
-    sample of each, then the next round), so that a drift in the host's
-    speed, which bounds calls this short, falls on every fn alike."""
+def turns_samples_ms(fns: dict, calls: int = 10, reps: int = REPS) -> dict:
+    """``reps`` per-call CUDA-event samples of each fn, sorted, taken in
+    turns (a sample of each, then the next round), so that a drift in the
+    host's speed, which bounds calls this short, falls on every fn alike."""
     for fn in fns.values():
         for _ in range(WARMUP):
             fn()
@@ -267,7 +295,13 @@ def turns_ms(fns: dict, calls: int = 10, reps: int = REPS) -> dict:
     for _ in range(reps):
         for name, fn in fns.items():
             samples[name].append(sample_ms(fn, calls))
-    return {name: statistics.median(v) for name, v in samples.items()}
+    return {name: sorted(v) for name, v in samples.items()}
+
+
+def turns_ms(fns: dict, calls: int = 10, reps: int = REPS) -> dict:
+    """The median of each fn's turns_samples_ms."""
+    return {name: statistics.median(v)
+            for name, v in turns_samples_ms(fns, calls, reps).items()}
 
 
 def median_ms(fn, calls: int = 1, reps: int = REPS) -> float:
@@ -288,6 +322,38 @@ def device_ms(fn, calls: int = 10) -> float:
         torch.cuda.synchronize()
     us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
     return us / 1e3 / calls
+
+
+def kernel_device_ms(fn, kernel: str, calls: int = 10) -> float:
+    """Device time of one call of fn spent in the CUDA kernels whose name
+    holds ``kernel`` (torch.profiler, over ``calls`` calls; 0.0 when it
+    records none): a kernel's time without the small torch ops its wrapper
+    also enqueues."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+             if kernel in e.key)
+    return us / 1e3 / calls
+
+
+def rate_clip(t: int, h: int, w: int, noise: int, seed: int = 0) -> np.ndarray:
+    """The rate-control tests' clip (tests/test_rate.py): smoothed noise
+    panned (2, 3) pixels a frame, with independent noise of +-``noise`` a
+    frame so that residuals never quantize to zero.  (t, h, w) uint8."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h + 4 * t, w + 4 * t)).astype(np.float32)
+    for _ in range(2):
+        base = (np.roll(base, 1, 0) + base + np.roll(base, -1, 0)) / 3
+        base = (np.roll(base, 1, 1) + base + np.roll(base, -1, 1)) / 3
+    base = np.clip(base, 0, 255).astype(np.uint8)
+    out = np.stack([base[2 * i:2 * i + h, 3 * i:3 * i + w] for i in range(t)])
+    n = rng.integers(-noise, noise + 1, out.shape)
+    return np.clip(out.astype(np.int16) + n, 0, 255).astype(np.uint8)
 
 
 def device_ops(fn) -> list[str]:
@@ -660,7 +726,7 @@ def main() -> int:
 
     from hevcasm_tpu_torch import selftest
     from hevcasm_tpu_torch.config import Tier
-    from hevcasm_tpu_torch.encode import ctu as ctu_mod, motion, partition
+    from hevcasm_tpu_torch.encode import ctu as ctu_mod, motion, partition, rate
     from hevcasm_tpu_torch.encode.loop import (
         EncodeConfig, encode_inter_frame, encode_inter_frame_multiref)
     from hevcasm_tpu_torch.encode.video import (
@@ -684,6 +750,7 @@ def main() -> int:
         residual_pipeline_ctu, residual_pipeline_ctu_ref)
     from hevcasm_tpu_torch.kernels.sad import (sad, sad_grid, sad_grid_ref, sad_multiref,
                                                sad_multiref_ref, sad_ref)
+    from hevcasm_tpu_torch.ops.quantize import raise_on_flag, range_flag
     from hevcasm_tpu_torch.kernels.search import (
         search_mv, search_mv_dma, search_mv_dma_ref, search_mv_ref, ssd_grid,
         ssd_grid_plane, ssd_grid_plane_multi, ssd_grid_plane_multi_ref, ssd_grid_plane_ref,
@@ -749,6 +816,15 @@ def main() -> int:
             raise AssertionError(f"{whose} former CUDA-core grid loop ({gone}) is back")
     if not vabs_b9:
         raise AssertionError("B9's kernel has no VABSDIFF4 (packed absolute difference)")
+    # K2's and B3's kernels: the host-int instance and the device-q one (the
+    # rate controller's), each on the tensor cores.
+    for name, kernel in (("K2/B16", "inter_fused_kernel"), ("B3", "bi_fused_kernel")):
+        q_imma = sass_counts(build, kernel, "IMMA")
+        log(f"SASS: {name}'s {len(q_imma)} kernel instances (host-int, device-q): IMMA "
+            f"{sorted(q_imma.values())}; registers and local memory (cuobjdump -res-usage): "
+            f"{resource_usage(build, kernel)}")
+        if len(q_imma) != 2 or not min(q_imma.values()):
+            raise AssertionError(f"{name}: not two tensor-core instances ({q_imma})")
 
     # ---- 3. each kernel against its plain version ---------------------------
     cfg = EncodeConfig(search_range=SEARCH_RANGE, qp=32, inter_impl="fused_dma")
@@ -890,6 +966,43 @@ def main() -> int:
                               adversarial_plane((hp_b, b_flat.shape[1]), dev, not invert)])
         check_b3(what, adv_src, adv_flat.contiguous(), mv_offsets(grid, SEARCH_RANGE, 14),
                  mv_offsets(grid, SEARCH_RANGE, 15) + lower)
+
+    # K2's, B16's and B3's device-q C entries (the rate controller's): the
+    # five parameters as 0-d int32 tensors, read by the kernel from an
+    # int32[5] on the card, against the host-int entry and the plain
+    # version at qp 10, 32 and 49; a shift of 28 or a dshift of 0 must set
+    # its bit in the range flag and leave the fractions as they were.
+    def qtensors(args):
+        return tuple(torch.full((), q, dtype=torch.int32, device=dev) for q in args)
+
+    k2_win = motion.extract_windows(padded, k2_offsets, 71).contiguous()
+    device_q_cases = (
+        ("inter_ctu_fused_dma", "K2", inter_ctu_fused_dma, inter_ctu_fused_dma_ref,
+         (src, padded, k2_offsets)),
+        ("inter_ctu_fused", "B16", inter_ctu_fused, inter_ctu_fused_ref, (src, k2_win)),
+        ("bi_ctu_fused_dma", "B3", bi_ctu_fused_dma, bi_ctu_fused_dma_ref,
+         (b_src, b_flat, b3_off0, b3_off1)))
+    for qp_q in (10, 32, 49):
+        q_cfg = dataclasses.replace(cfg, qp=qp_q)
+        q_args = (*q_cfg.quant_params(False), *q_cfg.dequant_params())
+        for name, short, fn, ref_fn, args in device_q_cases:
+            flag = range_flag(dev)
+            got = fn(*args, *qtensors(q_args), range_flag=flag)
+            host = fn(*args, *q_args)
+            e = max(max_abs_err(got, host), max_abs_err(got, ref_fn(*args, *q_args)))
+            if int(flag):
+                raise AssertionError(f"{short} device-q entry at qp {qp_q}: flag {int(flag)}")
+            log(f"{short} {name} device-q entry, 1080p at qp {qp_q}: max_abs_err={e} against "
+                "the host-int entry and the plain version")
+            err[name] = max(err[name], e)
+            if qp_q == 32:
+                for bad, bit in (((q_args[0], 28, *q_args[2:]), 2), ((*q_args[:4], 0), 8)):
+                    flag = range_flag(dev)
+                    out_bad = fn(*args, *qtensors(bad), range_flag=flag)
+                    if int(flag) != bit or not torch.equal(out_bad[1], host[1]):
+                        raise AssertionError(f"{short} device-q entry, parameters {bad}: "
+                                             f"flag {int(flag)}, not {bit}, or fractions moved")
+                log(f"{short} device-q entry: qshift 28 sets flag bit 2, dshift 0 bit 8")
 
     # B8 and B12-B15: the partition kernels on the structured pan's luma.
     def check(name, what, got, want, shape):
@@ -1711,6 +1824,90 @@ def main() -> int:
         raise AssertionError(f"self-test on the card: {st_errors} errors")
     log("self-test path: 0 errors, each KERNEL op launched once a case")
 
+    # The rate-controlled GOP (encode.rate), qp on the card from the first
+    # frame to the last: T = 9 frames of the rate tests' clip at 1080p, the
+    # target between frame 1's bits at qp 38 and at qp 22, qp0 = 40.  Each
+    # GOP loop runs under torch.cuda.set_sync_debug_mode("error") (no host
+    # read of the card) and launches exactly its kernels; the one read of
+    # the range flag follows it.
+    rc_frames = torch.as_tensor(rate_clip(9, H, W, 12), device=dev)
+    rc_cfgs = {"IPPP fused_dma": (cfg, False, {"ssd_grid_plane": 8, "inter_ctu_fused_dma": 8}),
+               "IPPP fused": (dataclasses.replace(cfg, inter_impl="fused"), False,
+                              {"ssd_grid_plane": 8, "inter_ctu_fused": 8}),
+               "IPPP stages fused_refine": (
+                   dataclasses.replace(cfg, inter_impl="stages", fused_refine=True), False,
+                   {"ssd_grid_plane": 8, "refine_quarter_pel_fused": 8}),
+               "IBPBP fused_dma": (cfg, True, {"ssd_grid_plane": 12, "inter_ctu_fused_dma": 4,
+                                               "bi_ctu_fused_dma": 4})}
+    rc_bits = [int(rate.encode_inter_frame_traced_qp(rc_frames[1], rc_frames[0], q, cfg)["bits"])
+               for q in (38, 22)]
+    rc_target = int(np.sqrt(max(rc_bits[0], 1) * max(rc_bits[1], 1)))
+    log(f"rate control: 1080p, T = 9, frame 1's bits {rc_bits[0]} at qp 38 and {rc_bits[1]} "
+        f"at qp 22, target {rc_target} bits a frame, qp0 = 40")
+    device_q_wrappers = {"inter_ctu_fused_dma": inter_ctu_fused_dma,
+                         "inter_ctu_fused": inter_ctu_fused, "bi_ctu_fused_dma": bi_ctu_fused_dma}
+
+    def gop_loop(rc_cfg, b_frames, flag):
+        target = torch.full((), float(rc_target), dtype=torch.float32, device=dev)
+        qp0 = torch.full((), 40, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return rate._gop_rc_body(rc_frames, target, qp0, rc_cfg, 10, 49, b_frames,
+                                     Tier.ALL, flag)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    for name, (rc_cfg, b_frames, need) in rc_cfgs.items():
+        flag = range_flag(dev)
+        for wrapper in device_q_wrappers.values():
+            wrapper.device_q_launches = 0
+        out = drive(f"rate-controlled GOP {name}", lambda: gop_loop(rc_cfg, b_frames, flag),
+                    need, exact=True)
+        raise_on_flag(flag)
+        q_got = {k: w.device_q_launches for k, w in device_q_wrappers.items() if k in need}
+        if q_got != {k: need[k] for k in q_got}:
+            raise AssertionError(f"GOP {name}: device-q launches {q_got}, not {need}")
+        entry = rate.encode_gop_rate_controlled(rc_frames, rc_target, 40, rc_cfg,
+                                                b_frames=b_frames)
+        plain = rate.encode_gop_rate_controlled(rc_frames, rc_target, 40, rc_cfg,
+                                                b_frames=b_frames, tiers=Tier.REF)
+        for want, whose in ((entry, "the entry point's"), (plain, "the plain path's")):
+            e = max_abs_err([out[k] for k in ("recon", "bits", "qp")],
+                            [want[k] for k in ("recon", "bits", "qp")])
+            d_psnr = float((out["psnr_db"] - want["psnr_db"]).abs().max())
+            if e or d_psnr > 1e-3:
+                raise AssertionError(f"GOP {name} differs from {whose}: {e}, psnr {d_psnr}")
+        qps, bits = out["qp"].tolist(), out["bits"].tolist()
+        # Frames 4-8: IPPP's bits[3:], IBPBP's pairs (3, 4), (5, 6), (7, 8)
+        # against twice the target.
+        per = 2 if b_frames else 1
+        settled = bits[3 // per:]
+        if all(q == 40 for q in qps) or not all(
+                per * rc_target / 2.5 < b < per * rc_target * 2.5 for b in settled):
+            raise AssertionError(f"GOP {name}: qp {qps}, bits {bits} against {rc_target}")
+        first = 1 if not b_frames else 2
+        fixed = encode_inter_frame(rc_frames[first], rc_frames[0],
+                                   dataclasses.replace(rc_cfg, qp=40))
+        if not torch.equal(out["recon"][first - 1], fixed["recon"]):
+            raise AssertionError(f"GOP {name}: frame {first} differs from encode_inter_frame "
+                                 "at qp 40")
+        log(f"rate-controlled GOP {name}: qp {qps}, bits {bits} (target {rc_target}"
+            f"{' a frame, twice that a B/P pair' if b_frames else ''}), psnr_db "
+            f"{[round(v, 4) for v in out['psnr_db'].tolist()]}; no host read in the loop; "
+            "equal to the entry point and the plain path on the card; frame "
+            f"{first} equal to encode_inter_frame at qp 40")
+    for name in ("IPPP fused_dma", "IPPP stages fused_refine"):
+        try:
+            rate.encode_gop_rate_controlled(rc_frames[:3], rc_target, 60, rc_cfgs[name][0],
+                                            qp_min=55, qp_max=70)
+        except ValueError as exc:
+            if "outside" not in str(exc):
+                raise
+            log(f"rate-controlled GOP {name} at qp0 60 in [55, 70] raises: {exc}")
+        else:
+            raise AssertionError(f"GOP {name}: qp 60 did not raise")
+
     # ---- 5. timing -----------------------------------------------------------
     log("timed self-test (best of each case's iters, CUDA events):")
     if selftest.main(time_it=True):
@@ -1727,6 +1924,44 @@ def main() -> int:
         ms_p = median_ms(lambda: yuv_path(kind, yuv_frames, cfg, Tier.REF))
         log(f"{tag} yuv {kind} path: {ms_k:.3f} ms/frame, {n / ms_k * 1e3:.0f} CTU/s "
             f"per frame (plain path: {ms_p:.3f} ms/frame, {n / ms_p * 1e3:.0f} CTU/s)")
+    # The rate-controlled IPPP GOP (fused_dma) in turns with a closed loop of
+    # fixed-qp encode_inter_frame calls over the same frames; a sample is a
+    # whole GOP of 8 coded frames, synchronised at its end.
+    fixed_cfg = dataclasses.replace(cfg, qp=40)
+
+    def fixed_loop():
+        prev = rc_frames[0]
+        for cur_f in rc_frames[1:]:
+            prev = encode_inter_frame(cur_f, prev, fixed_cfg)["recon"]
+
+    gop_turns = turns_samples_ms(
+        {"GOP": lambda: rate.encode_gop_rate_controlled(rc_frames, rc_target, 40, cfg),
+         "fixed": fixed_loop}, calls=1)
+    for name, what in (("GOP", "rate-controlled IPPP GOP (fused_dma)"),
+                       ("fixed", "fixed-qp encode_inter_frame loop (qp 40)")):
+        v = [t / 8 for t in gop_turns[name]]
+        log(f"{tag} {what}: {statistics.median(v):.3f} ms/frame (min {v[0]:.3f}, max "
+            f"{v[-1]:.3f} over {REPS} samples of 8 frames, in turns)")
+    # K2 and B3 through each C entry at the 1080p shapes: the kernels'
+    # device time alone (the device-q call also stacks its int32[5]).
+    q32 = qtensors(qargs)
+    q_flag = range_flag(dev)
+    for short, kernel, host_fn, q_fn in (
+            ("K2", "inter_fused_kernel",
+             lambda: inter_ctu_fused_dma(src, padded, k2_offsets, *qargs),
+             lambda: inter_ctu_fused_dma(src, padded, k2_offsets, *q32, range_flag=q_flag)),
+            ("B3", "bi_fused_kernel",
+             lambda: bi_ctu_fused_dma(b_src, b_flat, b3_off0, b3_off1, *qargs),
+             lambda: bi_ctu_fused_dma(b_src, b_flat, b3_off0, b3_off1, *q32,
+                                      range_flag=q_flag))):
+        for _ in range(2):
+            d_host, d_q = (kernel_device_ms(f, kernel) for f in (host_fn, q_fn))
+            log(f"{tag} {short} device time, 1080p: host-int entry {d_host:.4f} ms, "
+                f"device-q entry {d_q:.4f} ms (torch.profiler, 10 calls each)")
+        calls = turns_ms({"host-int": host_fn, "device-q": q_fn})
+        log(f"{tag} {short} a call (CUDA events, 10 calls a sample, in turns): host-int "
+            f"{calls['host-int']:.4f} ms, device-q {calls['device-q']:.4f} ms")
+    raise_on_flag(q_flag)
     def log_rdo(what, samples, psnr=None):
         ms_r = statistics.median(samples)
         log(f"{tag} RDO {what}: {ms_r:.3f} ms/frame (min {samples[0]:.3f}, max "

@@ -27,6 +27,16 @@
 // candidate in accumulator registers (no candidate plane in shared
 // memory), and 51 KB of shared memory a block lets four CTUs share an SM,
 // so 510 CTUs run in one wave.
+//
+// Two C entries launch the kernel: hevc_inter_fused takes the five quantizer
+// parameters as ints (the kernel reads them from its parameter space), and
+// hevc_inter_fused_q reads them from an int32[5] in device memory, for the rate
+// controller, which keeps qp on the card (encode/rate.py).  The kernel is a
+// template on that source (QParams or DevQParams, refine_tc_core.cuh): the
+// device-q instance copies the vector to shared memory as it starts, so the
+// load hides behind the refinement, and checks the ranges before the
+// residual stage, setting their bits in a range flag.  Both instances take
+// 64 registers and spill nothing.
 
 #include "refine_tc_core.cuh"
 
@@ -34,21 +44,23 @@ namespace {
 
 constexpr int NTU = B / 8;    // 8x8 TUs per CTU side
 
+// Q is where the quantizer parameters come from: QParams (host ints, by
+// value) or DevQParams (a device int32[5] and a range flag).
+template <class Q>
 __global__ void __launch_bounds__(NT, 4)
 inter_fused_kernel(const uint8_t* __restrict__ src,
                    const uint8_t* __restrict__ plane,
                    const int32_t* __restrict__ offsets,
                    uint8_t* __restrict__ rec, int32_t* __restrict__ frac_out,
                    int32_t* __restrict__ cost_out, int32_t* __restrict__ nnz_out,
-                   int32_t* __restrict__ bits_out, int plane_h, int plane_w,
-                   int qscale, int qshift, int qoffset, int dscale,
-                   int dshift) {
+                   int32_t* __restrict__ bits_out, int plane_h, int plane_w, Q q) {
   // sm.win holds the window until the horizontal pass is done, then the
   // prediction; sm.hp holds the intermediate.
   extern __shared__ __align__(128) uint8_t smem[];
   const rtc::Smem sm = rtc::carve(smem);
   const int i = blockIdx.x;
 
+  prefetch_qparams(q);
   rtc::stage_source(src + static_cast<size_t>(i) * B * B, sm.src);
   uint32_t w[4];
   rtc::band_words(w);
@@ -74,10 +86,26 @@ inter_fused_kernel(const uint8_t* __restrict__ src,
   }
   __syncwarp();
 
+  if (!qparams_ok(q)) return;
   residual_ctu8(sm.src, sm.win, rec + static_cast<size_t>(i) * B * B,
                 nnz_out + static_cast<size_t>(i) * NTU * NTU,
-                bits_out + static_cast<size_t>(i) * NTU * NTU,
-                {qscale, qshift, qoffset, dscale, dshift});
+                bits_out + static_cast<size_t>(i) * NTU * NTU, qparams(q));
+}
+
+template <class Q>
+int launch(const uint8_t* src, const uint8_t* plane, const int32_t* offsets, uint8_t* rec,
+           int32_t* frac, int32_t* cost, int32_t* nnz, int32_t* bits, int n, int plane_h,
+           int plane_w, Q q, int device, void* stream) {
+  if (plane_h < rtc::WIN || plane_w < rtc::WIN) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n == 0) return cudaGetLastError();
+  err = cudaFuncSetAttribute(inter_fused_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             rtc::SMEM);
+  if (err != cudaSuccess) return err;
+  inter_fused_kernel<Q><<<n, NT, rtc::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      src, plane, offsets, rec, frac, cost, nnz, bits, plane_h, plane_w, q);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -94,17 +122,22 @@ extern "C" int hevc_inter_fused(const uint8_t* src, const uint8_t* plane,
                                 int32_t* bits, int n, int plane_h, int plane_w,
                                 int qscale, int qshift, int qoffset, int dscale,
                                 int dshift, int device, void* stream) {
-  if (plane_h < rtc::WIN || plane_w < rtc::WIN || qshift < 16 || qshift > 27 ||
-      dshift < 1 || dshift > 31)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (n == 0) return cudaGetLastError();
-  err = cudaFuncSetAttribute(inter_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             rtc::SMEM);
-  if (err != cudaSuccess) return err;
-  inter_fused_kernel<<<n, NT, rtc::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      src, plane, offsets, rec, frac, cost, nnz, bits, plane_h, plane_w,
-      qscale, qshift, qoffset, dscale, dshift);
-  return cudaGetLastError();
+  if (qshift < 16 || qshift > 27 || dshift < 1 || dshift > 31) return cudaErrorInvalidValue;
+  return launch(src, plane, offsets, rec, frac, cost, nnz, bits, n, plane_h, plane_w,
+                QParams{qscale, qshift, qoffset, dscale, dshift}, device, stream);
+}
+
+// The same with the quantizer parameters in device memory: qvec int32[5]
+// (qscale, qshift, qoffset, dscale, dshift), read by the kernel, so the
+// caller needs no host copy of them.  A block whose parameters leave the
+// ranges above ORs their bits (1 qscale, 2 qshift, 4 qoffset, 8 dshift)
+// into *range_flag and writes no rec, nnz or bits.
+extern "C" int hevc_inter_fused_q(const uint8_t* src, const uint8_t* plane,
+                                  const int32_t* offsets, uint8_t* rec,
+                                  int32_t* frac, int32_t* cost, int32_t* nnz,
+                                  int32_t* bits, int n, int plane_h, int plane_w,
+                                  const int32_t* qvec, int32_t* range_flag, int device,
+                                  void* stream) {
+  return launch(src, plane, offsets, rec, frac, cost, nnz, bits, n, plane_h, plane_w,
+                DevQParams{qvec, range_flag}, device, stream);
 }

@@ -381,4 +381,53 @@ __device__ __forceinline__ void scores_gathered(const uint8_t* __restrict__ win,
 }
 
 }  // namespace rtc
+
+// The five quantizer parameters (residual_core.cuh QParams) as a device
+// int32[5] in that order, with a range flag: the source of the parameters in
+// K2's and B3's device-q C entries, whose caller keeps qp on the card.
+struct DevQParams {
+  const int32_t* qvec;
+  int32_t* range_flag;
+};
+
+// Each parameter outside the range the host entries check sets its bit
+// (ops/quantize.py QUANT_RANGES): 1 scale (1..2^15-1), 2 shift (16..27),
+// 4 offset (0..2^15-1), 8 dshift (1..31).
+__device__ __forceinline__ int qparams_range_bits(const QParams& p) {
+  return static_cast<int>(p.qscale < 1 || p.qscale > 0x7FFF) |
+         static_cast<int>(p.qshift < 16 || p.qshift > 27) << 1 |
+         static_cast<int>(p.qoffset < 0 || p.qoffset > 0x7FFF) << 2 |
+         static_cast<int>(p.dshift < 1 || p.dshift > 31) << 3;
+}
+
+// Where K2's and B3's kernels take the parameters from, by the type of
+// their source: prefetch_qparams at the kernel's start, qparams_ok after the
+// refinement (false: the block must code nothing), qparams for the residual
+// stage.  Host ints are the kernel's by-value parameter, checked by the C
+// entry before the launch.
+__device__ __forceinline__ void prefetch_qparams(const QParams&) {}
+__device__ __forceinline__ bool qparams_ok(const QParams&) { return true; }
+__device__ __forceinline__ const QParams& qparams(const QParams& src) { return src; }
+
+// The block's shared copy of a device vector.
+__device__ __forceinline__ QParams* qparams_smem() {
+  __shared__ QParams s_qp;
+  return &s_qp;
+}
+
+// A device vector: five lanes copy it to shared memory as the kernel starts,
+// so the load's latency hides behind the refinement, whose barriers publish
+// the copy.  Out of range, one lane ORs the parameters' bits into the flag
+// and the block writes nothing computed with them.
+__device__ __forceinline__ void prefetch_qparams(const DevQParams& src) {
+  if (threadIdx.x < 5)
+    reinterpret_cast<int*>(qparams_smem())[threadIdx.x] = __ldg(src.qvec + threadIdx.x);
+}
+__device__ __forceinline__ bool qparams_ok(const DevQParams& src) {
+  const int bad = qparams_range_bits(*qparams_smem());
+  if (bad && threadIdx.x == 0) atomicOr(src.range_flag, bad);
+  return !bad;
+}
+__device__ __forceinline__ const QParams& qparams(const DevQParams&) { return *qparams_smem(); }
+
 }  // namespace

@@ -182,10 +182,6 @@ def config_from_fields(d: dict) -> EncodeConfig:
                            for k, v in d.items()})
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: {item}")
-
-
 def _check_inter_core(cfg: EncodeConfig) -> None:
     """What _inter_core rejects before any work, as hevcasm_tpu does: it
     serves the fixed CTU/TU geometry only."""

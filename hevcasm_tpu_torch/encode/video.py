@@ -30,10 +30,10 @@ import torch
 from ..config import Tier
 from ..ops.pred_inter import pred_uni, pred_uni_16
 from ..utils.psnr import psnr
-from ..utils.tensor import as_tensor, entry_device
+from ..utils.tensor import as_tensor, constant, entry_device
 from . import ctu as ctu_mod
 from . import motion
-from .loop import (EncodeConfig, _inter_core, _not_ported, _op, _pad_reference,
+from .loop import (EncodeConfig, _inter_core, _op, _pad_reference,
                    _prepare_frame, _residual_pipeline, _search_impl_resolved)
 
 __all__ = ["YuvFrame", "chroma_qp", "encode_inter_frame_yuv", "encode_b_frame_yuv"]
@@ -150,7 +150,7 @@ def _b_fused(cfg: EncodeConfig) -> bool:
 
 
 def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
-                  qparams=None, tiers: Tier = Tier.ALL):
+                  qparams=None, tiers: Tier = Tier.ALL, range_flag=None):
     """The B frame's luma: per-reference integer search, exhaustive
     whatever me_strategy says, as in hevcasm_tpu (K1 per reference where
     the slab route resolves, else one full_search_multi call: B7 on a CUDA
@@ -158,11 +158,15 @@ def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
     the metric's scorer, B9 for SAD), then B3 under
     inter_impl 'fused*' (64x64 CTUs, 8x8 TUs) or the staged refine +
     pred_uni_16 + combine + residual, whose refinement is the plain sweep
-    whatever refine_impl and fused_refine say, as in hevcasm_tpu.  Returns (rec_y_ctus,
-    [mv0_qpel, mv1_qpel], nnz () int32, bits () int32 or None)."""
-    if qparams is not None:
-        _not_ported("traced quantizer parameters (rate control)",
-                    "ROADMAP A.8 (encode/rate.py)")
+    whatever refine_impl and fused_refine say, as in hevcasm_tpu.
+
+    qparams None takes cfg's quantizer; the rate controller's (qscale,
+    qshift, qoffset, dscale, dshift) 0-d tensors select the traced-qp
+    residual (B3's device-q entry, or rate._residual_pipeline_traced_params
+    when staged), checked into ``range_flag`` (ops.quantize) where one is
+    given.  Returns (rec_y_ctus, [mv0_qpel, mv1_qpel], nnz () int32 or
+    None, bits () int32 or None): nnz with cfg's quantizer or B3, bits with
+    qparams, as in hevcasm_tpu."""
     r = cfg.search_range
     planes = torch.stack([_pad_reference(ref0_y, r), _pad_reference(ref1_y, r)])
     if _search_impl_resolved(cfg, src_ctus.device) == "slab":
@@ -175,18 +179,18 @@ def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
             src_ctus, planes, pos, r, grid_fn=motion.grid_metric_fn(cfg.me_metric, tiers),
             grid=grid, joint=False, metric=cfg.me_metric,
             grid_plane_multi_fn=_op("ssd_grid_plane_multi", tiers))
-    scale, shift, offset = cfg.quant_params(False)
-    dscale, dshift = cfg.dequant_params()
+    qargs = ((*cfg.quant_params(False), *cfg.dequant_params()) if qparams is None
+             else tuple(qparams))
 
     if _b_fused(cfg):
         # Both planes stacked by rows; offsets1 carries the lower plane's
-        # row offset.
+        # row offset, a constant made once per plane height and device.
         hp, wp = planes.shape[1:]
-        lower = torch.tensor([hp, 0], dtype=torch.int32, device=pos.device)
+        lower = constant((hp, 0), torch.int32, pos.device)
         rec_y_ctus, f0, f1, nnz_tu, bits_tu = _op("bi_ctu_fused_dma", tiers)(
             src_ctus, planes.reshape(2 * hp, wp), pos + mv_ints[0] + r,
-            pos + mv_ints[1] + r + lower, scale, shift, offset, dscale, dshift,
-            group=cfg.fused_group)
+            pos + mv_ints[1] + r + lower, *qargs, group=cfg.fused_group,
+            range_flag=range_flag)
         mvs = [motion.qpel_mvs(mv_ints[0], f0), motion.qpel_mvs(mv_ints[1], f1)]
         return (rec_y_ctus, mvs, nnz_tu.sum(dtype=torch.int32),
                 bits_tu.sum(dtype=torch.int32))
@@ -199,9 +203,15 @@ def _b_frame_luma(src_ctus, ref0_y, ref1_y, pos, grid, cfg: EncodeConfig,
         mvs.append(motion.qpel_mvs(mv_int, frac))
         preds16.append(pred_uni_16(win, frac % 4, frac // 4, motion.TAPS).to(torch.int32))
     pred_y = ((preds16[0] + preds16[1] + 64) >> 7).clamp(0, 255).to(torch.uint8)
-    rec_y_ctus, nnz_y, _ = _residual_pipeline(src_ctus, pred_y, cfg, intra=False,
-                                              tiers=tiers)
-    return rec_y_ctus, mvs, nnz_y, None
+    if qparams is None:
+        rec_y_ctus, nnz_y, _ = _residual_pipeline(src_ctus, pred_y, cfg, intra=False,
+                                                  tiers=tiers)
+        return rec_y_ctus, mvs, nnz_y, None
+    from .rate import _residual_pipeline_traced_params
+
+    rec_y_ctus, bits = _residual_pipeline_traced_params(src_ctus, pred_y, qparams, cfg,
+                                                        range_flag=range_flag)
+    return rec_y_ctus, mvs, None, bits
 
 
 def encode_b_frame_yuv(cur, ref0, ref1, cfg: EncodeConfig = EncodeConfig(),

@@ -13,7 +13,9 @@ rows (the caller adds the lower plane's row offset to offsets1); offsets0
 and offsets1 (n, 2) int32, the [y, x] top-left of each CTU's 71x71 refine
 window per reference (a start past the plane's end is clamped so the
 window fits); the quantizer parameters are ints inside the ranges the HEVC
-reference asserts.  Each reference is refined on its own (QPEL_SCORE, first
+reference asserts, or 0-d integer tensors on the frame's device with an
+optional ``range_flag``, as for K2 (kernels.inter_fused: the device-q C
+entry ``hevc_bi_fused_q``).  Each reference is refined on its own (QPEL_SCORE, first
 minimum in yf*4 + xf order); the winners' int16 (acc >> 6) intermediates
 are combined as Clip3(0, 255, (p0 + p1 + 64) >> 7) and coded.  Returns
 (rec (n, 64, 64) uint8, frac0 (n,) int32, frac1 (n,) int32, nnz (n, 8, 8)
@@ -29,19 +31,19 @@ from ..config import Tier
 from ..ops.pred_inter import pred_uni_16, refine_qpel
 from ..utils.tensor import TAPS, as_tensor, extract_windows
 from . import build
-from .inter_fused import CTU, TU, WIN, _check, residual_8x8
+from .inter_fused import CTU, TU, WIN, _check, _check_quant, _launch_fused, residual_8x8
 
 __all__ = ["bi_ctu_fused_dma", "bi_ctu_fused_dma_ref"]
 
 
-def _check_bi(src, plane, offsets0, offsets1, *qargs) -> None:
-    _check(src, plane, offsets0, *qargs)
+def _check_bi(src, plane, offsets0, offsets1) -> None:
+    _check(src, plane, offsets0)
     if offsets1.shape != offsets0.shape:
         raise ValueError(f"offsets1 must be ({src.shape[0]}, 2), got {tuple(offsets1.shape)}")
 
 
 def bi_ctu_fused_dma_ref(src_ctus, ref_plane, offsets0, offsets1, qscale,
-                         qshift, qoffset, dscale, dshift, group: int = 6):
+                         qshift, qoffset, dscale, dshift, group: int = 6, range_flag=None):
     """Plain version, the staged composition the TPU kernel is exact with:
     gather both windows, refine each (ops.pred_inter.refine_qpel), take
     pred_uni_16 at each winner, combine (p0 + p1 + 64) >> 7, then the REF
@@ -51,8 +53,8 @@ def bi_ctu_fused_dma_ref(src_ctus, ref_plane, offsets0, offsets1, qscale,
     plane = as_tensor(ref_plane, src.device)
     offsets0 = as_tensor(offsets0, src.device)
     offsets1 = as_tensor(offsets1, src.device)
-    qargs = (qscale, qshift, qoffset, dscale, dshift)
-    _check_bi(src, plane, offsets0, offsets1, *qargs)
+    _check_bi(src, plane, offsets0, offsets1)
+    _check_quant(qscale, qshift, qoffset, dshift, range_flag)
     preds16, fracs = [], []
     for offsets in (offsets0, offsets1):
         win = extract_windows(plane, offsets, WIN)
@@ -60,12 +62,13 @@ def bi_ctu_fused_dma_ref(src_ctus, ref_plane, offsets0, offsets1, qscale,
         preds16.append(pred_uni_16(win, frac % 4, frac // 4, TAPS).to(torch.int32))
         fracs.append(frac)
     pred = ((preds16[0] + preds16[1] + 64) >> 7).clamp(0, 255).to(torch.uint8)
-    rec, nnz, bits = residual_8x8(src, pred, *qargs)
+    rec, nnz, bits = residual_8x8(src, pred, qscale, qshift, qoffset, dscale, dshift,
+                                  range_flag)
     return rec, fracs[0], fracs[1], nnz, bits
 
 
 def bi_ctu_fused_dma(src_ctus, ref_plane, offsets0, offsets1, qscale, qshift,
-                     qoffset, dscale, dshift, group: int = 6):
+                     qoffset, dscale, dshift, group: int = 6, range_flag=None):
     """Fused bi refine + combine + residual.  CPU tensors run the plain
     version; CUDA tensors launch the kernel (and raise if it cannot be
     built or launched).  ``group`` is accepted and ignored."""
@@ -75,7 +78,8 @@ def bi_ctu_fused_dma(src_ctus, ref_plane, offsets0, offsets1, qscale, qshift,
     offsets1 = as_tensor(offsets1, src.device)
     qargs = (qscale, qshift, qoffset, dscale, dshift)
     if src.device.type == "cpu":
-        return bi_ctu_fused_dma_ref(src, plane, offsets0, offsets1, *qargs)
+        return bi_ctu_fused_dma_ref(src, plane, offsets0, offsets1, *qargs,
+                                    range_flag=range_flag)
     tensors = (src, plane, offsets0, offsets1)
     if src.device.type != "cuda" or {t.device for t in tensors} != {src.device}:
         raise ValueError("bi_ctu_fused_dma: tensors on "
@@ -86,7 +90,7 @@ def bi_ctu_fused_dma(src_ctus, ref_plane, offsets0, offsets1, qscale, qshift,
                         "and the offsets int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("bi_ctu_fused_dma: inputs must be contiguous")
-    _check_bi(src, plane, offsets0, offsets1, *qargs)
+    _check_bi(src, plane, offsets0, offsets1)
     n = src.shape[0]
     dev = src.device
     k = CTU // TU
@@ -95,19 +99,14 @@ def bi_ctu_fused_dma(src_ctus, ref_plane, offsets0, offsets1, qscale, qshift,
     frac1 = torch.empty((n,), dtype=torch.int32, device=dev)
     nnz = torch.empty((n, k, k), dtype=torch.int32, device=dev)
     bits = torch.empty((n, k, k), dtype=torch.int32, device=dev)
-    lib = build.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.hevc_bi_fused(
-        src.data_ptr(), plane.data_ptr(), offsets0.data_ptr(), offsets1.data_ptr(),
-        rec.data_ptr(), frac0.data_ptr(), frac1.data_ptr(), nnz.data_ptr(),
-        bits.data_ptr(), n, plane.shape[0], plane.shape[1],
-        *(int(q) for q in qargs), dev.index or 0, stream)
-    build.check(err, "bi_ctu_fused_dma")
-    bi_ctu_fused_dma.launches += 1
+    _launch_fused(bi_ctu_fused_dma, "hevc_bi_fused",
+                  (src.data_ptr(), plane.data_ptr(), offsets0.data_ptr(), offsets1.data_ptr(),
+                   rec.data_ptr(), frac0.data_ptr(), frac1.data_ptr(), nnz.data_ptr(),
+                   bits.data_ptr(), n, plane.shape[0], plane.shape[1]), qargs, range_flag, dev)
     return rec, frac0, frac1, nnz, bits
 
 
-bi_ctu_fused_dma.launches = 0
+bi_ctu_fused_dma.launches = bi_ctu_fused_dma.device_q_launches = 0
 
 registry.register("bi_ctu_fused_dma", Tier.REF, bi_ctu_fused_dma_ref)
 registry.register("bi_ctu_fused_dma", Tier.KERNEL, bi_ctu_fused_dma)

@@ -63,10 +63,16 @@ _ENTRIES = {
     # qscale, qshift, qoffset, dscale, dshift, device, stream
     "hevc_inter_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P],
+    # src, plane, offsets, rec, frac, cost, nnz, bits, n, plane_h, plane_w,
+    # qvec (int32[5] on the card), range_flag, device, stream
+    "hevc_inter_fused_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
     # src, plane, offsets0, offsets1, rec, frac0, frac1, nnz, bits, n,
     # plane_h, plane_w, qscale, qshift, qoffset, dscale, dshift, device, stream
     "hevc_bi_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _I, _I, _P],
+    # src, plane, offsets0, offsets1, rec, frac0, frac1, nnz, bits, n,
+    # plane_h, plane_w, qvec, range_flag, device, stream
+    "hevc_bi_fused_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
     # src, windows, tile_stride, row_stride, cost, n, b, device, stream
     "hevc_costmap": [_P, _P, _I, _I, _P, _I, _I, _I, _P],
     # src, plane, offsets, cost, win_out, n, b, plane_h, plane_w, device, stream

@@ -15,10 +15,12 @@ origin at (pad, pad), pad = taps//2 - 1.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from ..utils.tensor import as_tensor, first_min
+from ..utils.tensor import as_tensor, constant, first_min
 
 __all__ = ["KERNEL8", "KERNEL4", "pred_uni", "pred_uni_16", "pred_bi",
            "qpel_score", "qpel_costmap", "refine_qpel_costmap_mxu", "refine_qpel"]
@@ -87,7 +89,12 @@ def _coef(frac, taps: int, device):
     if isinstance(frac, (int, np.integer)):
         return kern[int(frac)]
     frac = as_tensor(frac, device).long()
-    return torch.as_tensor(kern, device=device)[frac]
+    return _kern_table(taps, device)[frac]
+
+
+@functools.lru_cache(maxsize=8)
+def _kern_table(taps: int, device) -> torch.Tensor:
+    return constant(KERNEL8 if taps == 8 else KERNEL4, torch.int32, device)
 
 
 def _hv(window: torch.Tensor, xfrac, yfrac, taps: int) -> torch.Tensor:

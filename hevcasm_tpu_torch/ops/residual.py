@@ -39,16 +39,17 @@ def _merge(tus: torch.Tensor, big: int) -> torch.Tensor:
 
 
 def residual_levels(src_blocks, pred_blocks, qscale, qshift, qoffset,
-                    dscale, dshift, tu: int = 8, tr_type: int = 0):
+                    dscale, dshift, tu: int = 8, tr_type: int = 0, range_flag=None):
     """The pipeline returning the quantized levels themselves:
     (recon (n, B, B) uint8, levels (n*(B/tu)^2, tu, tu) int16 in
-    raster TU order, cbf (n*(B/tu)^2,) bool)."""
+    raster TU order, cbf (n*(B/tu)^2,) bool).  The parameters are ints or
+    0-d tensors; ``range_flag`` as in ops.quantize.quantize."""
     src_blocks = as_tensor(src_blocks)
     pred_blocks = as_tensor(pred_blocks, src_blocks.device)
     big = src_blocks.shape[-1]
     res = src_blocks.to(torch.int16) - pred_blocks.to(torch.int16)
     coeffs = forward_transform(_split(res, tu), tr_type)
-    levels, cbf = quantize(coeffs, qscale, qshift, qoffset)
+    levels, cbf = quantize(coeffs, qscale, qshift, qoffset, range_flag)
     rcoeffs = quantize_inverse(levels, dscale, dshift)
     rec_tus = inverse_transform_add(rcoeffs, _split(pred_blocks, tu), tr_type)
     return _merge(rec_tus, big), levels, cbf
@@ -66,12 +67,10 @@ def residual_pipeline(src_blocks, pred_blocks, qscale, qshift, qoffset,
 
 def bits_egk(q: torch.Tensor) -> torch.Tensor:
     """Exp-Golomb bit cost per quantized level, elementwise int32: 0 for
-    q == 0, else 2 * floor(log2 |q|) + 3.  floor(log2 a) is the index of
-    the top set bit, found exactly by comparison against powers of two."""
-    a = q.to(torch.int32).abs()
-    pow2 = torch.tensor([1 << k for k in range(1, 31)], dtype=torch.int32,
-                        device=a.device)
-    fl = (a[..., None] >= pow2).sum(dim=-1, dtype=torch.int32)
+    q == 0, else 2 * floor(log2 |q|) + 3.  floor(log2 a) is the exponent of
+    a as a float64, which holds every int32 exactly."""
+    a = q.to(torch.int64).abs()
+    fl = ((a.clamp_min(1).to(torch.float64).view(torch.int64) >> 52) - 1023).to(torch.int32)
     return torch.where(a > 0, 2 * fl + 3, 0).to(torch.int32)
 
 

@@ -14,10 +14,12 @@ sum is an integer below 2^28, so float64 holds them exactly on any device
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from ..utils.tensor import as_tensor
+from ..utils.tensor import as_tensor, constant
 
 __all__ = ["DCT32", "DST4", "INVERSE_SHIFTS", "dct_matrix", "forward_shifts",
            "forward_transform", "inverse_transform", "add_residual",
@@ -105,8 +107,9 @@ def _inv_stage(x: torch.Tensor, t: torch.Tensor, shift: int) -> torch.Tensor:
     return ((y + (1 << (shift - 1))) >> shift).clamp(-32768, 32767)
 
 
+@functools.lru_cache(maxsize=32)
 def _t(n: int, tr_type: int, device) -> torch.Tensor:
-    return torch.as_tensor(_matrix(n, tr_type), device=device)
+    return constant(_matrix(n, tr_type), torch.int32, device)
 
 
 def forward_transform(res, tr_type: int = 0) -> torch.Tensor:

@@ -34,6 +34,30 @@ def entry_device(x, device=None) -> torch.device:
     return dev
 
 
+@functools.lru_cache(maxsize=64)
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    t = torch.tensor(values, dtype=dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    # From pinned memory without blocking: no host synchronisation, so a
+    # loop that must not read the card from the host may build it.
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A read-only tensor of constant ``values`` (nested sequences of
+    numbers) on ``device``, made once per (values, dtype, device) and
+    shared: callers must not write to it.  Its copy to a CUDA card does
+    not synchronise the host with the card."""
+    return _constant(_frozen(values), dtype, torch.device(device))
+
+
+def _frozen(values):
+    if isinstance(values, np.ndarray):
+        values = values.tolist()
+    return tuple(_frozen(v) for v in values) if isinstance(values, (list, tuple)) else values
+
+
 TAPS = 8               # the luma interpolation filter's taps
 PAD_L = TAPS // 2 - 1  # 3: the rows/columns it reads before a block
 PAD_R = TAPS // 2      # 4: and after it

@@ -1455,3 +1455,93 @@ def test_selftest_on_the_card_passes_and_launches_each_kernel_once_a_case(cuda, 
     assert got == SELFTEST_LAUNCHES
     out = capsys.readouterr().out
     assert "self test passed" in out and "KERNEL:ok" in out and "MISMATCH" not in out
+
+
+# ---- rate control: the device-q C entries of K2 (and B16) and B3 ----------------------
+
+def device_q(qargs, device):
+    """The five quantizer parameters as 0-d int32 tensors on the card."""
+    return tuple(torch.tensor(q, dtype=torch.int32, device=device) for q in qargs)
+
+
+def rate_entries(device, qp):
+    """(name, wrapper, plain version, operands) of K2, B16 and B3 at qp."""
+    src, plane, offsets, qargs = k2_case(5, 32, qp, 256, 320, device)
+    _, flat, off0, off1, _ = b3_case(5, 32, qp, 256, 320, device)
+    win = motion.extract_windows(plane, offsets, 71).contiguous()
+    return qargs, [
+        ("k2", inter_fused.inter_ctu_fused_dma, inter_fused.inter_ctu_fused_dma_ref,
+         (src, plane, offsets)),
+        ("b16", inter_fused.inter_ctu_fused, inter_fused.inter_ctu_fused_ref, (src, win)),
+        ("b3", bi_fused.bi_ctu_fused_dma, bi_fused.bi_ctu_fused_dma_ref,
+         (src, flat, off0, off1))]
+
+
+@pytest.mark.parametrize("qp", [10, 32, 49])
+def test_rate_device_q_entries_equal_host_int_entries_and_plain(cuda, qp):
+    from hevcasm_tpu_torch.ops.quantize import range_flag
+
+    qargs, entries = rate_entries(cuda, qp)
+    for name, fn, ref, args in entries:
+        flag = range_flag(cuda)
+        before = fn.device_q_launches
+        got, launches = launched(lambda: fn(*args, *device_q(qargs, cuda), range_flag=flag))
+        assert launches == {name: 1} and fn.device_q_launches == before + 1, name
+        assert int(flag) == 0, name
+        assert_bit_equal(got, fn(*args, *qargs))
+        assert_bit_equal(got, ref(*args, *qargs))
+        assert_bit_equal(got, ref(*args, *device_q(qargs, cuda), range_flag=flag))
+        assert int(flag) == 0, name
+
+
+@pytest.mark.parametrize("bad,bit", [(dict(qshift=28), 2), (dict(dshift=0), 8),
+                                     (dict(qscale=0, qoffset=1 << 15), 5)])
+def test_rate_range_flag_set_by_parameters_out_of_range(cuda, bad, bit):
+    from hevcasm_tpu_torch.ops.quantize import range_flag
+
+    good, entries = rate_entries(cuda, 32)
+    names = ("qscale", "qshift", "qoffset", "dscale", "dshift")
+    qargs = tuple(bad.get(k, q) for k, q in zip(names, good))
+    for name, fn, _, args in entries:
+        flag = range_flag(cuda)
+        out = fn(*args, *device_q(qargs, cuda), range_flag=flag)
+        assert int(flag) == bit, name
+        # The refinement needs no quantizer: its fractions are still written.
+        assert torch.equal(out[1], fn(*args, *good)[1]), name
+        with pytest.raises(ValueError, match="outside"):     # no flag: read at once
+            fn(*args, *device_q(qargs, cuda))
+
+
+@pytest.mark.parametrize("kw,b_frames,need", [
+    (dict(inter_impl="fused_dma"), False, {"k1": 4, "k2": 4}),
+    (dict(inter_impl="fused"), False, {"k1": 4, "b16": 4}),
+    (dict(fused_refine=True), False, {"k1": 4, "b11": 4}),
+    (dict(inter_impl="fused_dma"), True, {"k1": 6, "k2": 2, "b3": 2})])
+def test_rate_gop_on_card_equals_plain_and_cpu_without_host_reads(cuda, kw, b_frames, need):
+    from hevcasm_tpu_torch.encode import rate
+    from hevcasm_tpu_torch.ops.quantize import raise_on_flag, range_flag
+
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.integers(0, 256, (5, 128, 192), dtype=np.uint8), device=cuda)
+    frames = ((frames.int() + frames.roll(1, 2).int()) // 2).to(torch.uint8)
+    cfg = EncodeConfig(search_range=8, **kw)
+    flag = range_flag(cuda)
+    target = torch.tensor(4000.0, device=cuda)
+    qp0 = torch.tensor(30, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, launches = launched(lambda: rate._gop_rc_body(frames, target, qp0, cfg, 10, 49,
+                                                           b_frames, Tier.ALL, flag))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    raise_on_flag(flag)
+    assert launches == need
+    plain = rate.encode_gop_rate_controlled(frames, 4000.0, 30, cfg, b_frames=b_frames,
+                                            tiers=Tier.REF)
+    on_cpu = rate.encode_gop_rate_controlled(frames.cpu(), 4000.0, 30, cfg,
+                                             b_frames=b_frames)
+    for want in (plain, on_cpu):
+        for k in ("recon", "bits", "qp"):
+            assert torch.equal(got[k].cpu(), want[k].cpu()), k
+        assert float((got["psnr_db"].cpu() - want["psnr_db"].cpu()).abs().max()) <= 1e-3

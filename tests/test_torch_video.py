@@ -213,13 +213,33 @@ def test_search_configurations_match_jax(kind, kw):
     assert_matches(kind, run_port(kind, **kw), jax_result(kind, **kw))
 
 
-def test_traced_quantizer_parameters_name_rate_control():
-    ref0, cur, ref1 = clip()
-    src = torch.zeros((6, 64, 64), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        _b_frame_luma(src, torch.as_tensor(ref0[0]), torch.as_tensor(ref1[0]),
-                      torch.zeros((6, 2), dtype=torch.int32), (2, 3),
-                      EncodeConfig(search_range=8), qparams=(1, 20, 0, 1, 2))
+@pytest.mark.parametrize("impl", ["stages", "fused_dma"])
+def test_traced_quantizer_parameters_name_rate_control(impl):
+    """The B frame's luma with the rate controller's tensor quantizer
+    parameters (qp 30) against hevcasm_tpu's _b_frame_luma with traced ones:
+    recon, MVs and bits equal (hevcasm_tpu's staged tier, which its tests
+    show equal to its fused one; the port's fused tier runs B3's plain
+    version here)."""
+    from hevcasm_tpu.encode import ctu as jctu, motion as jmotion
+    from hevcasm_tpu.encode.rate import quant_params_traced as jax_qparams
+    from hevcasm_tpu.encode.video import _b_frame_luma as jax_b_luma
+    from hevcasm_tpu_torch.encode import ctu as tctu, motion as tmotion
+    from hevcasm_tpu_torch.encode.rate import quant_params_traced
+
+    ref0, cur, ref1 = (f[0] for f in clip())
+    grid = (H // 64, W // 64)
+    want = jax_b_luma(jctu.tile_frame(jnp.asarray(cur), 64), jnp.asarray(ref0),
+                      jnp.asarray(ref1), jmotion.ctu_positions(*grid, 64), grid,
+                      JaxConfig(search_range=8), qparams=jax_qparams(jnp.int32(30), 3))
+    got = _b_frame_luma(tctu.tile_frame(torch.as_tensor(cur), 64).contiguous(),
+                        torch.as_tensor(ref0), torch.as_tensor(ref1),
+                        tmotion.ctu_positions(*grid, 64), grid,
+                        EncodeConfig(search_range=8, inter_impl=impl),
+                        qparams=quant_params_traced(30, 3))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for g, w in zip(got[1], want[1]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[3].dtype == torch.int32 and int(got[3]) == int(want[3])
 
 
 @pytest.mark.parametrize("qp", [0, 29, 30, 35, 43, 44, 51])
