@@ -139,6 +139,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
             2.5x twice it) and code its first P frame as
             encode_inter_frame at qp 40 does; qp0 = 60 in [55, 70] must
             raise ValueError ("outside") under fused_dma and stages.
+            The intra frames at 1920x1088, qp 32, intra_block 32:
+            encode_intra_frame on bench content must launch no registry
+            kernel and use more than 4 distinct modes (its peak device
+            memory is printed); encode_intra_frame_wavefront (126 waves)
+            must run under torch.cuda.set_sync_debug_mode("error") (no host
+            read) and launch no registry kernel; encode_intra_frame_yuv on
+            the structured pan likewise; each equal to its plain path on the
+            card and, at 128x192, to the CPU.  The GOPs on 5 frames of the
+            rate clip at 1920x1088 with chroma planes from the seed,
+            fused_dma, R = 32: encode_gop (open loop, and with the
+            wavefront I frame), encode_gop_yuv IPPP, encode_gop_closed_loop
+            and encode_gop_closed_loop_yuv must launch exactly K1 x4 and K2
+            x4, encode_gop_yuv(b_frames=True) and
+            encode_gop_closed_loop_yuv_b exactly K1 x6, K2 x2 and B3 x2;
+            each equal to its plain path on the card, the closed-loop ones
+            also to the per-frame entry points chained on reconstructions,
+            and a 128x192 clip (3 frames, 5 with B frames) at R = 8 to the
+            CPU; their host reads are counted (set_sync_debug_mode("warn")).
+            python -m hevcasm_tpu_torch encode --frames 3 --width 640
+            --height 384 must print its JSON line, with the nnz of the same
+            command on the CPU and its PSNR within 1e-3 dB, and a Y4M round
+            trip through --input / --output in a temporary directory must
+            give back encode_gop_yuv's reconstruction.
 5. timing   CUDA-event medians over 20 samples after warm-up: each path per
             frame, synchronised after each (ms per frame and CTU/s), the luma
             path also 20 frames back to back, and each path's plain version;
@@ -188,7 +211,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
             in turns with a closed loop of fixed-qp encode_inter_frame
             calls over the same frames, ms a frame with min and max of 20
             samples; K2's and B3's device time through each C entry at the
-            1080p shapes, and a call of each, in turns.
+            1080p shapes, and a call of each, in turns.  The intra frames
+            (open loop, wavefront, yuv) and each GOP in ms a frame (min,
+            median and max), the n = 32 mode decision's device time (its
+            float64 products, the whole decision, the residual beside it),
+            and torch.profiler's device busy share and kernel launches over
+            a wavefront frame, a yuv I frame and a closed-loop yuv GOP.
+            Device times count the card's own events only (on_device_ms).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -196,13 +225,17 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -308,20 +341,24 @@ def median_ms(fn, calls: int = 1, reps: int = REPS) -> float:
     return statistics.median(samples_ms(fn, calls, reps))
 
 
+def on_device_ms(prof, kernel: str = "") -> float:
+    """The device time (ms) of the operations on the card (kernels, copies,
+    memsets) that a torch.profiler run recorded, those whose name holds
+    ``kernel``.  Only the device's own events count: key_averages() also
+    gives each torch op (aten::...) the time of the kernels it launched, so
+    a sum over every entry would count a torch op's kernels twice (torch's
+    own table sums the device events alone)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == cuda and kernel in e.key) / 1e3
+
+
 def device_ms(fn, calls: int = 10) -> float:
-    """Device time of one call of fn: the self time of every CUDA kernel
-    torch.profiler records over ``calls`` calls, per call (0.0 when the
-    profiler records none).  Set beside a CUDA-event time it says whether
-    the device or the host's enqueue bounds the calls."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
-    return us / 1e3 / calls
+    """Device time of one call of fn: the time of every operation
+    torch.profiler records on the card over ``calls`` calls, per call (0.0
+    when the profiler records none).  Set beside a CUDA-event time it says
+    whether the device or the host's enqueue bounds the calls."""
+    return kernel_device_ms(fn, "", calls)
 
 
 def kernel_device_ms(fn, kernel: str, calls: int = 10) -> float:
@@ -336,9 +373,7 @@ def kernel_device_ms(fn, kernel: str, calls: int = 10) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-             if kernel in e.key)
-    return us / 1e3 / calls
+    return on_device_ms(prof, kernel) / calls
 
 
 def rate_clip(t: int, h: int, w: int, noise: int, seed: int = 0) -> np.ndarray:
@@ -367,6 +402,49 @@ def device_ops(fn) -> list[str]:
         torch.cuda.synchronize()
     return [e.name for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def host_reads(fn):
+    """fn()'s result and the number of times it synchronised the host with
+    the card (each synchronising call warns under
+    torch.cuda.set_sync_debug_mode("warn")): its host reads."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def without_host_read(fn):
+    """fn()'s result; fails if fn synchronises the host with the card
+    (torch.cuda.set_sync_debug_mode("error"))."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def busy_share(fn) -> tuple[float, float, int]:
+    """(device busy ms, wall ms, kernel launches) of one call of fn after a
+    warm-up call: torch.profiler's self device time of every CUDA kernel,
+    against the host clock from an idle card to the end of fn's work."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "emcpy" not in e.name and "emset" not in e.name]
+    return on_device_ms(prof), wall, len(kernels)
 
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
@@ -724,13 +802,19 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    from hevcasm_tpu_torch import selftest
+    from hevcasm_tpu_torch import cli, selftest
+    from hevcasm_tpu_torch import io as yuv_io
     from hevcasm_tpu_torch.config import Tier
     from hevcasm_tpu_torch.encode import ctu as ctu_mod, motion, partition, rate
+    from hevcasm_tpu_torch.encode.intra_wavefront import encode_intra_frame_wavefront
     from hevcasm_tpu_torch.encode.loop import (
-        EncodeConfig, encode_inter_frame, encode_inter_frame_multiref)
+        EncodeConfig, _intra_mode_decide, _intra_neighbours, _prepare_intra_refs,
+        _residual_pipeline, encode_gop, encode_inter_frame, encode_inter_frame_multiref,
+        encode_intra_frame)
     from hevcasm_tpu_torch.encode.video import (
-        YuvFrame, encode_b_frame_yuv, encode_inter_frame_yuv)
+        YuvFrame, encode_b_frame_yuv, encode_gop_closed_loop, encode_gop_closed_loop_yuv,
+        encode_gop_closed_loop_yuv_b, encode_gop_yuv, encode_inter_frame_yuv,
+        encode_intra_frame_yuv)
     from hevcasm_tpu_torch.kernels import build
     from hevcasm_tpu_torch.kernels import mc
     from hevcasm_tpu_torch.kernels.base_grids import (
@@ -1526,17 +1610,26 @@ def main() -> int:
             return encode_inter_frame_yuv(cur_f, ref0_f, config, tiers=tiers)
         return encode_b_frame_yuv(cur_f, ref0_f, ref1_f, config, tiers=tiers)
 
-    def yuv_differs(got, want) -> str:
-        """'' when every integer output is equal and every PSNR within
-        1e-3 dB (float means summed in other orders), else what differs."""
+    def outputs_differ(got, want) -> str:
+        """'' when every integer output (a plane, a YuvFrame, a tensor, an
+        int) is equal and every PSNR (one, or one a frame) within 1e-3 dB
+        (float means summed in other orders), else what differs."""
         if set(got) != set(want):
             return f"keys {sorted(got)} != {sorted(want)}"
-        ints = [k for k in got if k != "recon" and not k.startswith("psnr")]
-        e = max_abs_err([*got["recon"], *(got[k] for k in ints)],
-                        [*want["recon"], *(want[k] for k in ints)])
-        far = [k for k in got if k.startswith("psnr")
-               and abs(float(got[k]) - float(want[k])) > 1e-3]
-        return f"max_abs_err {e}, psnr {far}" if e or far else ""
+        bad = []
+        for k in got:
+            g, w = got[k], want[k]
+            if k.startswith("psnr"):
+                same = float((g.cpu() - w.cpu()).abs().max()) <= 1e-3
+            elif isinstance(g, torch.Tensor):
+                same = not max_abs_err([g], [w])
+            elif isinstance(g, tuple):
+                same = not max_abs_err(list(g), list(w))
+            else:
+                same = g == w
+            if not same:
+                bad.append(k)
+        return f"differs in {bad}" if bad else ""
 
     yuv_frames = (yuv_cur, yuv_ref0, yuv_ref1)
     need = {"P": {"ssd_grid_plane": 1, "inter_ctu_fused_dma": 1},
@@ -1558,14 +1651,14 @@ def main() -> int:
         if not all(np.isfinite(v) and got[k].dtype == torch.float32
                    for k, v in psnrs.items()):
             raise AssertionError(f"yuv {kind}: psnr {psnrs}")
-        diff = yuv_differs(got, yuv_path(kind, yuv_frames, cfg, Tier.REF))
+        diff = outputs_differ(got, yuv_path(kind, yuv_frames, cfg, Tier.REF))
         if diff:
             raise AssertionError(f"yuv {kind} differs from the plain path on the card: {diff}")
         small_yuv = [YuvFrame(*(torch.as_tensor(p) for p in f))
                      for f in structured_pan(128, 192, seed=5)]
         on_card = yuv_path(kind, [YuvFrame(*(p.to(dev) for p in f)) for f in small_yuv],
                            small_cfg)
-        diff = yuv_differs(on_card, yuv_path(kind, small_yuv, small_cfg))
+        diff = outputs_differ(on_card, yuv_path(kind, small_yuv, small_cfg))
         if diff:
             raise AssertionError(f"128x192 yuv {kind}: the card differs from the CPU: {diff}")
         log(f"yuv {kind} path: {', '.join(f'{k}={v:.4f}' for k, v in psnrs.items())} "
@@ -1780,7 +1873,7 @@ def main() -> int:
     for name, (kind, pcfg, need_p) in search_paths.items():
         run = search_path(kind)
         got = drive(f"{name} path", lambda: run(pcfg), need_p, exact=True)
-        check_out = yuv_differs if kind == "B" else differs
+        check_out = outputs_differ if kind == "B" else differs
         recon = got["recon"][0] if kind == "B" else got["recon"]
         mvs = got["mvs0"] if kind == "B" else got["mvs"]
         if tuple(recon.shape) != (H, W) or recon.dtype != torch.uint8 \
@@ -1908,6 +2001,176 @@ def main() -> int:
         else:
             raise AssertionError(f"GOP {name}: qp 60 did not raise")
 
+    # Intra frames (no registry kernel: the n = 32 mode decision is float64
+    # matrix products and the residual plain torch) on bench content and the
+    # structured pan at 1080p, qp 32, intra_block 32.  The wavefront frame
+    # (126 waves) runs under set_sync_debug_mode("error"): no host read.
+    intra_cfg = EncodeConfig(qp=32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    intra = drive("I frame (open loop)", lambda: encode_intra_frame(cur, intra_cfg), {},
+                  exact=True)
+    intra_peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+    m_blocks = (H // 32) * (W // 32)
+    for key, shape, dtype in (("recon", (H, W), torch.uint8), ("modes", (m_blocks,), torch.int32),
+                              ("nnz", (), torch.int32), ("psnr_db", (), torch.float32)):
+        if tuple(intra[key].shape) != shape or intra[key].dtype != dtype:
+            raise AssertionError(f"I frame {key}: {tuple(intra[key].shape)} {intra[key].dtype}")
+    modes_used = int(torch.unique(intra["modes"]).numel())
+    if modes_used <= 4 or not np.isfinite(float(intra["psnr_db"])):
+        raise AssertionError(f"I frame: {modes_used} modes, psnr {float(intra['psnr_db'])}")
+    _, wf_first_reads = host_reads(lambda: encode_intra_frame_wavefront(cur, intra_cfg))
+    wavefront = drive("I frame (wavefront, no host read)", lambda: without_host_read(
+        lambda: encode_intra_frame_wavefront(cur, intra_cfg)), {}, exact=True)
+    intra_yuv = drive("yuv I frame", lambda: encode_intra_frame_yuv(yuv_cur, intra_cfg), {},
+                      exact=True)
+    small_i = YuvFrame(*(torch.as_tensor(p) for p in structured_pan(128, 192, seed=5)[0]))
+    for what, fn, frame, small, got in (
+            ("I frame", encode_intra_frame, cur, small_i.y, intra),
+            ("wavefront I frame", encode_intra_frame_wavefront, cur, small_i.y, wavefront),
+            ("yuv I frame", encode_intra_frame_yuv, yuv_cur, small_i, intra_yuv)):
+        diff = outputs_differ(got, fn(frame, intra_cfg, Tier.REF))
+        if diff:
+            raise AssertionError(f"{what} differs from the plain path on the card: {diff}")
+        small_card = (small.to(dev) if isinstance(small, torch.Tensor)
+                      else YuvFrame(*(p.to(dev) for p in small)))
+        diff = outputs_differ(fn(small_card, intra_cfg), fn(small, intra_cfg))
+        if diff:
+            raise AssertionError(f"128x192 {what}: the card differs from the CPU: {diff}")
+    log(f"I frame (open loop): {modes_used} distinct modes, psnr_db "
+        f"{float(intra['psnr_db']):.4f}, nnz {int(intra['nnz'])}, no registry kernel, peak "
+        f"memory {intra_peak_mb:.1f} MiB above the inputs; wavefront I frame: psnr_db "
+        f"{float(wavefront['psnr_db']):.4f}, nnz {int(wavefront['nnz'])}, no host read "
+        f"({wf_first_reads} on its first call, which builds the wave tables); yuv I frame: "
+        f"psnr_y {float(intra_yuv['psnr_y']):.4f}, nnz {int(intra_yuv['nnz'])}; each equal "
+        "to the plain path on the card, and at 128x192 to the CPU")
+
+    # The GOPs: 5 frames of the rate clip at 1080p with chroma planes from
+    # the seed, fused_dma, R = 32.  Each must launch exactly its kernels,
+    # equal its plain path on the card (the closed-loop ones also the
+    # per-frame entry points chained on reconstructions) and, on a 128x192
+    # clip at R = 8, the CPU.  Host reads in each are counted.
+    def gop_clip(t, h, w, seed):
+        return YuvFrame(*(torch.as_tensor(rate_clip(t, hh, ww, 12, seed + k), device=dev)
+                          for k, (hh, ww) in enumerate(((h, w), (h // 2, w // 2),
+                                                        (h // 2, w // 2)))))
+
+    gop_frames = gop_clip(5, H, W, 0)
+    wf_cfg = dataclasses.replace(cfg, intra_mode="wavefront")
+    ippp = {"ssd_grid_plane": 4, "inter_ctu_fused_dma": 4}
+    ibpbp = {"ssd_grid_plane": 6, "inter_ctu_fused_dma": 2, "bi_ctu_fused_dma": 2}
+    gops = {
+        "encode_gop": (lambda f, c, t=Tier.ALL: encode_gop(f.y, c, t), cfg, ippp),
+        "encode_gop wavefront": (lambda f, c, t=Tier.ALL: encode_gop(f.y, c, t), wf_cfg, ippp),
+        "encode_gop_yuv IPPP": (lambda f, c, t=Tier.ALL: encode_gop_yuv(f, c, tiers=t), cfg,
+                                ippp),
+        "encode_gop_yuv IBPBP": (lambda f, c, t=Tier.ALL: encode_gop_yuv(f, c, True, t), cfg,
+                                 ibpbp),
+        "encode_gop_closed_loop": (
+            lambda f, c, t=Tier.ALL: encode_gop_closed_loop(f.y, c, f.y.shape[0], t), cfg, ippp),
+        "encode_gop_closed_loop_yuv": (
+            lambda f, c, t=Tier.ALL: encode_gop_closed_loop_yuv(f, c, t), cfg, ippp),
+        "encode_gop_closed_loop_yuv_b": (
+            lambda f, c, t=Tier.ALL: encode_gop_closed_loop_yuv_b(f, c, t), cfg, ibpbp)}
+
+    def chained(name, f, c):
+        """The closed-loop GOP composed from the per-frame entry points."""
+        at = [YuvFrame(*(p[t] for p in f)) for t in range(f.y.shape[0])]
+        i_y = encode_intra_frame_wavefront(at[0].y, c)
+        if name == "encode_gop_closed_loop":
+            recs, psnrs = [i_y["recon"]], [i_y["psnr_db"]]
+            for fr in at[1:]:
+                out = encode_inter_frame(fr.y, recs[-1], c)
+                recs.append(out["recon"])
+                psnrs.append(out["psnr_db"])
+            return {"recon": torch.stack(recs), "psnr_db": torch.stack(psnrs)}
+        i_c = encode_intra_frame_yuv(at[0], c)["recon"]
+        recs, psnrs = [YuvFrame(i_y["recon"], i_c.cb, i_c.cr)], [i_y["psnr_db"]]
+        if name == "encode_gop_closed_loop_yuv":
+            for fr in at[1:]:
+                out = encode_inter_frame_yuv(fr, recs[-1], c)
+                recs.append(out["recon"])
+                psnrs.append(out["psnr_y"])
+        else:
+            for t in range(1, len(at), 2):
+                p_out = encode_inter_frame_yuv(at[t + 1], recs[-1], c)
+                b_out = encode_b_frame_yuv(at[t], recs[-1], p_out["recon"], c)
+                recs += [b_out["recon"], p_out["recon"]]
+                psnrs += [b_out["psnr_y"], p_out["psnr_y"]]
+        return {"recon": YuvFrame(*(torch.stack(p) for p in zip(*recs))),
+                "psnr_y": torch.stack(psnrs)}
+
+    gop_reads = {}
+    for name, (run, gcfg, need) in gops.items():
+        got, gop_reads[name] = drive(f"GOP {name}", lambda: host_reads(
+            lambda: run(gop_frames, gcfg)), need, exact=True)
+        recon_y = got["recon"].y if isinstance(got["recon"], tuple) else got["recon"]
+        if tuple(recon_y.shape) != (5, H, W) or recon_y.dtype != torch.uint8:
+            raise AssertionError(f"GOP {name}: recon {tuple(recon_y.shape)} {recon_y.dtype}")
+        psnr_key = "psnr_y" if "psnr_y" in got else "psnr_db"
+        if not bool(torch.isfinite(got[psnr_key]).all()):
+            raise AssertionError(f"GOP {name}: psnr {got[psnr_key]}")
+        wants = [("the plain path on the card", run(gop_frames, gcfg, Tier.REF))]
+        if "closed" in name:
+            wants.append(("the per-frame entry points chained",
+                          chained(name, gop_frames, gcfg)))
+        for whose, want in wants:
+            diff = outputs_differ(got, want)
+            if diff:
+                raise AssertionError(f"GOP {name} differs from {whose}: {diff}")
+        t_small = 5 if name.endswith(("IBPBP", "_b")) else 3
+        small_gop = gop_clip(t_small, 128, 192, 5)
+        small_cfg_g = dataclasses.replace(small_cfg, intra_mode=gcfg.intra_mode)
+        diff = outputs_differ(run(small_gop, small_cfg_g),
+                           run(YuvFrame(*(p.cpu() for p in small_gop)), small_cfg_g))
+        if diff:
+            raise AssertionError(f"128x192 GOP {name}: the card differs from the CPU: {diff}")
+        log(f"GOP {name}: {psnr_key} {[round(v, 4) for v in got[psnr_key].reshape(-1).tolist()]}"
+            + (f", nnz {got['nnz']}" if "nnz" in got else "") + f"; {gop_reads[name]} host "
+            f"reads; equal to {' and '.join(w for w, _ in wants)}, and at 128x192 "
+            f"(T = {t_small}) to the CPU")
+
+    # The CLI: python -m hevcasm_tpu_torch encode on the card against the
+    # same command on the CPU, and a Y4M round trip through --input and
+    # --output against encode_gop_yuv.
+    cli_args = ["encode", "--frames", "3", "--width", "640", "--height", "384"]
+    proc = subprocess.run([sys.executable, "-m", "hevcasm_tpu_torch", *cli_args],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"the encode CLI failed: {proc.stdout}{proc.stderr}")
+    card_json = json.loads(proc.stdout.strip().splitlines()[-1])
+    out_buf = io.StringIO()
+    with contextlib.redirect_stdout(out_buf):
+        if cli.main([*cli_args, "--device", "cpu"]):
+            raise AssertionError("the encode CLI failed on the CPU")
+    cpu_json = json.loads(out_buf.getvalue().strip().splitlines()[-1])
+    if card_json["nnz"] != cpu_json["nnz"] or abs(card_json["psnr_db"]
+                                                  - cpu_json["psnr_db"]) > 1e-3:
+        raise AssertionError(f"encode CLI: card {card_json} against the CPU {cpu_json}")
+    log(f"encode CLI on the card: {json.dumps(card_json)}; nnz equal to the CPU's, psnr_db "
+        f"within 1e-3 dB ({cpu_json['psnr_db']:.6f})")
+    with tempfile.TemporaryDirectory() as tmp:
+        src_y4m, rec_y4m = Path(tmp) / "in.y4m", Path(tmp) / "rec.y4m"
+        planes = [p.cpu().numpy() for p in gop_frames]
+        yuv_io.write_y4m(src_y4m, [yuv_io.YuvArrays(*(p[t] for p in planes))
+                                   for t in range(3)], W, H)
+        out_buf = io.StringIO()
+        with contextlib.redirect_stdout(out_buf):
+            if cli.main(["encode", "--input", str(src_y4m), "--output", str(rec_y4m)]):
+                raise AssertionError("the encode CLI failed on a Y4M file")
+        y4m_json = json.loads(out_buf.getvalue().strip().splitlines()[-1])
+        back = list(yuv_io.iter_frames(rec_y4m))
+        want = encode_gop_yuv(YuvFrame(*(p[:3] for p in gop_frames)),
+                              EncodeConfig(qp=32, search_range=16))
+        e = max_abs_err([torch.as_tensor(np.stack(p)) for p in zip(*back)],
+                        [p.cpu() for p in want["recon"]])
+        if e or len(back) != 3 or y4m_json["nnz"] != want["nnz"]:
+            raise AssertionError(f"Y4M round trip: max_abs_err {e}, {len(back)} frames, "
+                                 f"{y4m_json} against nnz {want['nnz']}")
+    log(f"encode CLI, Y4M round trip ({yuv_io.last_path} reader): {json.dumps(y4m_json)}; "
+        "the reconstruction read back equals encode_gop_yuv's")
+
     # ---- 5. timing -----------------------------------------------------------
     log("timed self-test (best of each case's iters, CUDA events):")
     if selftest.main(time_it=True):
@@ -1942,6 +2205,53 @@ def main() -> int:
         v = [t / 8 for t in gop_turns[name]]
         log(f"{tag} {what}: {statistics.median(v):.3f} ms/frame (min {v[0]:.3f}, max "
             f"{v[-1]:.3f} over {REPS} samples of 8 frames, in turns)")
+    # Intra frames and the GOPs at 1080p: ms a frame (CUDA events, min,
+    # median and max), the n = 32 mode decision's device time (its float64
+    # products, and the whole decision beside the residual), and
+    # torch.profiler's busy share and kernel launches over a wavefront frame
+    # and a closed-loop yuv GOP.
+    for what, fn, reps in (
+            ("I frame (open loop)", lambda: encode_intra_frame(cur, intra_cfg), REPS),
+            ("wavefront I frame", lambda: encode_intra_frame_wavefront(cur, intra_cfg), 10),
+            ("yuv I frame", lambda: encode_intra_frame_yuv(yuv_cur, intra_cfg), REPS)):
+        v = samples_ms(fn, reps=reps)
+        log(f"{tag} {what}: {statistics.median(v):.3f} ms/frame (min {v[0]:.3f}, max "
+            f"{v[-1]:.3f} over {reps} samples)")
+    for name, (run, gcfg, _) in gops.items():
+        v = [t / 5 for t in samples_ms(lambda: run(gop_frames, gcfg), reps=5)]
+        log(f"{tag} GOP {name}: {statistics.median(v):.3f} ms/frame (min {v[0]:.3f}, max "
+            f"{v[-1]:.3f} over 5 samples of 5 frames); {gop_reads[name]} host reads a GOP")
+    blocks32 = ctu_mod.tile_frame(cur, 32)
+    refs32 = _prepare_intra_refs(*_intra_neighbours(cur, 32), 32, intra_cfg)
+    pred32, _ = _intra_mode_decide(blocks32, *refs32, 32)
+
+    def decide():
+        return _intra_mode_decide(blocks32, *refs32, 32)
+
+    def residual():
+        return _residual_pipeline(blocks32, pred32, intra_cfg, intra=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    decide()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        decide()
+        torch.cuda.synchronize()
+    by_kernel = sorted(((e.self_device_time_total / 1e3, e.key) for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    products = sum(t for t, key in by_kernel if "gemm" in key.lower())
+    d_decide, d_res = device_ms(decide, calls=3), device_ms(residual, calls=3)
+    log(f"{tag} the n = 32 mode decision of a 1080p frame ({m_blocks} blocks): device "
+        f"{d_decide:.3f} ms, of which its float64 products (gemm kernels) {products:.3f} ms; "
+        f"the residual of the same blocks {d_res:.3f} ms (torch.profiler); its kernels by "
+        f"device ms: {[(round(t, 4), key[:60]) for t, key in by_kernel[:6]]}")
+    for what, fn in (("wavefront I frame", lambda: encode_intra_frame_wavefront(cur, intra_cfg)),
+                     ("yuv I frame", lambda: encode_intra_frame_yuv(yuv_cur, intra_cfg)),
+                     ("closed-loop yuv GOP (5 frames)",
+                      lambda: encode_gop_closed_loop_yuv(gop_frames, cfg))):
+        busy, wall, n_launch = busy_share(fn)
+        log(f"{tag} {what}: device busy {busy:.3f} ms in {wall:.3f} ms (share "
+            f"{busy / wall:.3f}), {n_launch} kernel launches (torch.profiler)")
     # K2 and B3 through each C entry at the 1080p shapes: the kernels'
     # device time alone (the device-q call also stacks its int32[5]).
     q32 = qtensors(qargs)

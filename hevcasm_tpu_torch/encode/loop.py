@@ -29,6 +29,11 @@ size.  A CPU frame runs the plain PyTorch version of every step, and so
 does a CUDA frame when ``tiers=Tier.REF``.  Every path gives the same
 integers.
 
+``encode_intra_frame`` codes an I frame from open-loop neighbours (the 35
+modes decided by SATD; at 32x32 in the Hadamard domain through the
+constant matrices of kernels.intra_matrix, float64 products; no registry
+kernel), and ``encode_gop`` an open-loop IPPP GOP from its first frame.
+
 Quantizer parameters follow the HM convention for 8-bit video:
   forward:  scale = QUANT_SCALES[qp%6],  shift = 21 + qp//6 - log2(TU),
             offset such that the added rounding = (85 or 171) << (shift - 9)
@@ -50,15 +55,20 @@ from ..config import Tier
 # Importing the kernel modules registers K1, K2, B3, B4, B7-B17 and B19.
 from ..kernels import (base_grids, bi_fused, costmap, inter_fused, mega,  # noqa: F401
                        residual_ctu, sad, search)
+from ..kernels.intra_matrix import intra_mode_decision_t, pred_intra_all_modes_mm
+from ..ops.pred_intra import (filter_flag, filter_references, pred_intra,
+                              strong_smoothing_condition, substitute_references)
 from ..ops.residual import residual_pipeline_frame
+from ..ops.satd import satd
 from ..utils.psnr import psnr
-from ..utils.tensor import as_tensor, entry_device
+from ..utils.tensor import as_tensor, entry_device, first_min
 from . import ctu as ctu_mod
 from . import motion
 from . import partition
 
 __all__ = ["EncodeConfig", "QUANT_SCALES", "DEQUANT_SCALES", "PU_LAYOUT_NAMES",
-           "config_from_fields", "encode_inter_frame", "encode_inter_frame_multiref"]
+           "config_from_fields", "encode_inter_frame", "encode_inter_frame_multiref",
+           "encode_intra_frame", "encode_gop"]
 
 QUANT_SCALES = (26214, 23302, 20560, 18396, 16384, 14564)
 DEQUANT_SCALES = (40, 45, 51, 57, 64, 72)
@@ -475,3 +485,150 @@ def encode_inter_frame_multiref(cur, refs, cfg: EncodeConfig = EncodeConfig(),
     recon = ctu_mod.untile_frame(rec_ctus, *cur.shape)
     return {"recon": recon, "mvs": mv_qpel, "ref_idx": ref_idx, "nnz": nnz,
             "psnr_db": psnr(cur, recon)}
+
+
+def _intra_neighbours(frame: torch.Tensor, n: int):
+    """Open-loop intra neighbours and their availability for every n x n
+    block of an (H, W) plane, blocks in row-major order.
+
+    Returns (left, above (num, 2n) uint8, corner (num,) uint8, left_avail,
+    above_avail (num, 2n) bool, corner_avail (num,) bool).  The samples are
+    the source's, read with edge clamping; a sample is available when it
+    lies in the frame (open loop has no coding-order constraint).
+    Substitution (8.4.4.2.2) is the caller's next step."""
+    h, w = frame.shape
+    gr, gc = ctu_mod.grid_shape(h, w, n)
+    dev = frame.device
+    ys = torch.arange(gr, device=dev) * n
+    xs = torch.arange(gc, device=dev) * n
+    i = torch.arange(2 * n, device=dev)
+    row_above = (ys - 1).clamp(min=0)
+    col_left = (xs - 1).clamp(min=0)
+    above = frame[row_above[:, None, None], (xs[:, None] + i).clamp(max=w - 1)[None]]
+    left = frame[(ys[:, None] + i).clamp(max=h - 1)[:, None, :], col_left[None, :, None]]
+    corner = frame[row_above[:, None], col_left[None, :]]
+    yy = ys[:, None].expand(gr, gc).reshape(-1)
+    xx = xs[None, :].expand(gr, gc).reshape(-1)
+    lav = (xx[:, None] > 0) & (yy[:, None] + i < h)
+    aav = (yy[:, None] > 0) & (xx[:, None] + i < w)
+    cav = (xx > 0) & (yy > 0)
+    return (left.reshape(-1, 2 * n), above.reshape(-1, 2 * n), corner.reshape(-1),
+            lav, aav, cav)
+
+
+def _prepare_intra_refs(left, above, corner, lav, aav, cav, n: int, cfg: EncodeConfig):
+    """Substitution and smoothing (8.4.4.2.2-3): returns the plain and the
+    filtered reference sets; mode m predicts from the filtered set iff
+    filter_flag(m, n).  Strong smoothing applies at n = 32 only, under
+    cfg.strong_intra_smoothing."""
+    left, above, corner = substitute_references(left, above, corner, lav, aav, cav)
+    strong = None
+    if n == 32 and cfg.strong_intra_smoothing:
+        strong = strong_smoothing_condition(left, above, corner)
+    return (left, above, corner), filter_references(left, above, corner, n, strong=strong)
+
+
+def _satd_cost(a, b):
+    """SATD summed over the 8x8 sub-blocks of (m, n, n) blocks: (m,) int32,
+    the standard mode-decision cost."""
+    per = satd(ctu_mod.split_blocks(a, 8), ctu_mod.split_blocks(b, 8))
+    k = (a.shape[-1] // 8) ** 2
+    return per.reshape(a.shape[0], k).sum(-1, dtype=torch.int32) if a.dim() == 3 else per
+
+
+def _intra_mode_sweep(blocks, refs_plain, refs_filt, n: int):
+    """All 35 modes' predictions and SATD costs for a batch of blocks:
+    (preds (m, 35, n, n) uint8, costs (m, 35) int32).  At n = 32 the sweep
+    is the constant matrix product (kernels.intra_matrix), otherwise each
+    mode's ops.pred_intra with the edge filter below 32."""
+    m = blocks.shape[0]
+    if n == 32:
+        preds = pred_intra_all_modes_mm(*refs_plain, *refs_filt, n)
+    else:
+        preds = torch.stack(
+            [pred_intra(mode, *(refs_filt if filter_flag(mode, n) else refs_plain), n,
+                        filter_edge=n < 32)
+             for mode in range(35)], dim=1)
+    tiled = blocks[:, None].expand(m, 35, n, n).reshape(-1, n, n)
+    costs = _satd_cost(tiled, preds.reshape(-1, n, n)).reshape(m, 35)
+    return preds, costs
+
+
+def _intra_mode_decide(blocks, refs_plain, refs_filt, n: int):
+    """Mode decision and winning prediction for a batch of blocks: (pred
+    (m, n, n) uint8, best (m,) int32, the first minimum).  At n = 32 the
+    decision runs in the Hadamard domain (kernels.intra_matrix.
+    intra_mode_decision_t, as in hevcasm_tpu: near-ties may resolve to
+    another mode than the classic SATD sweep, while the chosen mode's
+    prediction is exact); other sizes run the sweep with classic SATD."""
+    if n == 32:
+        pred, best, _ = intra_mode_decision_t(blocks, *refs_plain, *refs_filt, n)
+        return pred, best
+    preds, costs = _intra_mode_sweep(blocks, refs_plain, refs_filt, n)
+    best, _ = first_min(costs)
+    pred = torch.gather(preds, 1, best.long()[:, None, None, None].expand(-1, 1, n, n))[:, 0]
+    return pred, best
+
+
+def _prepare_plane(x, device=None) -> torch.Tensor:
+    """An (H, W) uint8 plane as a tensor on its entry device."""
+    x = as_tensor(x, entry_device(x, device))
+    if x.dim() != 2 or x.dtype != torch.uint8:
+        raise ValueError(f"expected an (H, W) uint8 plane, got {tuple(x.shape)} {x.dtype}")
+    return x
+
+
+def _prepare_frames(frames, device=None) -> torch.Tensor:
+    """A (T, H, W) uint8 stack of luma frames as a tensor on its entry
+    device."""
+    frames = as_tensor(frames, entry_device(frames, device))
+    if frames.dim() != 3 or frames.dtype != torch.uint8:
+        raise ValueError(f"frames must be (T, H, W) uint8, got {tuple(frames.shape)} "
+                         f"{frames.dtype}")
+    return frames
+
+
+def encode_intra_frame(cur, cfg: EncodeConfig = EncodeConfig(), tiers: Tier = Tier.ALL,
+                       device=None) -> dict:
+    """Encode one intra (I) frame: the 35-mode prediction of every
+    cfg.intra_block block from open-loop neighbours (the source's samples),
+    the mode decision (_intra_mode_decide), then the TU pipeline (the
+    DST-VII at 4x4 TUs).
+
+    cur: (H, W) uint8 tensor or numpy array, H and W multiples of
+    cfg.intra_block; devices as for encode_inter_frame.  No registry kernel
+    runs: the mode decision is plain PyTorch (float64 matrix products at n
+    = 32).  Returns {"recon": (H, W) uint8, "modes": (m,) int32 in
+    row-major block order, "nnz": () int32, "psnr_db": () float32}."""
+    cur = _prepare_plane(cur, device)
+    n = cfg.intra_block
+    blocks = ctu_mod.tile_frame(cur, n)
+    refs_plain, refs_filt = _prepare_intra_refs(*_intra_neighbours(cur, n), n, cfg)
+    pred, best = _intra_mode_decide(blocks, refs_plain, refs_filt, n)
+    rec_blocks, nnz, _ = _residual_pipeline(blocks, pred, cfg, intra=True, tiers=tiers)
+    recon = ctu_mod.untile_frame(rec_blocks, *cur.shape)
+    return {"recon": recon, "modes": best, "nnz": nnz, "psnr_db": psnr(cur, recon)}
+
+
+def encode_gop(frames, cfg: EncodeConfig = EncodeConfig(), tiers: Tier = Tier.ALL,
+               device=None) -> dict:
+    """Encode an IPPP GOP in open loop: frame 0 intra (the wavefront frame
+    under cfg.intra_mode="wavefront", else encode_intra_frame), frame t > 0
+    predicted from source frame t - 1 (encode_inter_frame).
+
+    frames: (T, H, W) uint8 tensor or numpy array; devices as for
+    encode_inter_frame.  Returns {"recon": (T, H, W) uint8, "psnr_db": ()
+    float32 over the GOP, "nnz": int, the coded coefficients of every
+    frame, read from the card once}."""
+    frames = _prepare_frames(frames, device)
+    if cfg.intra_mode == "wavefront":
+        from .intra_wavefront import encode_intra_frame_wavefront
+
+        intra = encode_intra_frame_wavefront(frames[0], cfg, tiers)
+    else:
+        intra = encode_intra_frame(frames[0], cfg, tiers)
+    results = [intra] + [encode_inter_frame(frames[t], frames[t - 1], cfg, tiers)
+                         for t in range(1, frames.shape[0])]
+    recon = torch.stack([r["recon"] for r in results])
+    nnz = torch.stack([r["nnz"] for r in results]).sum(dtype=torch.int64)
+    return {"recon": recon, "psnr_db": psnr(frames, recon), "nnz": int(nnz)}

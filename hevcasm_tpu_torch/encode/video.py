@@ -18,6 +18,12 @@ B9, K2, B16, B11, B4), and under inter_impl "fused*" B3
 and residual), else the staged B path with B4 under residual_impl
 "pallas".  Chroma is plain PyTorch on every device.  Every path gives the
 same integers as hevcasm_tpu.
+
+The I frame (encode_intra_frame_yuv: loop.encode_intra_frame's luma,
+chroma planar/DC/H/V) starts the GOPs: encode_gop_yuv (open loop, IPPP or
+IBPBP), and, each reference a reconstruction with the wavefront frame's
+luma first, encode_gop_closed_loop (luma), encode_gop_closed_loop_yuv and
+encode_gop_closed_loop_yuv_b (encode order I, P2, B1, P4, B3, ...).
 """
 
 from __future__ import annotations
@@ -29,14 +35,19 @@ import torch
 
 from ..config import Tier
 from ..ops.pred_inter import pred_uni, pred_uni_16
+from ..ops.pred_intra import filter_flag, pred_intra
 from ..utils.psnr import psnr
-from ..utils.tensor import as_tensor, constant, entry_device
+from ..utils.tensor import as_tensor, constant, entry_device, first_min
 from . import ctu as ctu_mod
 from . import motion
-from .loop import (EncodeConfig, _inter_core, _op, _pad_reference,
-                   _prepare_frame, _residual_pipeline, _search_impl_resolved)
+from .intra_wavefront import encode_intra_frame_wavefront
+from .loop import (EncodeConfig, _inter_core, _intra_neighbours, _op, _pad_reference,
+                   _prepare_frame, _prepare_frames, _prepare_intra_refs, _residual_pipeline,
+                   _satd_cost, _search_impl_resolved, encode_inter_frame, encode_intra_frame)
 
-__all__ = ["YuvFrame", "chroma_qp", "encode_inter_frame_yuv", "encode_b_frame_yuv"]
+__all__ = ["YuvFrame", "chroma_qp", "encode_inter_frame_yuv", "encode_b_frame_yuv",
+           "encode_intra_frame_yuv", "encode_gop_yuv", "encode_gop_closed_loop",
+           "encode_gop_closed_loop_yuv", "encode_gop_closed_loop_yuv_b"]
 
 
 class YuvFrame(NamedTuple):
@@ -250,3 +261,170 @@ def encode_b_frame_yuv(cur, ref0, ref1, cfg: EncodeConfig = EncodeConfig(),
         "nnz": nnz_y + nnz_cb + nnz_cr,
         "psnr_y": psnr(cur_y, rec_y),
     }
+
+
+def _chroma_intra_plane(plane: torch.Tensor, cfg: EncodeConfig, tiers: Tier = Tier.ALL):
+    """Chroma intra of one plane: planar, DC, horizontal or vertical (modes
+    0, 1, 10, 26) per block of half the CTU, decided by SATD from open-loop
+    neighbours, each mode on the filtered references where filter_flag(mode,
+    n) says so (strong smoothing at n = 32 included), as hevcasm_tpu does;
+    then the chroma TU pipeline.  Returns (recon plane, nnz () int32)."""
+    ccfg = _chroma_cfg(cfg)
+    n = ccfg.ctu
+    blocks = ctu_mod.tile_frame(plane, n)
+    refs_plain, refs_filt = _prepare_intra_refs(*_intra_neighbours(plane, n), n, ccfg)
+    preds, costs = [], []
+    for mode in (0, 1, 10, 26):
+        p = pred_intra(mode, *(refs_filt if filter_flag(mode, n) else refs_plain), n,
+                       filter_edge=False)
+        preds.append(p)
+        costs.append(_satd_cost(blocks, p))
+    best, _ = first_min(torch.stack(costs, dim=1))
+    pred = torch.gather(torch.stack(preds, dim=1), 1,
+                        best.long()[:, None, None, None].expand(-1, 1, n, n))[:, 0]
+    rec, nnz, _ = _residual_pipeline(blocks, pred, ccfg, intra=True, luma=False, tiers=tiers)
+    return ctu_mod.untile_frame(rec, *plane.shape), nnz
+
+
+def encode_intra_frame_yuv(cur, cfg: EncodeConfig = EncodeConfig(), tiers: Tier = Tier.ALL,
+                           device=None) -> dict:
+    """I frame over 4:2:0 planes: luma by encode_intra_frame (35 modes,
+    open loop), each chroma plane by _chroma_intra_plane (planar, DC, H and
+    V by SATD; hevcasm_tpu's docstring says DC only, its code decides among
+    the four).
+
+    cur: YuvFrame (or 3-tuple) of uint8 tensors or numpy arrays; devices
+    as for encode_inter_frame_yuv.  Returns {"recon": YuvFrame, "nnz": ()
+    int32 over the three planes, "psnr_y": () float32}."""
+    _chroma_cfg(cfg)  # its guards, before any work
+    cur = _as_yuv(cur, None if device is None else entry_device(cur[0], device))
+    out_y = encode_intra_frame(cur.y, cfg, tiers)
+    rec_cb, nnz_cb = _chroma_intra_plane(cur.cb, cfg, tiers)
+    rec_cr, nnz_cr = _chroma_intra_plane(cur.cr, cfg, tiers)
+    return {"recon": YuvFrame(out_y["recon"], rec_cb, rec_cr),
+            "nnz": out_y["nnz"] + nnz_cb + nnz_cr, "psnr_y": out_y["psnr_db"]}
+
+
+def _as_yuv_gop(frames, device) -> YuvFrame:
+    """A GOP's planes (leading time axis) as tensors on its entry device,
+    checked: (T, H, W) luma and (T, H/2, W/2) chroma, uint8."""
+    frames = _as_yuv(frames, None if device is None else entry_device(frames[0], device))
+    y = frames.y
+    if (y.dim() != 3 or any(p.dtype != torch.uint8 for p in frames) or any(
+            tuple(p.shape) != (y.shape[0], y.shape[1] // 2, y.shape[2] // 2)
+            for p in frames[1:])):
+        raise ValueError("frames must be a YuvFrame of (T, H, W) luma and (T, H/2, W/2) "
+                         "chroma uint8 planes")
+    return frames
+
+
+def _stack_yuv(frames) -> YuvFrame:
+    return YuvFrame(*(torch.stack(planes) for planes in zip(*frames)))
+
+
+def encode_gop_yuv(frames, cfg: EncodeConfig = EncodeConfig(), b_frames: bool = False,
+                   tiers: Tier = Tier.ALL, device=None) -> dict:
+    """Encode a 4:2:0 GOP in open loop, frame 0 by encode_intra_frame_yuv.
+
+    b_frames=False: IPPP, frame t > 0 a P frame from source frame t - 1.
+    b_frames=True: IBPBP, each odd frame that has a successor a B frame
+    bi-predicted from the source frames around it, the others P frames from
+    source frame t - 1.
+
+    frames: YuvFrame of (T, H, W) luma and (T, H/2, W/2) chroma uint8
+    tensors or numpy arrays; devices as for encode_inter_frame_yuv.
+    Returns {"recon": YuvFrame of stacks, "psnr_y": () float32 over the
+    GOP's luma, "nnz": int, read from the card once}."""
+    _chroma_cfg(cfg)
+    frames = _as_yuv_gop(frames, device)
+    t_total = frames.y.shape[0]
+
+    def at(t):
+        return YuvFrame(*(p[t] for p in frames))
+
+    results = [encode_intra_frame_yuv(at(0), cfg, tiers)]
+    for t in range(1, t_total):
+        if b_frames and t % 2 == 1 and t + 1 < t_total:
+            results.append(encode_b_frame_yuv(at(t), at(t - 1), at(t + 1), cfg, tiers))
+        else:
+            results.append(encode_inter_frame_yuv(at(t), at(t - 1), cfg, tiers))
+    rec = _stack_yuv([r["recon"] for r in results])
+    nnz = torch.stack([r["nnz"] for r in results]).sum(dtype=torch.int64)
+    return {"recon": rec, "psnr_y": psnr(frames.y, rec.y), "nnz": int(nnz)}
+
+
+def _closed_loop_seed(frames: YuvFrame, cfg: EncodeConfig, tiers: Tier):
+    """The closed-loop GOPs' I frame: the wavefront luma and open-loop
+    chroma intra.  Returns (recon YuvFrame, psnr_y)."""
+    intra_y = encode_intra_frame_wavefront(frames.y[0], cfg, tiers)
+    seed = YuvFrame(intra_y["recon"], _chroma_intra_plane(frames.cb[0], cfg, tiers)[0],
+                    _chroma_intra_plane(frames.cr[0], cfg, tiers)[0])
+    return seed, intra_y["psnr_db"]
+
+
+def encode_gop_closed_loop_yuv(frames, cfg: EncodeConfig = EncodeConfig(),
+                               tiers: Tier = Tier.ALL, device=None) -> dict:
+    """Closed-loop 4:2:0 IPPP GOP: frame 0 intra (the wavefront luma,
+    open-loop chroma), every P frame predicted on all three planes from the
+    previous frame's *reconstruction* (encode_inter_frame_yuv chained), the
+    conforming chain.
+
+    frames as for encode_gop_yuv.  Returns {"recon": YuvFrame of stacks,
+    "psnr_y": (T,) float32 a frame}."""
+    _chroma_cfg(cfg)
+    frames = _as_yuv_gop(frames, device)
+    prev, psnr0 = _closed_loop_seed(frames, cfg, tiers)
+    recs, psnrs = [prev], [psnr0]
+    for t in range(1, frames.y.shape[0]):
+        out = encode_inter_frame_yuv(YuvFrame(*(p[t] for p in frames)), prev, cfg, tiers)
+        prev = out["recon"]
+        recs.append(prev)
+        psnrs.append(out["psnr_y"])
+    return {"recon": _stack_yuv(recs), "psnr_y": torch.stack(psnrs)}
+
+
+def encode_gop_closed_loop_yuv_b(frames, cfg: EncodeConfig = EncodeConfig(),
+                                 tiers: Tier = Tier.ALL, device=None) -> dict:
+    """Closed-loop 4:2:0 GOP with B frames.  Display order I B P B P ...
+    (an odd frame count of at least 3, ending on P); encode order I, P2,
+    B1, P4, B3, ...: each P is predicted from the previous P's (or the I
+    frame's) reconstruction, each B bi-predicts from the reconstructions
+    around it.
+
+    frames as for encode_gop_yuv.  Returns {"recon": YuvFrame of stacks in
+    display order, "psnr_y": (T,) float32 a frame}.  An even frame count or
+    one below 3 raises ValueError (hevcasm_tpu stops on a bare assert)."""
+    _chroma_cfg(cfg)
+    frames = _as_yuv_gop(frames, device)
+    t_total = frames.y.shape[0]
+    if t_total % 2 != 1 or t_total < 3:
+        raise ValueError(f"an IBPBP GOP needs an odd frame count >= 3, got {t_total}")
+    prev, psnr0 = _closed_loop_seed(frames, cfg, tiers)
+    recs, psnrs = [prev], [psnr0]
+    for t in range(1, t_total, 2):
+        out_p = encode_inter_frame_yuv(YuvFrame(*(p[t + 1] for p in frames)), prev, cfg, tiers)
+        out_b = encode_b_frame_yuv(YuvFrame(*(p[t] for p in frames)), prev, out_p["recon"],
+                                   cfg, tiers)
+        prev = out_p["recon"]
+        recs += [out_b["recon"], prev]
+        psnrs += [out_b["psnr_y"], out_p["psnr_y"]]
+    return {"recon": _stack_yuv(recs), "psnr_y": torch.stack(psnrs)}
+
+
+def encode_gop_closed_loop(frames_y, cfg: EncodeConfig, num_frames: int,
+                           tiers: Tier = Tier.ALL, device=None) -> dict:
+    """Closed-loop IPPP luma GOP: frame 0 by the wavefront intra encoder,
+    each P frame predicted from the previous frame's *reconstruction*
+    (encode_inter_frame chained), the conforming chain, I frame included.
+
+    frames_y: (T, H, W) uint8 tensor or numpy array; the first num_frames
+    are coded.  Returns {"recon": (num_frames, H, W) uint8, "psnr_db":
+    (num_frames,) float32 a frame}."""
+    frames_y = _prepare_frames(frames_y, device)
+    intra = encode_intra_frame_wavefront(frames_y[0], cfg, tiers)
+    recs, psnrs = [intra["recon"]], [intra["psnr_db"]]
+    for t in range(1, min(num_frames, frames_y.shape[0])):
+        out = encode_inter_frame(frames_y[t], recs[-1], cfg, tiers)
+        recs.append(out["recon"])
+        psnrs.append(out["psnr_db"])
+    return {"recon": torch.stack(recs), "psnr_db": torch.stack(psnrs)}

@@ -12,10 +12,12 @@ Neighbour convention:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from ..utils.tensor import as_tensor
+from ..utils.tensor import as_tensor, to_device
 
 __all__ = [
     "ANGLES", "INV_ANGLES", "pred_intra_dc", "pred_intra_planar", "pred_intra_angular",
@@ -176,6 +178,21 @@ def _angular_ref(left, above, corner, n: int, angle: int):
     return torch.cat([neg, pos], dim=-1), neg_len
 
 
+@functools.lru_cache(maxsize=256)
+def _angular_tables(n: int, angle: int, off: int, length: int, device: torch.device):
+    """(gather (n, n), next (n, n) int64 indices into the reference run of
+    ``length`` samples, weight (n, 1) int32) of one angle, made once per
+    device without a host synchronisation."""
+    yy = np.arange(1, n + 1)
+    i_idx, i_fact = (yy * angle) >> 5, (yy * angle) & 31
+    gather = off + np.arange(n)[None, :] + i_idx[:, None] + 1
+    # At angle +-32 the second sample of the last column lies one past the
+    # run; its weight is 0 there, so the index is clamped.
+    nxt = np.minimum(gather + 1, length - 1)
+    return (to_device(gather, torch.int64, device), to_device(nxt, torch.int64, device),
+            to_device(i_fact[:, None], torch.int32, device))
+
+
 def pred_intra_angular(left, above, corner, n: int, mode: int,
                        filter_edge: bool = False) -> torch.Tensor:
     """Angular prediction, modes 2..34 (H.265 8.4.4.2.6); filter_edge
@@ -190,14 +207,7 @@ def pred_intra_angular(left, above, corner, n: int, mode: int,
     if not vertical:
         left, above = above, left          # horizontal family: swap, then transpose
     ref, off = _angular_ref(left, above, corner, n, angle)
-    yy = np.arange(1, n + 1)
-    i_idx, i_fact = (yy * angle) >> 5, (yy * angle) & 31
-    gather = torch.as_tensor(off + np.arange(n)[None, :] + i_idx[:, None] + 1,
-                             device=ref.device)
-    w = torch.as_tensor(i_fact[:, None], dtype=torch.int32, device=ref.device)
-    # At angle +-32 the second sample of the last column lies one past the
-    # run; its weight is 0 there, so the index is clamped.
-    nxt = (gather + 1).clamp(max=ref.shape[-1] - 1)
+    gather, nxt, w = _angular_tables(n, angle, off, ref.shape[-1], ref.device)
     out = ((32 - w) * ref[..., gather] + w * ref[..., nxt] + 16) >> 5
     if filter_edge and angle == 0 and n < 32:
         # In the swapped frame `above` is the main edge and `left` the side.

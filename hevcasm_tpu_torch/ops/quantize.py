@@ -79,6 +79,13 @@ def raise_on_flag(flag: torch.Tensor) -> None:
                          "these ranges)")
 
 
+def _param(v, device):
+    """A parameter as the arithmetic takes it: a Python int stays one (an
+    int32 tensor times an int is int32, and no copy to the card is made,
+    which would synchronise the host), anything else an int32 tensor."""
+    return v if isinstance(v, int) else as_tensor(v, device).to(torch.int32)
+
+
 def quantize(src, scale, shift, offset, range_flag=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward quantization over the trailing two axes.
 
@@ -95,9 +102,8 @@ def quantize(src, scale, shift, offset, range_flag=None) -> tuple[torch.Tensor, 
         flag_quant_params(range_flag, scale=scale, shift=shift, offset=offset)
     src = as_tensor(src)
     x = src.to(torch.int32)
-    scale = as_tensor(scale, x.device).to(torch.int32)
-    shift = as_tensor(shift, x.device).to(torch.int32)
-    offset = as_tensor(offset, x.device).to(torch.int32) << (shift - 16)
+    scale, shift, offset = (_param(v, x.device) for v in (scale, shift, offset))
+    offset = offset << (shift - 16)
     sign = torch.where(x < 0, -1, 1).to(torch.int32)
     q = ((x.abs() * scale + offset) >> shift) * sign
     q = q.clamp(-32768, 32767)
@@ -110,8 +116,7 @@ def quantize_inverse(src, scale, shift) -> torch.Tensor:
     any shape; returns int16."""
     src = as_tensor(src)
     x = src.to(torch.int32)
-    scale = as_tensor(scale, x.device).to(torch.int32)
-    shift = as_tensor(shift, x.device).to(torch.int32)
+    scale, shift = _param(scale, x.device), _param(shift, x.device)
     y = (x * scale + (1 << (shift - 1))) >> shift
     return y.clamp(-32768, 32767).to(torch.int16)
 

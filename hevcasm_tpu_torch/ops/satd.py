@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.tensor import as_tensor
+from ..utils.tensor import as_tensor, constant
 
 __all__ = ["satd", "hadamard_matrix"]
 
@@ -37,7 +37,7 @@ def satd(a, b) -> torch.Tensor:
     if a.shape[-2] != n or n not in (2, 4, 8):
         raise ValueError(f"satd takes (..., n, n) blocks with n in (2, 4, 8), "
                          f"got {tuple(a.shape)}")
-    h = torch.as_tensor(hadamard_matrix(n), device=a.device)
+    h = constant(hadamard_matrix(n), torch.int32, a.device)
     d = a.to(torch.int32) - b.to(torch.int32)
     # The two products written out: CUDA has no int32 matmul.
     hd = (h[:, :, None] * d[..., None, :, :]).sum(dim=-2)      # H @ D

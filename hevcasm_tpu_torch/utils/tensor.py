@@ -34,14 +34,21 @@ def entry_device(x, device=None) -> torch.device:
     return dev
 
 
-@functools.lru_cache(maxsize=64)
-def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    t = torch.tensor(values, dtype=dtype)
+def to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A copy of ``a`` (a numpy array, or nested sequences of numbers) as
+    ``dtype`` on ``device``.  To a CUDA card it goes from pinned memory
+    without blocking: no host synchronisation, so a loop that must not read
+    the card from the host may build it."""
+    t = torch.tensor(np.asarray(a), dtype=dtype)       # a copy, never a view of a
+    device = torch.device(device)
     if device.type != "cuda":
         return t.to(device)
-    # From pinned memory without blocking: no host synchronisation, so a
-    # loop that must not read the card from the host may build it.
     return t.pin_memory().to(device, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=64)
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return to_device(values, dtype, device)
 
 
 def constant(values, dtype: torch.dtype, device) -> torch.Tensor:

@@ -8,6 +8,8 @@ that has only PyTorch; tests/conftest.py imports jax, so there run it with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1545,3 +1547,111 @@ def test_rate_gop_on_card_equals_plain_and_cpu_without_host_reads(cuda, kw, b_fr
         for k in ("recon", "bits", "qp"):
             assert torch.equal(got[k].cpu(), want[k].cpu()), k
         assert float((got["psnr_db"].cpu() - want["psnr_db"].cpu()).abs().max()) <= 1e-3
+
+
+# ---- intra frames and the GOPs -------------------------------------------------------
+
+def smooth_clip(t, h, w, seed=0):
+    """Smoothed noise panned (2, 3) pixels a frame, with +-3 of noise."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h + 4 * t, w + 4 * t)).astype(np.float32)
+    for _ in range(2):
+        base = (np.roll(base, 1, 0) + base + np.roll(base, -1, 0)) / 3
+        base = (np.roll(base, 1, 1) + base + np.roll(base, -1, 1)) / 3
+    out = np.stack([base[2 * i:2 * i + h, 3 * i:3 * i + w] for i in range(t)])
+    return np.clip(np.rint(out + rng.integers(-3, 4, out.shape)), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("content", ["random", "extremes", "constant"])
+def test_intra_decision_n32_on_card_equals_cpu(cuda, content):
+    from hevcasm_tpu_torch.kernels import intra_matrix
+
+    rng = np.random.default_rng(3)
+    m = intra_matrix.CHUNK + 5                       # two chunks
+    draw = {"random": lambda *s: rng.integers(0, 256, s, dtype=np.uint8),
+            "extremes": lambda *s: (rng.integers(0, 2, s) * 255).astype(np.uint8),
+            "constant": lambda *s: np.full(s, 77, np.uint8)}[content]
+    args = [draw(m, 32, 32), draw(m, 64), draw(m, 64), draw(m), draw(m, 64), draw(m, 64),
+            draw(m)]
+    on_cpu = intra_matrix.intra_mode_decision_t(*map(torch.as_tensor, args))
+    got, launches = launched(lambda: intra_matrix.intra_mode_decision_t(
+        *(torch.as_tensor(a, device=cuda) for a in args)))
+    assert launches == {}
+    assert_bit_equal(got, [t.to(cuda) for t in on_cpu])
+    mm = intra_matrix.pred_intra_all_modes_mm(*(torch.as_tensor(a, device=cuda)
+                                                for a in args[1:]))
+    assert torch.equal(mm.cpu(), intra_matrix.pred_intra_all_modes_mm(
+        *map(torch.as_tensor, args[1:])))
+
+
+@pytest.mark.parametrize("n,h,w", [(32, 128, 192), (16, 128, 192), (32, 192, 64)])
+def test_intra_frames_on_card_equal_cpu_and_the_wavefront_reads_nothing(cuda, n, h, w):
+    from hevcasm_tpu_torch.encode.intra_wavefront import encode_intra_frame_wavefront
+    from hevcasm_tpu_torch.encode.loop import encode_intra_frame
+    from hevcasm_tpu_torch.encode.video import encode_intra_frame_yuv
+
+    cfg = EncodeConfig(intra_block=n, qp=27)
+    cur = torch.as_tensor(smooth_clip(1, h, w)[0], device=cuda)
+    out, launches = launched(lambda: encode_intra_frame(cur, cfg))
+    assert launches == {}
+    assert_same_outputs(out, encode_intra_frame(cur.cpu(), cfg))
+    encode_intra_frame_wavefront(cur, cfg)          # the wave tables, once per shape
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, launches = launched(lambda: encode_intra_frame_wavefront(cur, cfg))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert launches == {}
+    assert_same_outputs(out, encode_intra_frame_wavefront(cur.cpu(), cfg))
+    chroma = torch.as_tensor(smooth_clip(2, h // 2, w // 2, seed=1), device=cuda)
+    yuv = YuvFrame(cur, chroma[0], chroma[1])
+    assert_same_outputs(encode_intra_frame_yuv(yuv, cfg),
+                        encode_intra_frame_yuv(YuvFrame(*(p.cpu() for p in yuv)), cfg))
+
+
+GOP_LAUNCHES = {"IPPP": {"k1": 4, "k2": 4}, "IBPBP": {"k1": 6, "k2": 2, "b3": 2}}
+
+
+def assert_same_gop(got, want):
+    assert set(got) == set(want)
+    for k in got:
+        if k.startswith("psnr"):
+            assert float((got[k].cpu() - want[k].cpu()).abs().max()) <= 1e-3, k
+        elif k == "nnz":
+            assert type(got[k]) is int and got[k] == want[k]
+        elif isinstance(got[k], tuple):
+            for a, b in zip(got[k], want[k]):
+                assert torch.equal(a.cpu(), b.cpu()), k
+        else:
+            assert torch.equal(got[k].cpu(), want[k].cpu()), k
+
+
+def gop_call(entry, frames, cfg, tiers=Tier.ALL):
+    """One of the GOP entry points on (T, H, W) luma and (T, H/2, W/2)
+    chroma planes."""
+    from hevcasm_tpu_torch.encode import loop, video
+
+    yuv = YuvFrame(*frames)
+    wavefront = dataclasses.replace(cfg, intra_mode="wavefront")
+    return {"gop": lambda: loop.encode_gop(yuv.y, cfg, tiers),
+            "gop wavefront": lambda: loop.encode_gop(yuv.y, wavefront, tiers),
+            "gop_yuv": lambda: video.encode_gop_yuv(yuv, cfg, tiers=tiers),
+            "gop_yuv b": lambda: video.encode_gop_yuv(yuv, cfg, True, tiers),
+            "closed_loop": lambda: video.encode_gop_closed_loop(yuv.y, cfg, 5, tiers),
+            "closed_loop_yuv": lambda: video.encode_gop_closed_loop_yuv(yuv, cfg, tiers),
+            "closed_loop_yuv_b": lambda: video.encode_gop_closed_loop_yuv_b(yuv, cfg, tiers),
+            }[entry]()
+
+
+@pytest.mark.parametrize("entry,structure", [
+    ("gop", "IPPP"), ("gop wavefront", "IPPP"), ("gop_yuv", "IPPP"), ("gop_yuv b", "IBPBP"),
+    ("closed_loop", "IPPP"), ("closed_loop_yuv", "IPPP"), ("closed_loop_yuv_b", "IBPBP")])
+def test_gops_on_card_launch_their_kernels_and_equal_plain_and_cpu(cuda, entry, structure):
+    frames = [torch.as_tensor(smooth_clip(5, h, w, seed), device=cuda)
+              for (h, w), seed in (((128, 192), 0), ((64, 96), 1), ((64, 96), 2))]
+    cfg = EncodeConfig(search_range=8, inter_impl="fused_dma")
+    got, launches = launched(lambda: gop_call(entry, frames, cfg))
+    assert launches == GOP_LAUNCHES[structure]
+    assert_same_gop(got, gop_call(entry, frames, cfg, Tier.REF))
+    assert_same_gop(got, gop_call(entry, [f.cpu() for f in frames], cfg))

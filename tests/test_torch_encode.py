@@ -211,8 +211,13 @@ def test_mega_outside_its_search_ranges_raises_value_error(r):
 
 def test_port_imports_no_jax():
     # A subprocess: this test process has jax loaded by tests/conftest.py.
-    code = ("import sys, hevcasm_tpu_torch, hevcasm_tpu_torch.encode.loop, "
-            "hevcasm_tpu_torch.kernels.build\n"
+    # Every module of the package is imported (__main__ would run the CLI).
+    code = ("import importlib, pkgutil, sys, hevcasm_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(hevcasm_tpu_torch.__path__, "
+            "'hevcasm_tpu_torch.') if not m.name.endswith('__main__')]\n"
+            "for name in names:\n    importlib.import_module(name)\n"
+            "assert {'hevcasm_tpu_torch.io', 'hevcasm_tpu_torch.encode.intra_wavefront', "
+            "'hevcasm_tpu_torch.kernels.intra_matrix'} <= set(names), names\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'hevcasm_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)")
