@@ -162,7 +162,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
             command on the CPU and its PSNR within 1e-3 dB, and a Y4M round
             trip through --input / --output in a temporary directory must
             give back encode_gop_yuv's reconstruction.
-5. timing   CUDA-event medians over 20 samples after warm-up: each path per
+5. multi    the sharded entry points (hevcasm_tpu_torch.parallel).  nccl
+            with 2 ranks on one card must be refused (ValueError) by
+            parallel.launch.spawn and multihost.initialize.  A world of 1
+            under nccl in this process (multihost.initialize(), mesh 1x1;
+            a group of one rank moves nothing, so this checks the
+            bring-up, the mesh and the band logic on the card):
+            encode_inter_frame_spatial on a 3840x2176 frame of bench content
+            (2040 CTUs) must launch exactly K1 and K2 and equal
+            encode_inter_frame; encode_gop_data_parallel on the rate clip's
+            9 frames at 1920x1088 exactly K1 x8 and K2 x8, equal to
+            encode_p_frames_batch and to the per-frame calls; each timed in
+            turns with its single-card twin.  A world of 2 ranks sharing
+            card 0 under gloo (NCCL takes one card a rank), each rank given
+            its inputs with everything outside its share replaced by noise:
+            config 4 (that GOP over mesh (2, 1)) must launch exactly K1 x4
+            and K2 x4 a rank, config 5 (a 3-frame closed-loop spatial GOP
+            of the rate clip at 3840x2176 over mesh (1, 2); depth cut from
+            BASELINE's 32 frames) K1 x2 and K2 x2 (the wavefront I frame,
+            coded whole by each rank, launches no registry kernel), the 4K
+            spatial frame over mesh (1, 2) K1 and K2; each equal to the
+            single-card entry point (recon, sad, nnz, mvs where given; PSNR
+            within 1e-3 dB); a 1080p frame over 2 bands (17 CTU rows) must
+            raise ValueError.  Prints each path's ms a frame (CUDA events),
+            the halo bytes a P frame, the bytes gathered and the host time of
+            the gloo copies, with the card's name and power limit.
+6. timing   CUDA-event medians over 20 samples after warm-up: each path per
             frame, synchronised after each (ms per frame and CTU/s), the luma
             path also 20 frames back to back, and each path's plain version;
             the four RDO variants of tools/bench_rdo.py (pu_decision,
@@ -230,6 +255,7 @@ import dataclasses
 import functools
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -237,6 +263,7 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -794,6 +821,246 @@ def log_b10_host_steps(tag: str, src, ref, cd_src, cd_ref) -> None:
     }
     log(f"{tag} B10 sad launch path, host us a call: " + ", ".join(
         f"{what} {host_us(fn):.2f}" for what, fn in steps.items()))
+
+
+# ---- the multi phase: the sharded entry points (hevcasm_tpu_torch.parallel) --
+
+H4K, W4K = 2176, 3840    # 4K padded to whole 64x64 CTUs: 34 x 60 = 2040
+
+#: Each counted wrapper's kernel module (hevcasm_tpu_torch.kernels.<module>).
+COUNTED = {"ssd_grid_plane": "search", "inter_ctu_fused_dma": "inter_fused",
+           "bi_ctu_fused_dma": "bi_fused", "refine_qpel_costmap": "costmap",
+           "refine_qpel_costmap_dma": "costmap", "base_grids_ctu": "base_grids",
+           "base_layout_decide": "base_grids", "ssd_grid": "search",
+           "ssd_grid_plane_multi": "search", "refine_quarter_pel_fused": "inter_fused",
+           "inter_ctu_fused": "inter_fused", "residual_pipeline_ctu": "residual_ctu",
+           "sad_grid": "sad", "search_mv": "search", "search_mv_dma": "search",
+           "encode_ctu_mega": "mega", "sad": "sad", "sad_multiref": "sad", "pred_uni": "mc",
+           "pred_bi": "mc", "base_layout_decide_fc": "base_grids"}
+
+
+def counted_wrappers() -> dict:
+    """Every registry kernel's wrapper by name; each counts its launches."""
+    import importlib
+
+    return {name: getattr(importlib.import_module(f"hevcasm_tpu_torch.kernels.{mod}"), name)
+            for name, mod in COUNTED.items()}
+
+
+def poisoned(a: np.ndarray, keep: slice, axis: int, seed: int) -> np.ndarray:
+    """A copy of ``a`` whose entries outside ``keep`` along ``axis`` are
+    noise: a rank given it reads nothing but its own share, or it fails."""
+    out = np.random.default_rng(seed).integers(0, 256, a.shape, dtype=np.uint8)
+    index = [slice(None)] * a.ndim
+    index[axis] = keep
+    out[tuple(index)] = a[tuple(index)]
+    return out
+
+
+def multi_rank(rank: int, world: int, clip9: np.ndarray, cur4k: np.ndarray,
+               ref4k: np.ndarray, gop4k: np.ndarray, reps: int) -> dict:
+    """One rank of the gloo world of two ranks on card 0 (parallel.launch
+    starts it): config 4 (clip9's 8 P frames over mesh (2, 1)), config 5
+    (gop4k's closed-loop spatial GOP over mesh (1, 2)) and the 4K spatial
+    frame (mesh (1, 2)), each on a copy of its input made noise outside this
+    rank's share (frames of its chunk and the reference before them; rows
+    of its band; frame 0 of gop4k whole, since every rank codes the I frame).
+    Each run's launches (counts set to 0 just before), what crossed between
+    the ranks, and ``reps`` CUDA-event samples of its ms a coded frame, taken
+    after a barrier with both ranks on the card at once."""
+    import torch.distributed as dist
+
+    from hevcasm_tpu_torch.encode.loop import EncodeConfig
+    from hevcasm_tpu_torch.kernels import build
+    from hevcasm_tpu_torch.parallel import (encode_gop_closed_loop_spatial,
+                                            encode_gop_data_parallel,
+                                            encode_inter_frame_spatial, make_mesh, multihost,
+                                            sharding)
+
+    build.load()
+    counted = counted_wrappers()
+    dev = multihost.rank_device()
+    cfg = EncodeConfig(search_range=SEARCH_RANGE, qp=32, inter_impl="fused_dma")
+    chunk = (clip9.shape[0] - 1) // world
+    h = cur4k.shape[0]
+    band = slice(rank * h // world, (rank + 1) * h // world)
+    clip_t = torch.as_tensor(poisoned(clip9, slice(rank * chunk, (rank + 1) * chunk + 1), 0,
+                                      100 + rank), device=dev)
+    cur_t = torch.as_tensor(poisoned(cur4k, band, 0, 200 + rank), device=dev)
+    ref_t = torch.as_tensor(poisoned(ref4k, band, 0, 300 + rank), device=dev)
+    gop = poisoned(gop4k, band, 1, 400 + rank)
+    gop[0] = gop4k[0]
+    gop_t = torch.as_tensor(gop, device=dev)
+    mesh_dp, mesh_sp = make_mesh(frames=world, rows=1), make_mesh(frames=1, rows=world)
+    runs = {
+        "config 4": (lambda: encode_gop_data_parallel(clip_t, mesh_dp, cfg),
+                     {"ssd_grid_plane": 4, "inter_ctu_fused_dma": 4}, clip9.shape[0] - 1),
+        "config 5": (lambda: encode_gop_closed_loop_spatial(gop_t, mesh_sp, cfg),
+                     {"ssd_grid_plane": 2, "inter_ctu_fused_dma": 2}, gop4k.shape[0]),
+        "spatial 4K": (lambda: encode_inter_frame_spatial(cur_t, ref_t, mesh_sp, cfg),
+                       {"ssd_grid_plane": 1, "inter_ctu_fused_dma": 1}, 1)}
+    out = {}
+    for name, (fn, need, frames) in runs.items():
+        dist.barrier()
+        torch.cuda.synchronize()
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        sharding.reset_wire_stats()
+        result = fn()
+        torch.cuda.synchronize()
+        launched = {k: w.launches for k, w in counted.items() if w.launches}
+        wire = dataclasses.asdict(sharding.wire)
+        samples = []
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end) / frames)
+        out[name] = {"result": result, "launches": launched, "need": need, "wire": wire,
+                     "ms": sorted(samples), "frames": frames}
+    try:
+        encode_inter_frame_spatial(clip9[1], clip9[0], mesh_sp, cfg)
+        out["1080p refusal"] = ""
+    except ValueError as e:
+        out["1080p refusal"] = str(e)
+    return out
+
+
+def multi_phase(tag: str, dev, cfg, drive, launches: dict) -> None:
+    """Phase 5: the sharded entry points on the card, in a world of 1 under
+    nccl (this process) and a world of 2 ranks sharing card 0 under gloo
+    (NCCL takes one card a rank), against the single-card entry points."""
+    import torch.distributed as dist
+
+    from hevcasm_tpu_torch.encode.loop import encode_inter_frame
+    from hevcasm_tpu_torch.encode.video import encode_gop_closed_loop
+    from hevcasm_tpu_torch.parallel import (encode_gop_data_parallel,
+                                            encode_inter_frame_spatial,
+                                            encode_p_frames_batch, launch, make_mesh,
+                                            multihost)
+
+    def differs(got: dict, want: dict, keys) -> str:
+        bad = []
+        for k in keys:
+            g = torch.as_tensor(np.asarray(got[k]) if not isinstance(got[k], torch.Tensor)
+                                else got[k]).cpu()
+            w = want[k].cpu()
+            if g.shape != w.shape or g.dtype != w.dtype:
+                bad.append(f"{k} {tuple(g.shape)} {g.dtype} != {tuple(w.shape)} {w.dtype}")
+            elif k == "psnr_db":
+                if float((g - w).abs().max()) > 1e-3:
+                    bad.append(f"{k} {g.tolist()} != {w.tolist()}")
+            elif not torch.equal(g, w):
+                bad.append(f"{k} max_abs_err {max_abs_err([g], [w])}")
+        return "; ".join(bad)
+
+    # Refusals: nccl takes a card a rank; nothing is started for them.  A
+    # launcher tells initialize() the ranks on this host by LOCAL_WORLD_SIZE.
+    for what, fn in (("spawn", lambda: launch.spawn(multi_rank, 2, backend="nccl",
+                                                    device="cuda")),
+                     ("initialize", lambda: multihost.initialize(
+                         "localhost:29533", 2, 0, backend="nccl"))):
+        try:
+            with mock.patch.dict(os.environ, {"LOCAL_WORLD_SIZE": "2"}):
+                fn()
+        except ValueError as e:
+            log(f"multi: nccl with 2 ranks on one card refused ({what}): {e}")
+        else:
+            raise AssertionError(f"multi: nccl with 2 ranks on one card was not refused ({what})")
+
+    cur4k, ref4k = bench_frames(H4K, W4K)
+    clip9 = rate_clip(9, H, W, 12)
+    gop4k = rate_clip(3, H4K, W4K, 12, seed=1)
+    cur_t, ref_t = (torch.as_tensor(a, device=dev) for a in (cur4k, ref4k))
+    clip_t, gop_t = (torch.as_tensor(a, device=dev) for a in (clip9, gop4k))
+    k1k2 = {"ssd_grid_plane": 1, "inter_ctu_fused_dma": 1}
+    single4k = encode_inter_frame(cur_t, ref_t, cfg)
+    per_frame = [encode_inter_frame(clip_t[t], clip_t[t - 1], cfg) for t in range(1, 9)]
+    per_frame = {k: torch.stack([o[k] for o in per_frame]) for k in per_frame[0]}
+    closed4k = encode_gop_closed_loop(gop_t, cfg, 3)
+    keys = ("recon", "mvs", "sad", "nnz", "psnr_db")
+    sp_keys = ("recon", "sad", "nnz", "psnr_db")
+
+    # A world of 1 under nccl in this process, mesh 1 x 1.
+    multihost.initialize()
+    try:
+        if (dist.get_backend(), dist.get_world_size()) != ("nccl", 1):
+            raise AssertionError(f"world of 1: {dist.get_backend()} x {dist.get_world_size()}")
+        mesh = make_mesh(1, 1)
+        sp1 = drive("multi: 4K spatial frame, world of 1 (nccl, mesh 1x1)",
+                    lambda: encode_inter_frame_spatial(cur_t, ref_t, mesh, cfg), k1k2,
+                    exact=True)
+        diff = differs(sp1, single4k, sp_keys)
+        if diff or set(sp1) != set(sp_keys):
+            raise AssertionError(f"multi: 4K spatial frame (world of 1) != encode_inter_frame: "
+                                 f"{diff} {sorted(sp1)}")
+        dp1 = drive("multi: 1080p dp GOP of 9 frames, world of 1 (nccl, mesh 1x1)",
+                    lambda: encode_gop_data_parallel(clip_t, mesh, cfg),
+                    {"ssd_grid_plane": 8, "inter_ctu_fused_dma": 8}, exact=True)
+        batch = encode_p_frames_batch(clip_t[1:], clip_t[:-1], cfg)
+        for whose, want in (("encode_p_frames_batch", batch), ("the per-frame calls",
+                                                               per_frame)):
+            diff = differs(dp1, want, keys)
+            if diff or set(dp1) != set(keys):
+                raise AssertionError(f"multi: dp GOP (world of 1) != {whose}: {diff}")
+        log(f"multi: world of 1 (nccl, mesh 1x1, {mesh.device_type}): the 4K spatial frame "
+            f"equals encode_inter_frame (psnr_db {float(sp1['psnr_db']):.4f}), the 1080p dp "
+            "GOP equals encode_p_frames_batch and the per-frame calls")
+        t1 = turns_samples_ms({
+            "4K spatial frame, world of 1": lambda: encode_inter_frame_spatial(
+                cur_t, ref_t, mesh, cfg),
+            "4K encode_inter_frame": lambda: encode_inter_frame(cur_t, ref_t, cfg)},
+            calls=1, reps=10)
+        t1.update({k: [v / 8 for v in s] for k, s in turns_samples_ms({
+            "1080p dp GOP a P frame, world of 1": lambda: encode_gop_data_parallel(
+                clip_t, mesh, cfg),
+            "1080p encode_p_frames_batch a P frame": lambda: encode_p_frames_batch(
+                clip_t[1:], clip_t[:-1], cfg)}, calls=1, reps=10).items()})
+        for name, s in t1.items():
+            log(f"{tag} multi: {name}: {statistics.median(s):.3f} ms a frame "
+                f"(min {s[0]:.3f}, max {s[-1]:.3f}; 10 samples in turns, CUDA events)")
+    finally:
+        dist.destroy_process_group()
+        multihost._DEVICE = None
+
+    # A world of 2 ranks on card 0 under gloo.
+    t0 = time.perf_counter()
+    ranks = launch.spawn(multi_rank, 2, backend="gloo", device="cuda",
+                         args=(clip9, cur4k, ref4k, gop4k, 5), timeout_s=900)
+    log(f"multi: world of 2 on card 0 (gloo): {time.perf_counter() - t0:.1f} s with the "
+        "ranks' start")
+    wants = {"config 4": (per_frame, keys), "config 5": (closed4k, ("recon", "psnr_db")),
+             "spatial 4K": (single4k, sp_keys)}
+    for rank, out in enumerate(ranks):
+        if "whole" not in out["1080p refusal"]:
+            raise AssertionError(f"multi: rank {rank}: a 1080p frame over 2 bands (17 CTU "
+                                 f"rows) was not refused: {out['1080p refusal']!r}")
+        for name, (want, wkeys) in wants.items():
+            run = out[name]
+            if run["launches"] != run["need"]:
+                raise AssertionError(f"multi: rank {rank} {name}: launched {run['launches']}, "
+                                     f"not exactly {run['need']}")
+            diff = differs(run["result"], want, wkeys)
+            if diff or set(run["result"]) != set(wkeys):
+                raise AssertionError(f"multi: rank {rank} {name} != the single-card entry "
+                                     f"point: {diff}")
+            for k, v in run["launches"].items():
+                launches[k] += v
+            s, wire = run["ms"], run["wire"]
+            log(f"{tag} multi: rank {rank} of 2 (gloo, card 0 shared) {name}: "
+                f"{statistics.median(s):.3f} ms a frame (min {s[0]:.3f}, max {s[-1]:.3f}; "
+                f"{len(s)} samples, CUDA events); launches {run['launches']}; halo "
+                f"{wire['halo_bytes'] / max(run['frames'] - (name == 'config 5'), 1):.0f} "
+                f"bytes a P frame, gathered {wire['gathered_bytes']} bytes, host copies "
+                f"{wire['host_copy_s'] * 1e3:.3f} ms a call")
+    log("multi: world of 2 (gloo): config 4, config 5 and the 4K spatial frame equal the "
+        "single-card entry points on inputs that are noise outside each rank's share, with "
+        "exact launches; a 1080p frame over 2 bands refused")
 
 
 def main() -> int:
@@ -1528,27 +1795,7 @@ def main() -> int:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
 
     # ---- 4. the main paths ---------------------------------------------------
-    counted = {"ssd_grid_plane": ssd_grid_plane,
-               "inter_ctu_fused_dma": inter_ctu_fused_dma,
-               "bi_ctu_fused_dma": bi_ctu_fused_dma,
-               "refine_qpel_costmap": refine_qpel_costmap,
-               "refine_qpel_costmap_dma": refine_qpel_costmap_dma,
-               "base_grids_ctu": base_grids_ctu,
-               "base_layout_decide": base_layout_decide,
-               "ssd_grid": ssd_grid,
-               "ssd_grid_plane_multi": ssd_grid_plane_multi,
-               "refine_quarter_pel_fused": refine_quarter_pel_fused,
-               "inter_ctu_fused": inter_ctu_fused,
-               "residual_pipeline_ctu": residual_pipeline_ctu,
-               "sad_grid": sad_grid,
-               "search_mv": search_mv,
-               "search_mv_dma": search_mv_dma,
-               "encode_ctu_mega": encode_ctu_mega,
-               "sad": sad,
-               "sad_multiref": sad_multiref,
-               "pred_uni": mc.pred_uni,
-               "pred_bi": mc.pred_bi,
-               "base_layout_decide_fc": base_layout_decide_fc}
+    counted = counted_wrappers()
     launches = dict.fromkeys(counted, 0)
 
     def drive(what, fn, need, exact=False):
@@ -2171,7 +2418,10 @@ def main() -> int:
     log(f"encode CLI, Y4M round trip ({yuv_io.last_path} reader): {json.dumps(y4m_json)}; "
         "the reconstruction read back equals encode_gop_yuv's")
 
-    # ---- 5. timing -----------------------------------------------------------
+    # ---- 5. multi ------------------------------------------------------------
+    multi_phase(tag, dev, cfg, drive, launches)
+
+    # ---- 6. timing -----------------------------------------------------------
     log("timed self-test (best of each case's iters, CUDA events):")
     if selftest.main(time_it=True):
         raise AssertionError("timed self-test: errors")

@@ -11,7 +11,7 @@ the plain version.
 The port imports torch and numpy only, never jax.
 """
 
-from .config import Tier
+from .config import Config, Tier, DEFAULT
 from . import registry
 from . import ops  # registers the REF tier of the plain ops
 from . import encode  # registers the kernels' REF and KERNEL tiers
@@ -19,4 +19,4 @@ from .kernels import mc  # noqa: F401  B5 and B6, which no encode path runs
 
 __version__ = "0.1.0"
 
-__all__ = ["Tier", "registry", "ops", "encode"]
+__all__ = ["Config", "Tier", "DEFAULT", "registry", "ops", "encode"]

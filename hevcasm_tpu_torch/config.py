@@ -1,7 +1,8 @@
-"""Implementation tiers for hevcasm_tpu_torch.
+"""Configuration and implementation tiers for hevcasm_tpu_torch.
 
 The counterpart of ``hevcasm_tpu.config``: a ``Tier`` IntFlag mask that
-selects which implementation of an op runs.  There are two tiers:
+selects which implementation of an op runs, and ``Config`` / ``DEFAULT``,
+the framework's global knobs.  There are two tiers:
 
 REF     plain PyTorch, exact integer arithmetic, runs on any device; the
         golden version every kernel is compared against.
@@ -12,6 +13,7 @@ KERNEL  a kernel written by hand in CUDA C++ for Hopper (``csrc/``).  It is
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 
@@ -31,3 +33,30 @@ def tiers_in(mask: Tier):
     for t in TIER_PRIORITY:
         if mask & t:
             yield t
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """Global knobs for the framework, with hevcasm_tpu's fields and
+    defaults.
+
+    Attributes:
+      tiers:        which implementation tiers the registry may select.
+      bit_depth:    sample bit depth (HEVC Main profile, 8-bit).
+      ctu_size:     coding-tree-unit size used by the encode loop.
+      search_range: full-search motion estimation range in luma pels.
+      mesh_frames:  data-parallel axis size for GOP/frame sharding
+                    (parallel.make_mesh's ``frames``).
+      mesh_rows:    spatial axis size for CTU-row sharding within a frame
+                    (parallel.make_mesh's ``rows``).
+    """
+
+    tiers: Tier = Tier.ALL
+    bit_depth: int = 8
+    ctu_size: int = 64
+    search_range: int = 32
+    mesh_frames: int = 1
+    mesh_rows: int = 1
+
+
+DEFAULT = Config()

@@ -22,7 +22,7 @@ import torch
 
 from ..utils.tensor import as_tensor, constant, first_min
 
-__all__ = ["KERNEL8", "KERNEL4", "pred_uni", "pred_uni_16", "pred_bi",
+__all__ = ["KERNEL8", "KERNEL4", "pred_uni", "pred_uni_16", "pred_bi", "pad_for",
            "qpel_score", "qpel_costmap", "refine_qpel_costmap_mxu", "refine_qpel"]
 
 # Luma 8-tap quarter-pel filters (H.265 table 8-11).
@@ -50,6 +50,11 @@ KERNEL4 = np.array(
     ],
     dtype=np.int32,
 )
+
+
+def pad_for(taps: int) -> int:
+    """Left/top padding of the extended window (3 luma, 1 chroma)."""
+    return taps // 2 - 1
 
 
 def _fir(x: torch.Tensor, coef, axis: int, out_len: int) -> torch.Tensor:

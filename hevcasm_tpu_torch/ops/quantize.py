@@ -8,6 +8,9 @@
 * range_flag, flag_quant_params, raise_on_flag - the parameters' range
                       checks on the device, read once by the caller (the
                       counterpart of the JAX package's checkify checks).
+* quantize_checked, check_params_traced - the JAX package's checkify pair,
+                      as thin forms over the range flag: the flag plays
+                      checkify's error, and reading it raises ValueError.
 
 All arithmetic is int32; products wrap as two's-complement int32, as they
 do in the JAX package.
@@ -21,7 +24,8 @@ import torch
 from ..utils.tensor import as_tensor
 
 __all__ = ["QUANT_RANGES", "check_quant_params", "range_flag", "flag_quant_params",
-           "raise_on_flag", "quantize", "quantize_inverse", "reconstruct"]
+           "raise_on_flag", "quantize", "quantize_inverse", "reconstruct",
+           "QuantError", "quantize_checked", "check_params_traced"]
 
 #: The quantizer parameters' asserted ranges [lo, hi], and each one's bit in
 #: a range flag.  The HEVC reference asserts the forward three (scale <
@@ -109,6 +113,48 @@ def quantize(src, scale, shift, offset, range_flag=None) -> tuple[torch.Tensor, 
     q = q.clamp(-32768, 32767)
     cbf = (q != 0).any(dim=-1).any(dim=-1)
     return q.to(torch.int16), cbf
+
+
+class QuantError:
+    """A range flag as checkify's error: ``get()`` reads it (one host read)
+    and returns a message or None, ``throw()`` raises ValueError when a
+    bit is set."""
+
+    def __init__(self, flag: torch.Tensor):
+        self.flag = flag
+
+    def get(self) -> str | None:
+        try:
+            raise_on_flag(self.flag)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    def throw(self) -> None:
+        raise_on_flag(self.flag)
+
+
+def check_params_traced(scale, shift, offset, flag: torch.Tensor | None = None) -> QuantError:
+    """The forward quantizer's asserted ranges on parameters that go to
+    the fused kernels without quantize(): tensors are checked on their
+    device into ``flag`` (a fresh range flag when none is given), with no
+    host read; numbers at once (ValueError).  Returns the flag as a
+    QuantError, whose throw() raises ValueError."""
+    if flag is None:
+        dev = next((v.device for v in (scale, shift, offset) if isinstance(v, torch.Tensor)),
+                   torch.device("cpu"))
+        flag = range_flag(dev)
+    flag_quant_params(flag, scale=scale, shift=shift, offset=offset)
+    return QuantError(flag)
+
+
+def quantize_checked(src, scale, shift, offset):
+    """quantize with its parameters checked on the device: returns (error,
+    (dst, cbf)), where error.throw() raises ValueError for a parameter
+    outside its asserted range (a number outside raises at once)."""
+    src = as_tensor(src)
+    flag = range_flag(src.device)
+    return QuantError(flag), quantize(src, scale, shift, offset, range_flag=flag)
 
 
 def quantize_inverse(src, scale, shift) -> torch.Tensor:

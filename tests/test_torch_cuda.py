@@ -1655,3 +1655,80 @@ def test_gops_on_card_launch_their_kernels_and_equal_plain_and_cpu(cuda, entry, 
     assert launches == GOP_LAUNCHES[structure]
     assert_same_gop(got, gop_call(entry, frames, cfg, Tier.REF))
     assert_same_gop(got, gop_call(entry, [f.cpu() for f in frames], cfg))
+
+
+# ---- the sharded entry points (hevcasm_tpu_torch.parallel) ------------------
+
+def sharded_inputs():
+    rng = np.random.default_rng(17)
+    clip = smooth_clip(5, 256, 128, 3)
+    return {"spatial": (clip[1], clip[0]), "gop": clip[:3],
+            "dp": rng.integers(0, 256, (5, 128, 192), dtype=np.uint8)}
+
+
+def test_sharded_world_of_one_under_nccl_equals_single_card(cuda):
+    """A world of 1 under nccl in this process (mesh 1x1): the spatial
+    frame, the closed-loop spatial GOP and the data-parallel GOP on the
+    card equal the single-card entry points, with K1 and K2 launched."""
+    import torch.distributed as dist
+
+    from hevcasm_tpu_torch.encode import video
+    from hevcasm_tpu_torch.parallel import (encode_gop_closed_loop_spatial,
+                                            encode_gop_data_parallel,
+                                            encode_inter_frame_spatial, make_mesh, multihost)
+
+    inputs = sharded_inputs()
+    cfg = EncodeConfig(search_range=8, qp=32, inter_impl="fused_dma")
+    assert not dist.is_initialized()
+    multihost.initialize()
+    try:
+        assert (dist.get_backend(), dist.get_world_size()) == ("nccl", 1)
+        mesh = make_mesh(1, 1)
+        assert mesh.device_type == "cuda"
+        got, launches = launched(lambda: encode_inter_frame_spatial(*inputs["spatial"], mesh,
+                                                                    cfg))
+        assert launches == {"k1": 1, "k2": 1}
+        want = encode_inter_frame(*inputs["spatial"], cfg)
+        for k in ("recon", "sad", "nnz"):
+            assert torch.equal(got[k], want[k]), k
+        assert got["recon"].device.type == "cuda"
+        gop = encode_gop_closed_loop_spatial(inputs["gop"], mesh, cfg)
+        want = video.encode_gop_closed_loop(inputs["gop"], cfg, 3)
+        assert torch.equal(gop["recon"], want["recon"])
+        dp = encode_gop_data_parallel(inputs["dp"], mesh, cfg)
+        for t in range(4):
+            one = encode_inter_frame(inputs["dp"][t + 1], inputs["dp"][t], cfg)
+            for k in ("recon", "mvs", "sad", "nnz"):
+                assert torch.equal(dp[k][t], one[k]), (t, k)
+    finally:
+        dist.destroy_process_group()
+        multihost._DEVICE = None
+
+
+def test_sharded_two_ranks_on_one_card_under_gloo(cuda):
+    """Two ranks sharing the card under gloo (nccl refuses two ranks on one
+    card): each equals the single-card entry points, with its own K1/K2
+    launches."""
+    import torch_parallel_ranks as ranks
+    from hevcasm_tpu_torch.encode import video
+    from hevcasm_tpu_torch.parallel import launch
+
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        launch.spawn(ranks.card_two_ranks, 2, backend="nccl", device="cuda")
+    inputs = sharded_inputs()
+    outs = launch.spawn(ranks.card_two_ranks, 2, backend="gloo", device="cuda",
+                        args=(inputs,), timeout_s=600)
+    cfg = EncodeConfig(search_range=8, qp=32, inter_impl="fused_dma")
+    sp = encode_inter_frame(*inputs["spatial"], cfg)
+    gop = video.encode_gop_closed_loop(inputs["gop"], cfg, 3)
+    dp = [encode_inter_frame(inputs["dp"][t + 1], inputs["dp"][t], cfg) for t in range(4)]
+    for out in outs:
+        assert (out["device"], out["mesh_type"]) == ("cuda:0", "cuda")
+        assert out["spatial launches"] == (1, 1) and out["gop launches"] == (2, 2)
+        assert out["dp launches"] == (2, 2)
+        for k in ("recon", "sad", "nnz"):
+            np.testing.assert_array_equal(out["spatial"][k], sp[k].cpu().numpy())
+        np.testing.assert_array_equal(out["gop"]["recon"], gop["recon"].cpu().numpy())
+        for t in range(4):
+            for k in ("recon", "mvs", "sad", "nnz"):
+                np.testing.assert_array_equal(out["dp"][k][t], dp[t][k].cpu().numpy())
