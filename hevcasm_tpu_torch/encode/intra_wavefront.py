@@ -28,6 +28,7 @@ import torch
 from ..config import Tier
 from ..utils.psnr import psnr
 from ..utils.tensor import to_device
+from ..utils.trace import span
 from . import ctu as ctu_mod
 from .loop import (EncodeConfig, _intra_mode_decide, _prepare_intra_refs, _prepare_plane,
                    _residual_pipeline)
@@ -83,25 +84,28 @@ def encode_intra_frame_wavefront(cur, cfg: EncodeConfig = EncodeConfig(),
     cur: (H, W) uint8 tensor or numpy array, H and W multiples of
     cfg.intra_block; devices as for encode_inter_frame.  Returns {"recon":
     (H, W) uint8, "nnz": () int32, "psnr_db": () float32}."""
-    cur = _prepare_plane(cur, device)
-    h, w = cur.shape
-    n = cfg.intra_block
-    dev = cur.device
-    spans, order, refs, lav, aav, cav = _schedule(h, w, n, dev)
-    src = ctu_mod.tile_frame(cur, n).index_select(0, order)      # blocks in wave order
-    canvas = torch.full((h * w,), UNAVAILABLE, dtype=torch.uint8, device=dev)
-    tiles = canvas.view(-1, n, n)
-    nnz = torch.zeros((), dtype=torch.int32, device=dev)
-    for s, e in spans:
-        if s == e:          # one block column: odd waves are empty
-            continue
-        nb = canvas.index_select(0, refs[s:e].reshape(-1)).view(e - s, 4 * n + 1)
-        refs_plain, refs_filt = _prepare_intra_refs(
-            nb[:, :2 * n], nb[:, 2 * n:4 * n], nb[:, 4 * n], lav[s:e], aav[s:e], cav[s:e],
-            n, cfg)
-        pred, _ = _intra_mode_decide(src[s:e], refs_plain, refs_filt, n)
-        rec, nnz_w, _ = _residual_pipeline(src[s:e], pred, cfg, intra=True, tiers=tiers)
-        tiles.index_copy_(0, order[s:e], rec)
-        nnz = nnz + nnz_w
-    recon = ctu_mod.untile_frame(tiles, h, w)
-    return {"recon": recon, "nnz": nnz, "psnr_db": psnr(cur, recon)}
+    with span("hevcasm.intra_luma"):
+        cur = _prepare_plane(cur, device)
+        h, w = cur.shape
+        n = cfg.intra_block
+        dev = cur.device
+        spans, order, refs, lav, aav, cav = _schedule(h, w, n, dev)
+        src = ctu_mod.tile_frame(cur, n).index_select(0, order)      # blocks in wave order
+        canvas = torch.full((h * w,), UNAVAILABLE, dtype=torch.uint8, device=dev)
+        tiles = canvas.view(-1, n, n)
+        nnz = torch.zeros((), dtype=torch.int32, device=dev)
+        for s, e in spans:
+            if s == e:          # one block column: odd waves are empty
+                continue
+            with span("hevcasm.intra_wave"):
+                nb = canvas.index_select(0, refs[s:e].reshape(-1)).view(e - s, 4 * n + 1)
+                refs_plain, refs_filt = _prepare_intra_refs(
+                    nb[:, :2 * n], nb[:, 2 * n:4 * n], nb[:, 4 * n], lav[s:e], aav[s:e],
+                    cav[s:e], n, cfg)
+                pred, _ = _intra_mode_decide(src[s:e], refs_plain, refs_filt, n)
+                rec, nnz_w, _ = _residual_pipeline(src[s:e], pred, cfg, intra=True,
+                                                   tiers=tiers)
+                tiles.index_copy_(0, order[s:e], rec)
+                nnz = nnz + nnz_w
+        recon = ctu_mod.untile_frame(tiles, h, w)
+        return {"recon": recon, "nnz": nnz, "psnr_db": psnr(cur, recon)}

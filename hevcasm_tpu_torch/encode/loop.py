@@ -62,6 +62,7 @@ from ..ops.residual import residual_pipeline_frame
 from ..ops.satd import satd
 from ..utils.psnr import psnr
 from ..utils.tensor import as_tensor, entry_device, first_min
+from ..utils.trace import span
 from . import ctu as ctu_mod
 from . import motion
 from . import partition
@@ -294,10 +295,12 @@ def _inter_core(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid,
     (rec_ctus (n, B, B) uint8, mv_qpel (n, 2) int32, best (n,) int32, nnz ()
     int32)."""
     _check_inter_core(cfg)
-    mv_int, best = _integer_search(src_ctus, ref_padded, pos, cfg, grid, tiers)
+    with span("hevcasm.search"):
+        mv_int, best = _integer_search(src_ctus, ref_padded, pos, cfg, grid, tiers)
     start = (pos + mv_int + cfg.search_range).to(torch.int32).contiguous()
-    rec_ctus, mv_qpel, nnz = _refine_and_code(src_ctus, ref_padded, start, mv_int, cfg,
-                                              tiers)
+    with span("hevcasm.refine_code"):
+        rec_ctus, mv_qpel, nnz = _refine_and_code(src_ctus, ref_padded, start, mv_int, cfg,
+                                                  tiers)
     return rec_ctus, mv_qpel, best, nnz
 
 

@@ -38,6 +38,7 @@ from ..ops.pred_inter import pred_uni, pred_uni_16
 from ..ops.pred_intra import filter_flag, pred_intra
 from ..utils.psnr import psnr
 from ..utils.tensor import as_tensor, constant, entry_device, first_min
+from ..utils.trace import span
 from . import ctu as ctu_mod
 from . import motion
 from .intra_wavefront import encode_intra_frame_wavefront
@@ -97,28 +98,30 @@ def _chroma_mc(plane: torch.Tensor, mv_qpel: torch.Tensor, cfg: EncodeConfig,
     quarter-pel MVs (n, 2), one per 64x64 luma CTU = one per 32x32 chroma
     block.  Returns (n, ctu/2, ctu/2) uint8 predictions, or with ``out16``
     the int16 (acc >> 6) bi intermediates."""
-    taps = 4
-    b = cfg.ctu // 2
-    rc = cfg.search_range // 2 + 1  # chroma integer reach (+1 for mv >> 3)
-    pad_l, pad_r = taps // 2 - 1, taps // 2
-    padded = ctu_mod.pad_frame(plane, rc + pad_l, rc + pad_r + 1, rc + pad_l,
-                               rc + pad_r + 1)
-    gr, gc = ctu_mod.grid_shape(*plane.shape, b)
-    pos = motion.ctu_positions(gr, gc, b, plane.device)
-    mv_int = mv_qpel >> 3
-    frac = mv_qpel & 7
-    win = motion.extract_windows(padded, pos + mv_int + rc, b + taps - 1)
-    fn = pred_uni_16 if out16 else pred_uni
-    return fn(win, frac[:, 1], frac[:, 0], taps)
+    with span("hevcasm.chroma_mc"):
+        taps = 4
+        b = cfg.ctu // 2
+        rc = cfg.search_range // 2 + 1  # chroma integer reach (+1 for mv >> 3)
+        pad_l, pad_r = taps // 2 - 1, taps // 2
+        padded = ctu_mod.pad_frame(plane, rc + pad_l, rc + pad_r + 1, rc + pad_l,
+                                   rc + pad_r + 1)
+        gr, gc = ctu_mod.grid_shape(*plane.shape, b)
+        pos = motion.ctu_positions(gr, gc, b, plane.device)
+        mv_int = mv_qpel >> 3
+        frac = mv_qpel & 7
+        win = motion.extract_windows(padded, pos + mv_int + rc, b + taps - 1)
+        fn = pred_uni_16 if out16 else pred_uni
+        return fn(win, frac[:, 1], frac[:, 0], taps)
 
 
 def _chroma_residual(cur_plane, pred_blocks, cfg: EncodeConfig, intra: bool,
                      tiers: Tier):
-    ccfg = _chroma_cfg(cfg)
-    src_blocks = ctu_mod.tile_frame(cur_plane, ccfg.ctu)
-    rec, nnz, _ = _residual_pipeline(src_blocks, pred_blocks, ccfg, intra,
-                                     luma=False, tiers=tiers)
-    return ctu_mod.untile_frame(rec, *cur_plane.shape), nnz
+    with span("hevcasm.chroma_residual"):
+        ccfg = _chroma_cfg(cfg)
+        src_blocks = ctu_mod.tile_frame(cur_plane, ccfg.ctu)
+        rec, nnz, _ = _residual_pipeline(src_blocks, pred_blocks, ccfg, intra,
+                                         luma=False, tiers=tiers)
+        return ctu_mod.untile_frame(rec, *cur_plane.shape), nnz
 
 
 def encode_inter_frame_yuv(cur, ref, cfg: EncodeConfig = EncodeConfig(),
@@ -132,26 +135,31 @@ def encode_inter_frame_yuv(cur, ref, cfg: EncodeConfig = EncodeConfig(),
     default the CUDA card (with none, pass device="cpu").  Returns {"recon": YuvFrame, "mvs": (n, 2) int32
     quarter-pel, "nnz": () int32 over the three planes, "psnr_y",
     "psnr_cb", "psnr_cr": () float32}."""
-    _chroma_cfg(cfg)  # its guards, before any work
-    cur = _as_yuv(cur, None if device is None else entry_device(cur[0], device))
-    ref = _as_yuv(ref, cur.y.device)
-    cur_y, (ref_y,), src_ctus, pos, grid = _prepare_frame(cfg, cur.y, ref.y)
-    rec_y_ctus, mv_qpel, _, nnz_y = _inter_core(
-        src_ctus, _pad_reference(ref_y, cfg.search_range), pos, cfg, grid, tiers)
-    rec_y = ctu_mod.untile_frame(rec_y_ctus, *cur_y.shape)
+    with span("hevcasm.inter_yuv"):
+        _chroma_cfg(cfg)  # its guards, before any work
+        cur = _as_yuv(cur, None if device is None else entry_device(cur[0], device))
+        ref = _as_yuv(ref, cur.y.device)
+        with span("hevcasm.luma"):
+            cur_y, (ref_y,), src_ctus, pos, grid = _prepare_frame(cfg, cur.y, ref.y)
+            rec_y_ctus, mv_qpel, _, nnz_y = _inter_core(
+                src_ctus, _pad_reference(ref_y, cfg.search_range), pos, cfg, grid, tiers)
+            rec_y = ctu_mod.untile_frame(rec_y_ctus, *cur_y.shape)
 
-    rec_cb, nnz_cb = _chroma_residual(cur.cb, _chroma_mc(ref.cb, mv_qpel, cfg),
-                                      cfg, False, tiers)
-    rec_cr, nnz_cr = _chroma_residual(cur.cr, _chroma_mc(ref.cr, mv_qpel, cfg),
-                                      cfg, False, tiers)
-    return {
-        "recon": YuvFrame(rec_y, rec_cb, rec_cr),
-        "mvs": mv_qpel,
-        "nnz": nnz_y + nnz_cb + nnz_cr,
-        "psnr_y": psnr(cur_y, rec_y),
-        "psnr_cb": psnr(cur.cb, rec_cb),
-        "psnr_cr": psnr(cur.cr, rec_cr),
-    }
+        with span("hevcasm.chroma"):
+            rec_cb, nnz_cb = _chroma_residual(cur.cb, _chroma_mc(ref.cb, mv_qpel, cfg),
+                                              cfg, False, tiers)
+            rec_cr, nnz_cr = _chroma_residual(cur.cr, _chroma_mc(ref.cr, mv_qpel, cfg),
+                                              cfg, False, tiers)
+        with span("hevcasm.psnr"):
+            psnrs = psnr(cur_y, rec_y), psnr(cur.cb, rec_cb), psnr(cur.cr, rec_cr)
+        return {
+            "recon": YuvFrame(rec_y, rec_cb, rec_cr),
+            "mvs": mv_qpel,
+            "nnz": nnz_y + nnz_cb + nnz_cr,
+            "psnr_y": psnrs[0],
+            "psnr_cb": psnrs[1],
+            "psnr_cr": psnrs[2],
+        }
 
 
 def _b_fused(cfg: EncodeConfig) -> bool:
@@ -356,10 +364,12 @@ def encode_gop_yuv(frames, cfg: EncodeConfig = EncodeConfig(), b_frames: bool = 
 def _closed_loop_seed(frames: YuvFrame, cfg: EncodeConfig, tiers: Tier):
     """The closed-loop GOPs' I frame: the wavefront luma and open-loop
     chroma intra.  Returns (recon YuvFrame, psnr_y)."""
-    intra_y = encode_intra_frame_wavefront(frames.y[0], cfg, tiers)
-    seed = YuvFrame(intra_y["recon"], _chroma_intra_plane(frames.cb[0], cfg, tiers)[0],
-                    _chroma_intra_plane(frames.cr[0], cfg, tiers)[0])
-    return seed, intra_y["psnr_db"]
+    with span("hevcasm.intra"):
+        intra_y = encode_intra_frame_wavefront(frames.y[0], cfg, tiers)
+        with span("hevcasm.intra_chroma"):
+            rec_cb = _chroma_intra_plane(frames.cb[0], cfg, tiers)[0]
+            rec_cr = _chroma_intra_plane(frames.cr[0], cfg, tiers)[0]
+        return YuvFrame(intra_y["recon"], rec_cb, rec_cr), intra_y["psnr_db"]
 
 
 def encode_gop_closed_loop_yuv(frames, cfg: EncodeConfig = EncodeConfig(),
@@ -371,16 +381,18 @@ def encode_gop_closed_loop_yuv(frames, cfg: EncodeConfig = EncodeConfig(),
 
     frames as for encode_gop_yuv.  Returns {"recon": YuvFrame of stacks,
     "psnr_y": (T,) float32 a frame}."""
-    _chroma_cfg(cfg)
-    frames = _as_yuv_gop(frames, device)
-    prev, psnr0 = _closed_loop_seed(frames, cfg, tiers)
-    recs, psnrs = [prev], [psnr0]
-    for t in range(1, frames.y.shape[0]):
-        out = encode_inter_frame_yuv(YuvFrame(*(p[t] for p in frames)), prev, cfg, tiers)
-        prev = out["recon"]
-        recs.append(prev)
-        psnrs.append(out["psnr_y"])
-    return {"recon": _stack_yuv(recs), "psnr_y": torch.stack(psnrs)}
+    with span("hevcasm.gop_closed_yuv"):
+        _chroma_cfg(cfg)
+        frames = _as_yuv_gop(frames, device)
+        prev, psnr0 = _closed_loop_seed(frames, cfg, tiers)
+        recs, psnrs = [prev], [psnr0]
+        for t in range(1, frames.y.shape[0]):
+            out = encode_inter_frame_yuv(YuvFrame(*(p[t] for p in frames)), prev, cfg, tiers)
+            prev = out["recon"]
+            recs.append(prev)
+            psnrs.append(out["psnr_y"])
+        with span("hevcasm.gop_stack"):
+            return {"recon": _stack_yuv(recs), "psnr_y": torch.stack(psnrs)}
 
 
 def encode_gop_closed_loop_yuv_b(frames, cfg: EncodeConfig = EncodeConfig(),
