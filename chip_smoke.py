@@ -836,7 +836,8 @@ COUNTED = {"ssd_grid_plane": "search", "inter_ctu_fused_dma": "inter_fused",
            "inter_ctu_fused": "inter_fused", "residual_pipeline_ctu": "residual_ctu",
            "sad_grid": "sad", "search_mv": "search", "search_mv_dma": "search",
            "encode_ctu_mega": "mega", "sad": "sad", "sad_multiref": "sad", "pred_uni": "mc",
-           "pred_bi": "mc", "base_layout_decide_fc": "base_grids"}
+           "pred_bi": "mc", "base_layout_decide_fc": "base_grids",
+           "chroma_p_fused": "chroma_fused"}
 
 
 def counted_wrappers() -> dict:
@@ -1089,6 +1090,7 @@ def main() -> int:
         base_layout_decide_fc_ref, base_layout_decide_ref)
     from hevcasm_tpu_torch.kernels.bi_fused import (
         bi_ctu_fused_dma, bi_ctu_fused_dma_ref)
+    from hevcasm_tpu_torch.kernels.chroma_fused import chroma_p_fused, chroma_p_fused_ref
     from hevcasm_tpu_torch.kernels.costmap import (
         refine_qpel_costmap, refine_qpel_costmap_dma, refine_qpel_costmap_dma_ref,
         refine_qpel_costmap_ref)
@@ -1186,7 +1188,8 @@ def main() -> int:
                          "ssd_grid_plane_multi", "refine_quarter_pel_fused",
                          "inter_ctu_fused", "residual_pipeline_ctu", "sad_grid",
                          "search_mv", "search_mv_dma", "encode_ctu_mega", "sad",
-                         "sad_multiref", "pred_uni", "pred_bi", "base_layout_decide_fc"), 0)
+                         "sad_multiref", "pred_uni", "pred_bi", "base_layout_decide_fc",
+                         "chroma_p_fused"), 0)
 
     def search_inputs(cur, ref, r):
         """K1 operands as full_search_slab builds them."""
@@ -1769,6 +1772,24 @@ def main() -> int:
              mc_luma[2:], 64, 64, 8)
     check_mc("1080p 1020 32x32 chroma blocks, per-block fractions 0-7", *mc_chroma[:2],
              mc_chroma[2:], 32, 32, 4)
+    # chroma_p_fused: both chroma planes of the 1080p frame and of a 4K one
+    # at MVs whose windows reach past every edge (R = 32), at the chroma qp
+    # of luma qp 35 (qPc 33) and 22.
+    cf_rng = np.random.default_rng(23)
+
+    def chroma_mvs(h_c, w_c):
+        return torch.as_tensor(cf_rng.integers(-136, 144, (h_c // 32 * (w_c // 32), 2)),
+                               dtype=torch.int32, device=dev)
+
+    cf_1080 = (yuv_cur.cb, yuv_cur.cr, yuv_ref0.cb, yuv_ref0.cr, chroma_mvs(H // 2, W // 2))
+    cf_4k = (*(torch.as_tensor(cf_rng.integers(0, 256, (H4K // 2, W4K // 2), dtype=np.uint8),
+                               device=dev) for _ in range(4)), chroma_mvs(H4K // 2, W4K // 2))
+    for what_c, ops_c in (("1080p", cf_1080), ("4K", cf_4k)):
+        for qp_c in (35, 22):
+            ccfg = EncodeConfig(search_range=SEARCH_RANGE, qp=qp_c)
+            check("chroma_p_fused", f"{what_c} 4:2:0 P frame's chroma planes, luma qp {qp_c}",
+                  list(chroma_p_fused(*ops_c, ccfg)), list(chroma_p_fused_ref(*ops_c, ccfg)),
+                  f"planes {tuple(ops_c[0].shape)}")
     # B18: B15 at base 16 on the structured pan's CTUs, R = 32, 26 PU lists.
     b18 = check("base_layout_decide_fc", "1080p 510 CTUs, R=32, default layouts",
                 [base_layout_decide_fc(b_src, p_win, lists16)],
@@ -1879,7 +1900,7 @@ def main() -> int:
         return f"differs in {bad}" if bad else ""
 
     yuv_frames = (yuv_cur, yuv_ref0, yuv_ref1)
-    need = {"P": {"ssd_grid_plane": 1, "inter_ctu_fused_dma": 1},
+    need = {"P": {"ssd_grid_plane": 1, "inter_ctu_fused_dma": 1, "chroma_p_fused": 1},
             "B": {"ssd_grid_plane": 2, "bi_ctu_fused_dma": 1}}
     int_shapes = {"P": {"mvs": (n, 2), "nnz": ()},
                   "B": {"mvs0": (n, 2), "mvs1": (n, 2), "nnz": ()}}
@@ -2157,7 +2178,8 @@ def main() -> int:
     # launch its kernel exactly once a case of its suites (a count of 0 would
     # mean the fixtures stayed on the CPU and the plain version ran).
     st_need = {"sad": 23, "sad_multiref": 23, "sad_grid": 3, "ssd_grid": 3, "pred_uni": 32,
-               "pred_bi": 4, "refine_quarter_pel_fused": 2, "residual_pipeline_ctu": 2}
+               "pred_bi": 4, "refine_quarter_pel_fused": 2, "residual_pipeline_ctu": 2,
+               "chroma_p_fused": 2}
     st_errors = drive("self-test (selftest.main, time_it=False)",
                       lambda: selftest.main(time_it=False), st_need, exact=True)
     if st_errors:
@@ -2307,19 +2329,21 @@ def main() -> int:
     wf_cfg = dataclasses.replace(cfg, intra_mode="wavefront")
     ippp = {"ssd_grid_plane": 4, "inter_ctu_fused_dma": 4}
     ibpbp = {"ssd_grid_plane": 6, "inter_ctu_fused_dma": 2, "bi_ctu_fused_dma": 2}
+    # The 4:2:0 GOPs' P frames code their chroma in chroma_p_fused.
+    ippp_yuv, ibpbp_yuv = {**ippp, "chroma_p_fused": 4}, {**ibpbp, "chroma_p_fused": 2}
     gops = {
         "encode_gop": (lambda f, c, t=Tier.ALL: encode_gop(f.y, c, t), cfg, ippp),
         "encode_gop wavefront": (lambda f, c, t=Tier.ALL: encode_gop(f.y, c, t), wf_cfg, ippp),
         "encode_gop_yuv IPPP": (lambda f, c, t=Tier.ALL: encode_gop_yuv(f, c, tiers=t), cfg,
-                                ippp),
+                                ippp_yuv),
         "encode_gop_yuv IBPBP": (lambda f, c, t=Tier.ALL: encode_gop_yuv(f, c, True, t), cfg,
-                                 ibpbp),
+                                 ibpbp_yuv),
         "encode_gop_closed_loop": (
             lambda f, c, t=Tier.ALL: encode_gop_closed_loop(f.y, c, f.y.shape[0], t), cfg, ippp),
         "encode_gop_closed_loop_yuv": (
-            lambda f, c, t=Tier.ALL: encode_gop_closed_loop_yuv(f, c, t), cfg, ippp),
+            lambda f, c, t=Tier.ALL: encode_gop_closed_loop_yuv(f, c, t), cfg, ippp_yuv),
         "encode_gop_closed_loop_yuv_b": (
-            lambda f, c, t=Tier.ALL: encode_gop_closed_loop_yuv_b(f, c, t), cfg, ibpbp)}
+            lambda f, c, t=Tier.ALL: encode_gop_closed_loop_yuv_b(f, c, t), cfg, ibpbp_yuv)}
 
     def chained(name, f, c):
         """The closed-loop GOP composed from the per-frame entry points."""
@@ -2569,6 +2593,7 @@ def main() -> int:
                           "sad_multiref": lambda: sad_multiref(mr_src, mr_tiles),
                           "sad_multiref cdist": lambda: torch.cdist(cd_mr, cd_refs, p=1)})
     library = {"sad": b10_turns["sad cdist"], "sad_multiref": b10_turns["sad_multiref cdist"]}
+    cf_cfg = EncodeConfig(search_range=SEARCH_RANGE, qp=35)
     times = {
         "ssd_grid_plane": (
             median_ms(lambda: ssd_grid_plane(src, plane, grid, num), calls=10),
@@ -2634,6 +2659,9 @@ def main() -> int:
         "base_layout_decide_fc": (
             median_ms(lambda: base_layout_decide_fc(b_src, p_win, lists16), calls=10),
             median_ms(lambda: base_layout_decide_fc_ref(b_src, p_win, lists16))),
+        "chroma_p_fused": (
+            median_ms(lambda: chroma_p_fused(*cf_1080, cf_cfg), calls=10),
+            median_ms(lambda: chroma_p_fused_ref(*cf_1080, cf_cfg))),
     }
     # Device time beside the CUDA-event time of 10 calls says whether the
     # kernel or the wrapper's host work bounds a call: for the small kernels,
@@ -2657,6 +2685,7 @@ def main() -> int:
         "bi_ctu_fused_dma": lambda: bi_ctu_fused_dma(b_src, b_flat, b3_off0, b3_off1, *qargs),
         "inter_ctu_fused": lambda: inter_ctu_fused(src, b16_win, *qargs),
         "encode_ctu_mega": lambda: encode_ctu_mega(src, padded, pos, SEARCH_RANGE, *qargs),
+        "chroma_p_fused": lambda: chroma_p_fused(*cf_1080, cf_cfg),
         **{b4_name(tu, tr): lambda tu=tu, tr=tr: residual_pipeline_ctu(
             b_src, b4_pred, *b4_args[(tu, tr)], tu=tu, tr_type=tr) for tu, tr in b4_args},
     }
@@ -2681,7 +2710,8 @@ def main() -> int:
                     "sad_multiref": "510 64x64 blocks, k=4",
                     "pred_uni": "510 64x64 luma blocks, 8-tap, per-block fractions",
                     "pred_bi": "510 64x64 luma block pairs, 8-tap, per-block fractions",
-                    "base_layout_decide_fc": "510 CTUs, R=32, 26 PU lists (B15 at base 16)"}
+                    "base_layout_decide_fc": "510 CTUs, R=32, 26 PU lists (B15 at base 16)",
+                    "chroma_p_fused": "both 544x960 chroma planes, 1020 32x32 blocks, qp 35"}
     more = {
         "refine_qpel_costmap_dma 32640 8x8 tiles": (
             median_ms(lambda: refine_qpel_costmap_dma(tiles8, p_padded, starts8), calls=10),
@@ -2875,6 +2905,9 @@ def main() -> int:
         "pred_bi": ("hevcasm_tpu_torch/csrc/mc.cu", "hevcasm_tpu/kernels/mc_pallas.py:174"),
         "base_layout_decide_fc": ("hevcasm_tpu_torch/csrc/base_grids.cu",
                                   "hevcasm_tpu/kernels/search_pallas.py:1269"),
+        "chroma_p_fused": ("hevcasm_tpu_torch/csrc/chroma_fused.cu",
+                           "none: the port's own (hevcasm_tpu codes chroma in plain ops, "
+                           "hevcasm_tpu/encode/video.py)"),
     }
     # The least time for each timed call: bytes moved (inputs read once,
     # outputs written once) and multiply-adds, from the shapes it was timed
@@ -2919,6 +2952,12 @@ def main() -> int:
         "pred_bi": (nbytes(*mc_luma) + n * 4096, 2 * 2 * n * mc_macs(64, 64, 8)),
     }
     costs["base_layout_decide_fc"] = costs["base_layout_decide"]
+    # chroma_p_fused: four planes read, two written, the MVs and two counts;
+    # each 32x32 block of each plane one 4-tap MC and a quarter of a CTU's
+    # 4x4 residual.
+    cf_blocks = 2 * cf_1080[-1].shape[0]
+    costs["chroma_p_fused"] = (nbytes(*cf_1080) + 2 * cf_1080[0].numel() + 8,
+                               cf_blocks * (2 * mc_macs(32, 32, 4) + residual_ops(4) // 4))
     # K2 (and B16, its kernel on gathered windows) and B3: the refinement's
     # and the residual stage's products at mma.sync's own rates, beside the
     # bound.
@@ -3031,6 +3070,19 @@ def main() -> int:
             f"{k_ms:.4f} ms a call (device {d_ms:.4f}), device at {floor / d_ms:.3f} of the "
             f"floor and {b_ms / d_ms:.3f} of the bound" if d_ms else
             f"{tag} {name} {what}: device time not measured")
+    # chroma_p_fused: each 32x32 block of each plane 4 MC tasks (a strip and
+    # a step: 2 chunks of 2 horizontal products, 4 vertical) of 8 m16n8k32
+    # products, and 4 residual tiles of 16 m16n8k16 (a quarter of a CTU's).
+    k32 = cf_blocks * 4 * 8
+    k16 = cf_blocks * residual_tc_products(1, 4)[0] // 4
+    floor = (k32 / mma32_pps + k16 / mma16_pps) * 1e3
+    b_ms, b_by = bound(*costs["chroma_p_fused"])
+    d_ms = device["chroma_p_fused"]
+    log(f"{tag} chroma_p_fused 1080p (1020 32x32 blocks): {k32} m16n8k32 + {k16} m16n8k16 "
+        f"products, design floor {floor:.4f} ms at mma.sync's own rates; bound {b_ms:.4f} ms "
+        f"({b_by}); kernel {times['chroma_p_fused'][0]:.4f} ms a call"
+        + (f" (device {d_ms:.4f}), device at {floor / d_ms:.3f} of the floor and "
+           f"{b_ms / d_ms:.3f} of the bound" if d_ms else ", device time not measured"))
     kernels = []
     for name, (src_path, replaces) in sources.items():
         bound_ms, bound_by = bound(*costs[name])

@@ -16,8 +16,13 @@ frame's search, refine and residual as loop._inter_core runs them (K1, B8,
 B9, K2, B16, B11, B4), and under inter_impl "fused*" B3
 (kernels.bi_fused.bi_ctu_fused_dma, the B frame's two refinements, combine
 and residual), else the staged B path with B4 under residual_impl
-"pallas".  Chroma is plain PyTorch on every device.  Every path gives the
-same integers as hevcasm_tpu.
+"pallas".  A CUDA P frame at 64x64 CTUs codes both chroma planes in one
+launch of kernels.chroma_fused.chroma_p_fused (window, 4-tap MC and 4x4
+residual of every 32x32 chroma block) when the tiers include KERNEL; the
+CPU, tiers=Tier.REF, other CTU sizes, the B frame's chroma and intra chroma
+run the plain PyTorch composition (_chroma_mc, _chroma_residual,
+_chroma_intra_plane), the golden model.  Every path gives the same
+integers as hevcasm_tpu.
 
 The I frame (encode_intra_frame_yuv: loop.encode_intra_frame's luma,
 chroma planar/DC/H/V) starts the GOPs: encode_gop_yuv (open loop, IPPP or
@@ -34,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import Tier
+from ..kernels import chroma_fused
 from ..ops.pred_inter import pred_uni, pred_uni_16
 from ..ops.pred_intra import filter_flag, pred_intra
 from ..utils.psnr import psnr
@@ -124,11 +130,21 @@ def _chroma_residual(cur_plane, pred_blocks, cfg: EncodeConfig, intra: bool,
         return ctu_mod.untile_frame(rec, *cur_plane.shape), nnz
 
 
+def _uses_chroma_kernel(cfg: EncodeConfig, tiers: Tier, plane: torch.Tensor) -> bool:
+    """Whether a P frame's chroma runs kernels.chroma_fused.chroma_p_fused:
+    tiers with KERNEL, CUDA planes and 64x64 luma CTUs (the 32x32 chroma
+    blocks at 4x4 TUs that _chroma_cfg gives)."""
+    return bool(tiers & Tier.KERNEL) and plane.is_cuda and cfg.ctu == 2 * chroma_fused.BLOCK
+
+
 def encode_inter_frame_yuv(cur, ref, cfg: EncodeConfig = EncodeConfig(),
                            tiers: Tier = Tier.ALL, device=None) -> dict:
     """One P frame over 4:2:0 planes: luma ME + refine + residual at the
     cfg-selected composition (loop._inter_core), chroma MC from the luma
-    MVs, and the chroma residual at 4x4 TUs.
+    MVs, and the chroma residual at 4x4 TUs.  Chroma runs in one launch of
+    chroma_p_fused (both planes) where _uses_chroma_kernel says so, else
+    the plain _chroma_mc and _chroma_residual a plane; both give the same
+    integers.
 
     cur, ref: YuvFrame (or 3-tuples) of uint8 tensors or numpy arrays.  A
     tensor cur.y runs on its own device, numpy planes on ``device``, by
@@ -146,10 +162,14 @@ def encode_inter_frame_yuv(cur, ref, cfg: EncodeConfig = EncodeConfig(),
             rec_y = ctu_mod.untile_frame(rec_y_ctus, *cur_y.shape)
 
         with span("hevcasm.chroma"):
-            rec_cb, nnz_cb = _chroma_residual(cur.cb, _chroma_mc(ref.cb, mv_qpel, cfg),
-                                              cfg, False, tiers)
-            rec_cr, nnz_cr = _chroma_residual(cur.cr, _chroma_mc(ref.cr, mv_qpel, cfg),
-                                              cfg, False, tiers)
+            if _uses_chroma_kernel(cfg, tiers, cur.cb):
+                rec_cb, nnz_cb, rec_cr, nnz_cr = _op("chroma_p_fused", tiers)(
+                    cur.cb, cur.cr, ref.cb, ref.cr, mv_qpel, cfg)
+            else:
+                rec_cb, nnz_cb = _chroma_residual(cur.cb, _chroma_mc(ref.cb, mv_qpel, cfg),
+                                                  cfg, False, tiers)
+                rec_cr, nnz_cr = _chroma_residual(cur.cr, _chroma_mc(ref.cr, mv_qpel, cfg),
+                                                  cfg, False, tiers)
         with span("hevcasm.psnr"):
             psnrs = psnr(cur_y, rec_y), psnr(cur.cb, rec_cb), psnr(cur.cr, rec_cr)
         return {

@@ -34,6 +34,10 @@ version (tier REF).
                sub-block SSD grids of every CTU, and each PU's first minimum
                (the grids on the u8 tensor cores, kept in the block); B18
                ``base_layout_decide_fc``: B15 at base 16, R = 32.
+* chroma_fused ``chroma_p_fused``: a 4:2:0 P frame's chroma, both planes in
+               one launch (windows from the reference planes, B5's 4-tap
+               core, the residual stage's 4x4 TUs); the port's own, no TPU
+               kernel.
 * build        compiles ``csrc/*.cu`` with nvcc on first use and loads it.
 
 Importing a kernel module registers both tiers of its op; nothing is

@@ -6,9 +6,9 @@ interface, on first use, into ``build/hevcasm_tpu_torch/<hash>/`` beside
 the package (the hash covers the sources, the ``csrc/*.cuh`` headers they
 share and the flags, so an edited kernel is rebuilt and an unchanged one is
 not).  The library is loaded with ``ctypes``; each C entry takes device
-pointers, ints and a CUDA stream (B10's, B5's and B6's, whose calls are
-host-bound, take them packed in one block), launches one kernel on that
-stream and returns ``cudaGetLastError()``.
+pointers, ints and a CUDA stream (B10's, B5's, B6's and chroma_p_fused's,
+whose calls are host-bound, take them packed in one block), launches one
+kernel on that stream and returns ``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -91,6 +91,10 @@ _ENTRIES = {
     # device, stream
     "hevc_pred_uni": [ctypes.c_char_p],
     "hevc_pred_bi": [ctypes.c_char_p],
+    # one block of 17 int64 (csrc/chroma_fused.cu ChromaArgs): cur[2], ref[2],
+    # rec[2], mv, nnz, h, w, qscale, qshift, qoffset, dscale, dshift,
+    # device, stream
+    "hevc_chroma_p_fused": [ctypes.c_char_p],
 }
 
 

@@ -26,11 +26,12 @@ import torch
 
 from . import registry
 from .config import Tier
+from .encode.loop import EncodeConfig
 from .utils.tensor import as_tensor
 from .utils.timing import time_fn, time_fn_converged
 
 __all__ = ["Case", "Suite", "run_suite", "main", "PARTITIONS", "FRAME_CTUS", "SUITES",
-           "resolve_device"]
+           "PORT_SUITES", "resolve_device"]
 
 _SEED = 0x48455643
 
@@ -372,6 +373,27 @@ SUITES = [
 ]
 
 
+def _chroma_p_fused_cases(rng):
+    # Both chroma planes of a 1920x1088 4:2:0 P frame (the 510 32x32 blocks
+    # of its 64x64 luma CTUs) and of a frame of 2 x 3 CTUs, MVs anywhere
+    # within R = 32 (their windows past every edge), at the chroma qp of
+    # luma qp 35 (qPc 33) and 22.
+    cases = []
+    for (h, w), qp, name, iters in [((544, 960), 35, "1080p 4:2:0, qp 35", 4),
+                                    ((64, 96), 22, "2x3 CTUs, qp 22", 10)]:
+        planes = [rng.integers(0, 256, (h, w), dtype=np.uint8) for _ in range(4)]
+        mv = rng.integers(-131, 132, (h // 32 * (w // 32), 2)).astype(np.int32)
+        cases.append(Case(name, (*planes, mv, EncodeConfig(qp=qp, search_range=32)),
+                          iters=iters, heavy=h > 64))
+    return cases
+
+
+# Suites of the port's own kernels, which hevcasm_tpu has no counterpart of.
+PORT_SUITES = [
+    Suite("chroma_p_fused", _chroma_p_fused_cases),
+]
+
+
 def main(mask: Tier = Tier.ALL, time_it: bool = True, suites: list[str] | None = None,
          json_path: str | None = None, converged: bool = False, device=None) -> int:
     """Run all (or the named) suites on ``device`` (the card by default;
@@ -384,7 +406,7 @@ def main(mask: Tier = Tier.ALL, time_it: bool = True, suites: list[str] | None =
     print(f"hevcasm_tpu_torch self test (device: {dev}{name})", flush=True)
     errors = 0
     records: list = []
-    for suite in SUITES:
+    for suite in (*SUITES, *PORT_SUITES):
         if suites and suite.name not in suites and suite.op not in suites:
             continue
         errors += run_suite(suite, mask, time_it=time_it, records=records,

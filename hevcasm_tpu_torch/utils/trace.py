@@ -34,8 +34,8 @@ SPANS = (
     "hevcasm.search",           # _inter_core: the integer search
     "hevcasm.refine_code",      # _inter_core: refinement and residual
     "hevcasm.chroma",           # both chroma planes' MC and residual
-    "hevcasm.chroma_mc",        # one plane's MC
-    "hevcasm.chroma_residual",  # one plane's residual
+    "hevcasm.chroma_mc",        # one plane's MC, on the plain path
+    "hevcasm.chroma_residual",  # one plane's residual, on the plain path
     "hevcasm.psnr",             # the three PSNRs of a P frame
     "hevcasm.gop_closed_yuv",   # encode_gop_closed_loop_yuv: the whole call
     "hevcasm.intra",            # the closed-loop I frame

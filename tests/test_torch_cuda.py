@@ -24,8 +24,8 @@ from hevcasm_tpu_torch.encode.video import (YuvFrame, encode_b_frame_yuv,
                                             encode_inter_frame_yuv)
 from hevcasm_tpu_torch.encode import partition
 from hevcasm_tpu_torch import selftest
-from hevcasm_tpu_torch.kernels import (base_grids, bi_fused, costmap, inter_fused, mc, mega,
-                                       residual_ctu, sad, search)
+from hevcasm_tpu_torch.kernels import (base_grids, bi_fused, chroma_fused, costmap,
+                                       inter_fused, mc, mega, residual_ctu, sad, search)
 
 pytestmark = pytest.mark.cuda
 
@@ -1655,6 +1655,116 @@ def test_gops_on_card_launch_their_kernels_and_equal_plain_and_cpu(cuda, entry, 
     assert launches == GOP_LAUNCHES[structure]
     assert_same_gop(got, gop_call(entry, frames, cfg, Tier.REF))
     assert_same_gop(got, gop_call(entry, [f.cpu() for f in frames], cfg))
+
+
+# ---- chroma_p_fused: a P frame's chroma, both planes, in one launch -----------------
+
+def chroma_case(rng, shape, device, r=32):
+    """Four random (h, w) planes and MVs (n, 2) int32 whose windows reach
+    the plain version's padding at search range r, every fraction."""
+    h, w = shape
+    reach = r // 2 + 1
+    planes = [random_u8(rng, shape, device) for _ in range(4)]
+    mv = rng.integers(-8 * reach, 8 * (reach + 1) + 8, (h // 32 * (w // 32), 2))
+    return planes, torch.as_tensor(mv, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (544, 960), (1088, 1920)],
+                         ids=["2x3", "1080p", "4K"])
+@pytest.mark.parametrize("qp", [35, 34, 33, 22])
+def test_chroma_p_fused_matches_plain(cuda, shape, qp):
+    rng = np.random.default_rng(shape[0] + qp)
+    planes, mv = chroma_case(rng, shape, cuda)
+    cfg = EncodeConfig(qp=qp)
+    before = chroma_fused.chroma_p_fused.launches
+    got = chroma_fused.chroma_p_fused(*planes, mv, cfg)
+    assert chroma_fused.chroma_p_fused.launches == before + 1
+    assert_bit_equal(got, chroma_fused.chroma_p_fused_ref(*planes, mv, cfg))
+    cpu = chroma_fused.chroma_p_fused_ref(*(p.cpu() for p in planes), mv.cpu(), cfg)
+    assert_bit_equal([g.cpu() for g in got], cpu)
+
+
+@pytest.mark.parametrize("pattern", ["checkerboard", "stripes"])
+def test_chroma_p_fused_full_swing(cuda, pattern):
+    h, w = 128, 192
+    y, x = np.mgrid[:h, :w]
+    pats = ([(y + x) & 1, ((y >> 1) + (x >> 1)) & 1, (y + x + 1) & 1, ((y >> 1) + x) & 1]
+            if pattern == "checkerboard" else [x & 1, y & 1, (x >> 1) & 1, (y >> 2) & 1])
+    planes = [torch.as_tensor((255 * p).astype(np.uint8), device=cuda) for p in pats]
+    _, mv = chroma_case(np.random.default_rng(1), (h, w), cuda)
+    for qp in (35, 22):
+        cfg = EncodeConfig(qp=qp)
+        assert_bit_equal(chroma_fused.chroma_p_fused(*planes, mv, cfg),
+                         chroma_fused.chroma_p_fused_ref(*planes, mv, cfg))
+
+
+def test_chroma_p_fused_other_layouts(cuda):
+    # Planes that are views (rows wider than the plane, an odd offset) and
+    # int64 MVs go through the full checks, to the same integers.
+    rng = np.random.default_rng(9)
+    planes, mv = chroma_case(rng, (128, 192), cuda)
+    wide = [random_u8(rng, (130, 200), cuda) for _ in range(4)]
+    for v, p in zip(wide, planes):
+        v[1:129, 3:195] = p
+    views = [v[1:129, 3:195] for v in wide]
+    cfg = EncodeConfig(qp=33)
+    assert chroma_fused._fast(views, mv, cfg) is None
+    assert chroma_fused._fast(planes, mv.long(), cfg) is None
+    want = chroma_fused.chroma_p_fused_ref(*planes, mv, cfg)
+    assert_bit_equal(chroma_fused.chroma_p_fused(*views, mv.long(), cfg), want)
+    assert_bit_equal(chroma_fused.chroma_p_fused(*planes, mv, cfg), want)
+
+
+def test_chroma_p_fused_rejects_what_it_does_not_take(cuda):
+    planes, mv = chroma_case(np.random.default_rng(2), (64, 96), cuda)
+    cfg = EncodeConfig(qp=33)
+    with pytest.raises(TypeError):
+        chroma_fused.chroma_p_fused(*planes[:3], planes[3].to(torch.int16), mv, cfg)
+    with pytest.raises(ValueError):
+        chroma_fused.chroma_p_fused(*(p[:48] for p in planes), mv[:4], cfg)
+    with pytest.raises(ValueError):
+        chroma_fused.chroma_p_fused(*planes, mv[:5], cfg)
+    with pytest.raises(ValueError):
+        chroma_fused.chroma_p_fused(*planes, mv, EncodeConfig(ctu=32, qp=33, search_range=8))
+    with pytest.raises(ValueError):
+        chroma_fused.chroma_p_fused(*planes[:3], planes[3].cpu(), mv, cfg)
+
+
+def test_yuv_p_frame_1080p_takes_chroma_p_fused_once_and_equals_plain(cuda):
+    # encode_inter_frame_yuv with Tier.ALL against Tier.REF on a 1920x1088
+    # 4:2:0 pair: one launch of the kernel, none on the plain path, the
+    # same integers.
+    ref0, cur, _ = yuv_clip(1088, 1920, cuda)
+    cfg = EncodeConfig(search_range=32, qp=35, inter_impl="fused_dma")
+    before = chroma_fused.chroma_p_fused.launches
+    out = encode_inter_frame_yuv(cur, ref0, cfg)
+    assert chroma_fused.chroma_p_fused.launches == before + 1
+    plain = encode_inter_frame_yuv(cur, ref0, cfg, tiers=Tier.REF)
+    assert chroma_fused.chroma_p_fused.launches == before + 1
+    assert_same_outputs(out, plain)
+
+
+@pytest.mark.parametrize("entry,p_frames", [
+    ("gop", 0), ("gop_yuv", 4), ("gop_yuv b", 2), ("closed_loop_yuv", 4),
+    ("closed_loop_yuv_b", 2)])
+def test_chroma_p_fused_runs_once_a_yuv_p_frame(cuda, entry, p_frames):
+    frames = [torch.as_tensor(smooth_clip(5, h, w, seed), device=cuda)
+              for (h, w), seed in (((128, 192), 0), ((64, 96), 1), ((64, 96), 2))]
+    cfg = EncodeConfig(search_range=8, inter_impl="fused_dma")
+    before = chroma_fused.chroma_p_fused.launches
+    gop_call(entry, frames, cfg)
+    assert chroma_fused.chroma_p_fused.launches == before + p_frames
+    ref0, cur, ref1 = yuv_clip(128, 192, cuda)
+    encode_b_frame_yuv(cur, ref0, ref1, cfg)
+    assert chroma_fused.chroma_p_fused.launches == before + p_frames
+
+
+def test_selftest_chroma_suite_on_the_card(cuda, capsys):
+    before = chroma_fused.chroma_p_fused.launches
+    assert selftest.main(time_it=False, suites=["chroma_p_fused"]) == 0
+    assert chroma_fused.chroma_p_fused.launches == before + 2
+    out = capsys.readouterr().out
+    assert out.count("KERNEL:ok") == 2 and "MISMATCH" not in out
 
 
 # ---- the sharded entry points (hevcasm_tpu_torch.parallel) ------------------

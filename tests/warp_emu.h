@@ -60,6 +60,13 @@ T __shfl_xor_sync(unsigned, T v, int offset) {
 
 inline void __syncwarp() { g_warp_barrier->arrive_and_wait(); }
 
+// The emulated kernels run one CTA at a time, and one lane of it adds.
+inline int atomicAdd(int* p, int v) {
+  const int old = *p;
+  *p = old + v;
+  return old;
+}
+
 // A block of one warp: its barrier is the warp's.
 inline void __syncthreads() { g_warp_barrier->arrive_and_wait(); }
 
