@@ -2,7 +2,10 @@
 a whole GOP of the mix's length (the I frame, then each P frame from the
 previous reconstruction) by encode_gop_closed_loop_yuv, cycling the pool's
 consecutive chunks of that length, and reads the GOP's luma PSNRs to the
-host at its end.  Set-up codes the mix's warm-up GOPs.
+host at its end.  Set-up codes the mix's warm-up GOPs.  A mix's "entry"
+names another entry point with gop_yuv's inputs and outputs ((y, cb, cr)
+stacks in; {"recon": stacks, "psnr_y": a value a frame} out) for the
+driver to call on both sides.
 
 The check: a sample, drawn from the seed, of the window's GOPs.  The
 reference codes each sampled GOP again from its source frames alone, I
@@ -22,6 +25,8 @@ from ..compare import Checks
 class Driver:
     def __init__(self, ctx):
         self.ctx = ctx
+        self.entry = ctx.mix.get("entry", "gop_yuv")
+        self.code = getattr(ctx.api, self.entry)
         self.length = ctx.mix["gop"]
         self.frames_per_step = self.length
         self.chunks = ctx.pool[0].shape[0] // self.length
@@ -43,7 +48,7 @@ class Driver:
     def step(self, spans) -> int:
         frames = self.frames(self.g)
         t0 = time.perf_counter()
-        out = self.ctx.api.gop_yuv(frames)
+        out = self.code(frames)
         t1 = time.perf_counter()
         out["psnr_host"] = torch.as_tensor(out["psnr_y"]).tolist()
         t2 = time.perf_counter()
@@ -75,7 +80,7 @@ class Driver:
     def check(self, reference) -> Checks:
         checks = Checks()
         for g, out in sorted(self.sample, key=lambda item: item[0]):
-            want = reference.gop_yuv(self.frames(g))
+            want = getattr(reference, self.entry)(self.frames(g))
             for t in range(self.length):
                 checks.answer(self._frame(out, t, "psnr_host"), self._frame(want, t, "psnr_y"),
                               *self.keys)

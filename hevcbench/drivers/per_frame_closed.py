@@ -9,7 +9,8 @@ the PSNRs, to the host: the frame's latency ends there.  The P
 frame of picture order t takes the configuration's QP plus its
 ``qp_offsets[(t - 1) % len(qp_offsets)]`` (the offsets by position in a
 low-delay GOP), or the configuration's QP where it gives none; the mix's
-warm-up covers every offset.
+warm-up covers every offset.  A mix's "entry" names another entry point
+with inter_yuv's inputs and outputs for the driver to call on both sides.
 
 The check: the I frame against the reference's from the same source, then
 a sample, drawn from the seed, of pairs of consecutive window frames (t -
@@ -49,6 +50,8 @@ class Driver:
 
     def __init__(self, ctx):
         self.ctx = ctx
+        self.entry = ctx.mix.get("entry", "inter_yuv")
+        self.code = getattr(ctx.api, self.entry)
         self.outs = ("nnz", "psnr_y", "psnr_cb", "psnr_cr")
         self.rng = random.Random(ctx.seed)
         self.sample: list = []
@@ -78,7 +81,7 @@ class Driver:
         ref = tuple(self.prev["recon"])
         cur = self.frame(self.t)
         t0 = time.perf_counter()
-        out = self.ctx.api.inter_yuv(cur, ref, self.qp(self.t))
+        out = self.code(cur, ref, self.qp(self.t))
         t1 = time.perf_counter()
         out.update(zip([k + "_host" for k in self.outs],
                        host_values([out[k] for k in self.outs])))
@@ -109,7 +112,7 @@ class Driver:
     def check(self, reference) -> Checks:
         checks = Checks()
         checks.answer(self.start, reference.intra_seed_yuv(self.frame(0)), **I_FRAME)
-        code = reference.inter_yuv
+        code = getattr(reference, self.entry)
         for t, ref2, out1, out2 in sorted(self.sample, key=lambda item: item[0]):
             want1 = self._with_host(code(self.frame(t - 1), ref2, self.qp(t - 1)))
             checks.answer(out1, want1, **P_FRAME)

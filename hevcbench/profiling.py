@@ -8,7 +8,6 @@ which is the device records' clock too."""
 
 from __future__ import annotations
 
-import bisect
 from dataclasses import dataclass, field
 
 import torch
@@ -63,14 +62,13 @@ class Trace:
     def breakdown(self) -> dict:
         """The device operations with the most time, and idle time by what
         the host was doing when each gap began, both in seconds."""
-        host = sorted(self.host, key=lambda h: h[1])
-        starts = [h[1] for h in host]
         by_op: dict[str, float] = {}
         for name, _, d in self.device:
             by_op[name] = by_op.get(name, 0.0) + d * 1e-6
+        gaps = self.idle_gaps()
+        names = host_ops_at(self.host, [s + 0.5 * min(e - s, 1.0) for s, e in gaps])
         by_host: dict[str, float] = {}
-        for s, e in self.idle_gaps():
-            name = _host_op_at(host, starts, s + 0.5 * min(e - s, 1.0))
+        for name, (s, e) in zip(names, gaps):
             by_host[name] = by_host.get(name, 0.0) + (e - s) * 1e-6
         top = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
         gaps = sorted(by_host.items(), key=lambda kv: -kv[1])[:10]
@@ -78,15 +76,23 @@ class Trace:
                 "idle_gaps": [[k[:200], v] for k, v in gaps]}
 
 
-def _host_op_at(host: list, starts: list, t: float) -> str:
-    """The innermost host record (sorted by start) running at time t, or
-    "python" (the interpreter between torch calls)."""
-    i = bisect.bisect_right(starts, t)
-    for j in range(i - 1, max(-1, i - 400), -1):
-        name, s, d = host[j]
-        if s + d >= t:
-            return name
-    return "python"
+def host_ops_at(host: list, times: list) -> list[str]:
+    """For each of ``times`` (ascending), the innermost host record running
+    then: the latest-started one that has not ended, however many records
+    began and ended inside it; "python" where none runs (the interpreter
+    between torch calls).  One sweep in order of start, with the records
+    begun so far on a stack; a record found ended is dropped for good,
+    since the times only grow."""
+    records = sorted(host, key=lambda h: h[1])
+    out, running, i = [], [], 0
+    for t in times:
+        while i < len(records) and records[i][1] <= t:
+            running.append(records[i])
+            i += 1
+        while running and running[-1][1] + running[-1][2] < t:
+            running.pop()
+        out.append(running[-1][0] if running else "python")
+    return out
 
 
 def _is_copy(name: str) -> bool:

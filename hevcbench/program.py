@@ -1,13 +1,16 @@
 """The system under test: hevcasm_tpu_torch's entry points, under the names
 the drivers call and the reference also answers to.
 
-Only this module and the kernel metrics' launch counters touch the
-program; the program is imported when ``Program`` is built, after the
-harness has looked for the card."""
+Only this module, the program's side of the entry points that a
+configuration names (``entries/<name>.py``, found by ``lookup``) and the
+kernel metrics' launch counters touch the program; the program is imported
+when ``Program`` is built, after the harness has looked for the card."""
 
 from __future__ import annotations
 
 import dataclasses
+
+from . import lookup
 
 
 class Program:
@@ -15,10 +18,12 @@ class Program:
 
     encode: the configuration file's "encode" fields (EncodeConfig's);
     tiers: "ALL" runs the CUDA kernels on the card, "REF" the plain
-    versions (what the CPU tests run).  A frame entry's ``qp`` replaces the
-    configuration's for that frame."""
+    versions (what the CPU tests run); entries: the configuration's
+    "entries", each bound as entry points under its functions' names
+    (``lookup.bind``).  A frame entry's ``qp`` replaces the configuration's
+    for that frame."""
 
-    def __init__(self, encode: dict, tiers: str = "ALL"):
+    def __init__(self, encode: dict, tiers: str = "ALL", entries=(), dirs=lookup.DIRS):
         from hevcasm_tpu_torch.config import Tier
         from hevcasm_tpu_torch.encode import loop, video
 
@@ -26,8 +31,10 @@ class Program:
         self.tiers = Tier[tiers]
         self._video = video
         self._cfgs = {self.cfg.qp: self.cfg}
+        lookup.bind(self, entries, "entries", dirs)
 
-    def _at(self, qp: int | None):
+    def at(self, qp: int | None):
+        """The configuration at a frame's ``qp`` (None: the configuration's)."""
         if qp is None:
             return self.cfg
         if qp not in self._cfgs:
@@ -36,7 +43,7 @@ class Program:
 
     def inter_yuv(self, cur, ref, qp: int | None = None) -> dict:
         yuv = self._video.YuvFrame
-        return self._video.encode_inter_frame_yuv(yuv(*cur), yuv(*ref), self._at(qp),
+        return self._video.encode_inter_frame_yuv(yuv(*cur), yuv(*ref), self.at(qp),
                                                   self.tiers)
 
     def intra_seed_yuv(self, cur) -> dict:

@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import lookup
 from . import ops
 
 # H.265 table 8-10 (4:2:0): QpC as a function of qPi from 30 to 43.
@@ -44,7 +45,8 @@ def chroma_qp(qp: int) -> int:
 #: (None: any value).  The program's implementation fields choose among
 #: its ways to compute the same integers, so any value of theirs codes the
 #: same; any other field, or another value, raises: the reference does not
-#: code it.
+#: code it.  The reference's side of an entry point that a configuration
+#: names may declare ``FIELDS`` of its own, which add to these.
 FIELDS = {"ctu": None, "tu": None, "intra_block": (32,), "search_range": None, "qp": None,
           "strong_intra_smoothing": None, "me_metric": ("ssd",), "me_strategy": ("full",),
           "pu_decision": (False,), "tu_sizes": ((),)}
@@ -52,23 +54,31 @@ IMPLEMENTATION = ("search_impl", "fused_refine", "refine_impl", "residual_impl",
                   "fused_group")
 
 
+def fields(modules=()) -> dict:
+    """``FIELDS`` with those of the given entry modules added: a value that
+    either side's list takes is taken."""
+    out = dict(FIELDS)
+    for mod in modules:
+        for key, allowed in getattr(mod, "FIELDS", {}).items():
+            if key in out and out[key] is None or allowed is None:
+                out[key] = None
+            else:
+                out[key] = tuple(out.get(key, ())) + tuple(allowed)
+    return out
+
+
 class Reference:
     """Entry points with the program's names and outputs, in plain PyTorch.
 
     cfg: the configuration file's "encode" fields; those that the reference
-    does not code (``FIELDS``) raise ValueError.  A frame entry's ``qp``
-    replaces the configuration's for that frame."""
+    does not code (``fields``) raise ValueError.  entries: the
+    configuration's "entries", whose reference sides are bound as entry
+    points (``lookup.bind``).  A frame entry's ``qp`` replaces the
+    configuration's for that frame."""
 
-    def __init__(self, cfg: dict, dtype: torch.dtype = ops.EXACT):
-        for key, value in cfg.items():
-            if key in IMPLEMENTATION:
-                continue
-            if key not in FIELDS:
-                raise ValueError(f"the reference does not code the encode field {key!r}")
-            allowed = FIELDS[key]
-            value = tuple(value) if isinstance(value, list) else value
-            if allowed is not None and value not in allowed:
-                raise ValueError(f"the reference codes {key} in {allowed}, not {value!r}")
+    def __init__(self, cfg: dict, dtype: torch.dtype = ops.EXACT, entries=(),
+                 dirs=lookup.DIRS):
+        self.cfg = cfg
         self.ctu = cfg.get("ctu", 64)
         self.tu = cfg.get("tu", 8)
         self.intra_block = cfg.get("intra_block", 32)
@@ -76,6 +86,16 @@ class Reference:
         self.qp = cfg["qp"]
         self.strong = cfg.get("strong_intra_smoothing", True)
         self.dtype = dtype
+        coded = fields(lookup.bind(self, entries, "reference", dirs))
+        for key, value in cfg.items():
+            if key in IMPLEMENTATION:
+                continue
+            if key not in coded:
+                raise ValueError(f"the reference does not code the encode field {key!r}")
+            allowed = coded[key]
+            value = tuple(value) if isinstance(value, list) else value
+            if allowed is not None and value not in allowed:
+                raise ValueError(f"the reference codes {key} in {allowed}, not {value!r}")
 
     # ---- P frames ----------------------------------------------------------
 

@@ -3,9 +3,11 @@
 
     python3 hevcbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-A cell of BENCHMARK.json names a configuration (configs/<config>.json: the
-coded frame and the EncodeConfig fields) and a traffic mix
-(mixes/<traffic>.json: its driver, content and check sample).  A run:
+A cell of BENCHMARK.json names a configuration (its "file": the coded frame,
+the EncodeConfig fields and the entry points it names, entries/<name>.py
+with reference/<name>.py) and a traffic mix (mixes/<traffic>.json: its
+driver, the entry point the driver calls, content and check sample), each
+found by name (lookup.py).  A run:
 
 1. builds the port's CUDA library, or loads it from build/hevcasm_tpu_torch/
    in this checkout (only a checkout's first run compiles);
@@ -59,16 +61,29 @@ def set_cache_dirs() -> None:
     os.environ["USE_FLAX"] = "0"
 
 
-def load_cell(name: str):
-    """(benchmark, cell, configuration, mix) of a cell, from BENCHMARK.json
-    and the files it names."""
+def load_cell(name: str, dirs=None):
+    """(benchmark, cell, configuration, mix) of a cell: BENCHMARK.json's,
+    with the cells of any ``cells.json`` (the same keys) in ``dirs`` added,
+    the configuration from its "file", the mix found by name in ``dirs``."""
+    from hevcbench import lookup
+
+    dirs = dirs or lookup.DIRS
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    for d in dirs:
+        more = Path(d) / "cells.json"
+        if more.is_file():
+            extra = json.loads(more.read_text())
+            bench = {**bench, "configs": bench["configs"] + extra["configs"],
+                     "workloads": bench["workloads"] + extra["workloads"]}
     cells = {c["name"]: c for c in bench["workloads"]}
     if name not in cells:
         raise KeyError(f"no cell {name!r} in BENCHMARK.json (cells: {', '.join(cells)})")
     cell = cells[name]
-    config = json.loads((BENCH / "configs" / f"{cell['config']}.json").read_text())
-    mix = json.loads((BENCH / "mixes" / f"{cell['traffic']}.json").read_text())
+    files = {c["name"]: c["file"] for c in bench["configs"]}
+    if cell["config"] not in files:
+        raise KeyError(f"cell {name!r} names no configuration of BENCHMARK.json")
+    config = json.loads((ROOT / files[cell["config"]]).read_text())
+    mix = json.loads(lookup.find("mixes", cell["traffic"], ".json", dirs).read_text())
     return bench, cell, config, mix
 
 
@@ -104,31 +119,39 @@ def launch_counts() -> dict:
     return counts
 
 
-def _merge(base: dict, extra: dict | None) -> dict:
+def merge(base: dict, extra: dict | None) -> dict:
+    """``base`` with ``extra`` merged in, nested objects key by key."""
     out = dict(base)
     for k, v in (extra or {}).items():
-        out[k] = _merge(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict) else v
+        out[k] = merge(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict) else v
     return out
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
-             tiers: str = "ALL", api=None,
-             overrides: dict | None = None) -> tuple[dict, list[str]]:
+             tiers: str = "ALL", api=None, overrides: dict | None = None,
+             dirs=None) -> tuple[dict, list[str]]:
     """One run of a cell.  Returns (the result line's object, the check
     lines for standard error).  ``api`` replaces the program (the control,
     or a broken program in the tests); ``overrides`` are merged into the
     configuration and the mix ({"config": {...}, "mix": {...}}), for the
-    tests' tiny sizes on the CPU."""
+    tests' tiny sizes on the CPU; ``dirs`` are where cells, mixes, drivers
+    and entry points are found (``lookup.DIRS``: the benchmark's own)."""
     import torch
 
-    from hevcbench import content, profiling
+    from hevcbench import content, lookup, profiling
     from hevcbench.program import Program
     from hevcbench.record import Record
     from hevcbench.reference.encoder import Reference
 
-    bench, cell, config, mix = load_cell(workload)
-    config = _merge(config, (overrides or {}).get("config"))
-    mix = _merge(mix, (overrides or {}).get("mix"))
+    dirs = dirs or lookup.DIRS
+    bench, cell, config, mix = load_cell(workload, dirs)
+    config = merge(config, (overrides or {}).get("config"))
+    mix = merge(mix, (overrides or {}).get("mix"))
+    enc = config["encode"]
+    named = config.get("entries", [])
+    # Both sides of every named entry point, and the fields the reference
+    # codes, are checked before set-up.
+    reference = Reference(enc, entries=named, dirs=dirs)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     if cuda:
@@ -136,17 +159,16 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
 
         build.load()
     if api is None:
-        api = Program(config["encode"], tiers)
+        api = Program(enc, tiers, named, dirs)
     pool = content.make_pool(config["width"], config["height"], config["coded_height"],
                              mix["content"], seed, dev)
-    enc = config["encode"]
     geometry = {"width": config["width"], "coded_height": config["coded_height"],
                 "ctu": enc.get("ctu", 64), "search_range": enc["search_range"]}
     ctus_per_frame = (geometry["coded_height"] // geometry["ctu"]) * (
         geometry["width"] // geometry["ctu"])
     ctx = SimpleNamespace(config=config, mix=mix, pool=pool, api=api, seed=seed,
                           ctus_per_frame=ctus_per_frame)
-    driver = importlib.import_module(f"hevcbench.drivers.{mix['driver']}").Driver(ctx)
+    driver = lookup.module(lookup.find("drivers", mix["driver"], dirs=dirs)).Driver(ctx)
     driver.setup()
     if cuda:
         torch.cuda.synchronize(dev)
@@ -177,7 +199,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     c0 = time.perf_counter()
-    checks = driver.check(Reference(enc))
+    checks = driver.check(reference)
     check_s = time.perf_counter() - c0
 
     metrics = {}
@@ -234,7 +256,8 @@ def main(argv=None) -> int:
     if args.encoder == "control":
         from hevcbench.reference.encoder import Reference
 
-        api = Reference(config["encode"], dtype=torch.bfloat16)
+        api = Reference(config["encode"], dtype=torch.bfloat16,
+                        entries=config.get("entries", []))
     result, lines = run_cell(args.workload, args.seed, args.seconds, bool(args.trace), api=api)
     found = sorted({m for m in sys.modules if m.split(".")[0] in FORBIDDEN})
     if found:

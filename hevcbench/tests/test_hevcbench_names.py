@@ -7,6 +7,7 @@ import re
 import pytest
 
 from hevcbench import run
+from hevcbench.tests.cases import assert_entries_found
 
 BENCH = json.loads((run.ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -59,6 +60,7 @@ def test_cell_files_are_found_by_name(cell):
     assert (run.ROOT / conf["file"]).exists()
     assert set(conf["reduced"]) == set(config["reduced"])
     assert set(config["reduced"]) <= set(config) | set(config["encode"])
+    assert_entries_found(config, mix)
 
 
 def test_every_per_layer_metric_moves_a_reported_metric():
