@@ -264,31 +264,36 @@ def encode_b_frame_yuv(cur, ref0, ref1, cfg: EncodeConfig = EncodeConfig(),
     arrays; devices as for encode_inter_frame_yuv.  Returns {"recon": YuvFrame, "mvs0", "mvs1":
     (n, 2) int32 quarter-pel, "nnz": () int32 over the three planes,
     "psnr_y": () float32}."""
-    _chroma_cfg(cfg)  # its guards, before any work
-    cur = _as_yuv(cur, None if device is None else entry_device(cur[0], device))
-    ref0 = _as_yuv(ref0, cur.y.device)
-    ref1 = _as_yuv(ref1, cur.y.device)
-    cur_y, (ref0_y, ref1_y), src_ctus, pos, grid = _prepare_frame(
-        cfg, cur.y, ref0.y, ref1.y)
-    rec_y_ctus, (mv0, mv1), nnz_y, _ = _b_frame_luma(
-        src_ctus, ref0_y, ref1_y, pos, grid, cfg, tiers=tiers)
-    rec_y = ctu_mod.untile_frame(rec_y_ctus, *cur_y.shape)
+    with span("hevcasm.inter_b_yuv"):
+        _chroma_cfg(cfg)  # its guards, before any work
+        cur = _as_yuv(cur, None if device is None else entry_device(cur[0], device))
+        ref0 = _as_yuv(ref0, cur.y.device)
+        ref1 = _as_yuv(ref1, cur.y.device)
+        with span("hevcasm.bi_luma"):
+            cur_y, (ref0_y, ref1_y), src_ctus, pos, grid = _prepare_frame(
+                cfg, cur.y, ref0.y, ref1.y)
+            rec_y_ctus, (mv0, mv1), nnz_y, _ = _b_frame_luma(
+                src_ctus, ref0_y, ref1_y, pos, grid, cfg, tiers=tiers)
+            rec_y = ctu_mod.untile_frame(rec_y_ctus, *cur_y.shape)
 
-    def chroma_bi(plane0, plane1, cur_plane):
-        p0 = _chroma_mc(plane0, mv0, cfg, out16=True).to(torch.int32)
-        p1 = _chroma_mc(plane1, mv1, cfg, out16=True).to(torch.int32)
-        pred = ((p0 + p1 + 64) >> 7).clamp(0, 255).to(torch.uint8)
-        return _chroma_residual(cur_plane, pred, cfg, False, tiers)
+        def chroma_bi(plane0, plane1, cur_plane):
+            p0 = _chroma_mc(plane0, mv0, cfg, out16=True).to(torch.int32)
+            p1 = _chroma_mc(plane1, mv1, cfg, out16=True).to(torch.int32)
+            pred = ((p0 + p1 + 64) >> 7).clamp(0, 255).to(torch.uint8)
+            return _chroma_residual(cur_plane, pred, cfg, False, tiers)
 
-    rec_cb, nnz_cb = chroma_bi(ref0.cb, ref1.cb, cur.cb)
-    rec_cr, nnz_cr = chroma_bi(ref0.cr, ref1.cr, cur.cr)
-    return {
-        "recon": YuvFrame(rec_y, rec_cb, rec_cr),
-        "mvs0": mv0,
-        "mvs1": mv1,
-        "nnz": nnz_y + nnz_cb + nnz_cr,
-        "psnr_y": psnr(cur_y, rec_y),
-    }
+        with span("hevcasm.bi_chroma"):
+            rec_cb, nnz_cb = chroma_bi(ref0.cb, ref1.cb, cur.cb)
+            rec_cr, nnz_cr = chroma_bi(ref0.cr, ref1.cr, cur.cr)
+        with span("hevcasm.psnr"):
+            psnr_y = psnr(cur_y, rec_y)
+        return {
+            "recon": YuvFrame(rec_y, rec_cb, rec_cr),
+            "mvs0": mv0,
+            "mvs1": mv1,
+            "nnz": nnz_y + nnz_cb + nnz_cr,
+            "psnr_y": psnr_y,
+        }
 
 
 def _chroma_intra_plane(plane: torch.Tensor, cfg: EncodeConfig, tiers: Tier = Tier.ALL):
@@ -426,21 +431,24 @@ def encode_gop_closed_loop_yuv_b(frames, cfg: EncodeConfig = EncodeConfig(),
     frames as for encode_gop_yuv.  Returns {"recon": YuvFrame of stacks in
     display order, "psnr_y": (T,) float32 a frame}.  An even frame count or
     one below 3 raises ValueError (hevcasm_tpu stops on a bare assert)."""
-    _chroma_cfg(cfg)
-    frames = _as_yuv_gop(frames, device)
-    t_total = frames.y.shape[0]
-    if t_total % 2 != 1 or t_total < 3:
-        raise ValueError(f"an IBPBP GOP needs an odd frame count >= 3, got {t_total}")
-    prev, psnr0 = _closed_loop_seed(frames, cfg, tiers)
-    recs, psnrs = [prev], [psnr0]
-    for t in range(1, t_total, 2):
-        out_p = encode_inter_frame_yuv(YuvFrame(*(p[t + 1] for p in frames)), prev, cfg, tiers)
-        out_b = encode_b_frame_yuv(YuvFrame(*(p[t] for p in frames)), prev, out_p["recon"],
-                                   cfg, tiers)
-        prev = out_p["recon"]
-        recs += [out_b["recon"], prev]
-        psnrs += [out_b["psnr_y"], out_p["psnr_y"]]
-    return {"recon": _stack_yuv(recs), "psnr_y": torch.stack(psnrs)}
+    with span("hevcasm.gop_closed_yuv_b"):
+        _chroma_cfg(cfg)
+        frames = _as_yuv_gop(frames, device)
+        t_total = frames.y.shape[0]
+        if t_total % 2 != 1 or t_total < 3:
+            raise ValueError(f"an IBPBP GOP needs an odd frame count >= 3, got {t_total}")
+        prev, psnr0 = _closed_loop_seed(frames, cfg, tiers)
+        recs, psnrs = [prev], [psnr0]
+        for t in range(1, t_total, 2):
+            out_p = encode_inter_frame_yuv(YuvFrame(*(p[t + 1] for p in frames)), prev, cfg,
+                                           tiers)
+            out_b = encode_b_frame_yuv(YuvFrame(*(p[t] for p in frames)), prev,
+                                       out_p["recon"], cfg, tiers)
+            prev = out_p["recon"]
+            recs += [out_b["recon"], prev]
+            psnrs += [out_b["psnr_y"], out_p["psnr_y"]]
+        with span("hevcasm.gop_stack"):
+            return {"recon": _stack_yuv(recs), "psnr_y": torch.stack(psnrs)}
 
 
 def encode_gop_closed_loop(frames_y, cfg: EncodeConfig, num_frames: int,

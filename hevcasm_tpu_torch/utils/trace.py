@@ -14,9 +14,15 @@ then costs one check of the profiler's flag, and records and allocates
 nothing.
 
 The spans of one request are those inside its entry span on the calling
-thread: ``hevcasm.inter_yuv`` for a 4:2:0 P frame, ``hevcasm.gop_closed_yuv``
-for a closed-loop 4:2:0 GOP.  A span's parent is the innermost span that
-contains it.
+thread: ``hevcasm.inter_yuv`` for a 4:2:0 P frame, ``hevcasm.inter_b_yuv``
+for a 4:2:0 B frame, ``hevcasm.gop_closed_yuv`` for a closed-loop 4:2:0 IPPP
+GOP and ``hevcasm.gop_closed_yuv_b`` for a closed-loop 4:2:0 IBPBP GOP.  A
+span's parent is the innermost span that contains it: in the IBPBP GOP the
+I frame's ``hevcasm.intra``, each P frame's ``hevcasm.inter_yuv``, each B
+frame's ``hevcasm.inter_b_yuv`` (over ``hevcasm.bi_luma``,
+``hevcasm.bi_chroma`` and ``hevcasm.psnr``; ``hevcasm.bi_chroma`` over each
+plane's two ``hevcasm.chroma_mc`` and one ``hevcasm.chroma_residual``) and
+``hevcasm.gop_stack`` lie inside ``hevcasm.gop_closed_yuv_b``.
 """
 
 from __future__ import annotations
@@ -34,15 +40,19 @@ SPANS = (
     "hevcasm.search",           # _inter_core: the integer search
     "hevcasm.refine_code",      # _inter_core: refinement and residual
     "hevcasm.chroma",           # both chroma planes' MC and residual
-    "hevcasm.chroma_mc",        # one plane's MC, on the plain path
+    "hevcasm.chroma_mc",        # one plane's MC from one reference, on the plain path
     "hevcasm.chroma_residual",  # one plane's residual, on the plain path
-    "hevcasm.psnr",             # the three PSNRs of a P frame
+    "hevcasm.psnr",             # a P frame's three PSNRs, a B frame's luma one
     "hevcasm.gop_closed_yuv",   # encode_gop_closed_loop_yuv: the whole call
     "hevcasm.intra",            # the closed-loop I frame
     "hevcasm.intra_luma",       # encode_intra_frame_wavefront
     "hevcasm.intra_wave",       # one non-empty wave
     "hevcasm.intra_chroma",     # both chroma planes' intra
     "hevcasm.gop_stack",        # the GOP's stacked outputs
+    "hevcasm.inter_b_yuv",      # encode_b_frame_yuv: the whole call
+    "hevcasm.bi_luma",          # its luma: prepare, both searches, B3, untile
+    "hevcasm.bi_chroma",        # both chroma planes' bi MC and residual
+    "hevcasm.gop_closed_yuv_b",  # encode_gop_closed_loop_yuv_b: the whole call
 )
 
 _OFF = contextlib.nullcontext()
