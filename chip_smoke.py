@@ -55,6 +55,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
             residual's full-swing CTUs (255 over 0 and the reverse,
             checkerboards, random 0/255, beside random ones) at qp 32 and at
             the quantizer parameters' range edges (RESIDUAL_EDGE_QARGS).
+            intra_wave_fused over every wave of the 1080p bench frame and of
+            a random 4K one, at qp 32 with strong intra smoothing and qp 22
+            without, against intra_wave_ref wave by wave (the canvas, the
+            nnz and each block's mode).
             The search configurations'
             kernels: B9 on the pyramid's shapes (510 16x16 decimated blocks
             at num 17, 510 CTUs at num 7), the full search (510 CTUs, R =
@@ -144,7 +148,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
             kernel and use more than 4 distinct modes (its peak device
             memory is printed); encode_intra_frame_wavefront (126 waves)
             must run under torch.cuda.set_sync_debug_mode("error") (no host
-            read) and launch no registry kernel; encode_intra_frame_yuv on
+            read) and launch exactly intra_wave_fused x126 (a launch a
+            wave) and nothing else; encode_intra_frame_yuv on
             the structured pan likewise; each equal to its plain path on the
             card and, at 128x192, to the CPU.  The GOPs on 5 frames of the
             rate clip at 1920x1088 with chroma planes from the seed,
@@ -152,7 +157,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
             wavefront I frame), encode_gop_yuv IPPP, encode_gop_closed_loop
             and encode_gop_closed_loop_yuv must launch exactly K1 x4 and K2
             x4, encode_gop_yuv(b_frames=True) and
-            encode_gop_closed_loop_yuv_b exactly K1 x6, K2 x2 and B3 x2;
+            encode_gop_closed_loop_yuv_b exactly K1 x6, K2 x2 and B3 x2,
+            each with a wavefront I frame also intra_wave_fused x126;
             each equal to its plain path on the card, the closed-loop ones
             also to the per-frame entry points chained on reconstructions,
             and a 128x192 clip (3 frames, 5 with B frames) at R = 8 to the
@@ -179,8 +185,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
             config 4 (that GOP over mesh (2, 1)) must launch exactly K1 x4
             and K2 x4 a rank, config 5 (a 3-frame closed-loop spatial GOP
             of the rate clip at 3840x2176 over mesh (1, 2); depth cut from
-            BASELINE's 32 frames) K1 x2 and K2 x2 (the wavefront I frame,
-            coded whole by each rank, launches no registry kernel), the 4K
+            BASELINE's 32 frames) K1 x2, K2 x2 and intra_wave_fused x254
+            (the wavefront I frame, coded whole by each rank), the 4K
             spatial frame over mesh (1, 2) K1 and K2; each equal to the
             single-card entry point (recon, sad, nnz, mvs where given; PSNR
             within 1e-3 dB); a 1080p frame over 2 bands (17 CTU rows) must
@@ -242,6 +248,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
             float64 products, the whole decision, the residual beside it),
             and torch.profiler's device busy share and kernel launches over
             a wavefront frame, a yuv I frame and a closed-loop yuv GOP.
+            intra_wave_fused's device time a wave and a frame (the 1080p
+            and a 4K frame's waves, torch.profiler), the frames' waves
+            enqueued behind a spin kernel (so the chain runs unpaced by the
+            host) and the host's enqueue a wave, beside its bound: the
+            chain of dependent launches, as many as waves, at the gap that
+            as many dependent one-element torch kernels take behind a spin.
             Device times count the card's own events only (on_device_ms).
 
 The line before the last is a JSON object describing each kernel; the last
@@ -455,6 +467,46 @@ def without_host_read(fn):
         return fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+def intra_wave_frame(fn, cur, cfg) -> list:
+    """``fn`` (intra_wave_fused or intra_wave_ref) over every wave of plane
+    ``cur``'s wavefront I frame: [the tiled canvas, the frame's nnz, each
+    block's mode in wave order]."""
+    from hevcasm_tpu_torch.encode import ctu as ctu_mod
+    from hevcasm_tpu_torch.encode import intra_wavefront
+
+    h, w = cur.shape
+    spans, order, refs, lav, aav, cav = intra_wavefront._schedule(h, w, 32, cur.device)
+    src = ctu_mod.tile_frame(cur, 32).index_select(0, order)
+    canvas = torch.full((h * w,), intra_wavefront.UNAVAILABLE, dtype=torch.uint8,
+                        device=cur.device)
+    nnz = torch.zeros((), dtype=torch.int32, device=cur.device)
+    modes = torch.full((order.shape[0],), -1, dtype=torch.int32, device=cur.device)
+    for s, e in spans:
+        if s < e:
+            fn(canvas, src, order, refs, lav, aav, cav, s, e, nnz, cfg, modes)
+    return [canvas, nnz, modes]
+
+
+def unpaced_ms(fn, reps: int = REPS, spin_cycles: int = 100_000_000) -> float:
+    """Median device time of fn's work enqueued behind a spin kernel
+    (torch.cuda._sleep, ~50 ms): the host has enqueued all of it before the
+    card reaches it, so a chain of dependent launches runs back to back,
+    unpaced by the host's enqueue (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
 
 
 def busy_share(fn) -> tuple[float, float, int]:
@@ -826,6 +878,7 @@ def log_b10_host_steps(tag: str, src, ref, cd_src, cd_ref) -> None:
 # ---- the multi phase: the sharded entry points (hevcasm_tpu_torch.parallel) --
 
 H4K, W4K = 2176, 3840    # 4K padded to whole 64x64 CTUs: 34 x 60 = 2040
+WAVES_1080P, WAVES_4K = 126, 254   # the wavefront I frame's waves: 2 (rows - 1) + cols of 32x32
 
 #: Each counted wrapper's kernel module (hevcasm_tpu_torch.kernels.<module>).
 COUNTED = {"ssd_grid_plane": "search", "inter_ctu_fused_dma": "inter_fused",
@@ -837,7 +890,7 @@ COUNTED = {"ssd_grid_plane": "search", "inter_ctu_fused_dma": "inter_fused",
            "sad_grid": "sad", "search_mv": "search", "search_mv_dma": "search",
            "encode_ctu_mega": "mega", "sad": "sad", "sad_multiref": "sad", "pred_uni": "mc",
            "pred_bi": "mc", "base_layout_decide_fc": "base_grids",
-           "chroma_p_fused": "chroma_fused"}
+           "chroma_p_fused": "chroma_fused", "intra_wave_fused": "intra_wave"}
 
 
 def counted_wrappers() -> dict:
@@ -897,7 +950,9 @@ def multi_rank(rank: int, world: int, clip9: np.ndarray, cur4k: np.ndarray,
         "config 4": (lambda: encode_gop_data_parallel(clip_t, mesh_dp, cfg),
                      {"ssd_grid_plane": 4, "inter_ctu_fused_dma": 4}, clip9.shape[0] - 1),
         "config 5": (lambda: encode_gop_closed_loop_spatial(gop_t, mesh_sp, cfg),
-                     {"ssd_grid_plane": 2, "inter_ctu_fused_dma": 2}, gop4k.shape[0]),
+                     {"ssd_grid_plane": 2, "inter_ctu_fused_dma": 2,
+                      "intra_wave_fused": WAVES_4K},
+                     gop4k.shape[0]),
         "spatial 4K": (lambda: encode_inter_frame_spatial(cur_t, ref_t, mesh_sp, cfg),
                        {"ssd_grid_plane": 1, "inter_ctu_fused_dma": 1}, 1)}
     out = {}
@@ -1091,6 +1146,7 @@ def main() -> int:
     from hevcasm_tpu_torch.kernels.bi_fused import (
         bi_ctu_fused_dma, bi_ctu_fused_dma_ref)
     from hevcasm_tpu_torch.kernels.chroma_fused import chroma_p_fused, chroma_p_fused_ref
+    from hevcasm_tpu_torch.kernels.intra_wave import intra_wave_fused, intra_wave_ref
     from hevcasm_tpu_torch.kernels.costmap import (
         refine_qpel_costmap, refine_qpel_costmap_dma, refine_qpel_costmap_dma_ref,
         refine_qpel_costmap_ref)
@@ -1189,7 +1245,7 @@ def main() -> int:
                          "inter_ctu_fused", "residual_pipeline_ctu", "sad_grid",
                          "search_mv", "search_mv_dma", "encode_ctu_mega", "sad",
                          "sad_multiref", "pred_uni", "pred_bi", "base_layout_decide_fc",
-                         "chroma_p_fused"), 0)
+                         "chroma_p_fused", "intra_wave_fused"), 0)
 
     def search_inputs(cur, ref, r):
         """K1 operands as full_search_slab builds them."""
@@ -1790,6 +1846,18 @@ def main() -> int:
             check("chroma_p_fused", f"{what_c} 4:2:0 P frame's chroma planes, luma qp {qp_c}",
                   list(chroma_p_fused(*ops_c, ccfg)), list(chroma_p_fused_ref(*ops_c, ccfg)),
                   f"planes {tuple(ops_c[0].shape)}")
+    # intra_wave_fused: every wave of the 1080p bench frame and of a random
+    # 4K one against intra_wave_ref wave by wave.
+    iw_4k = torch.as_tensor(np.random.default_rng(24).integers(0, 256, (H4K, W4K),
+                                                               dtype=np.uint8), device=dev)
+    for what_i, plane_i in (("1080p bench", cur), ("4K random", iw_4k)):
+        for icfg in (EncodeConfig(qp=32), EncodeConfig(qp=22, strong_intra_smoothing=False)):
+            check("intra_wave_fused", f"{what_i} I frame's waves, qp {icfg.qp}, strong "
+                  f"smoothing {icfg.strong_intra_smoothing}",
+                  intra_wave_frame(intra_wave_fused, plane_i, icfg),
+                  intra_wave_frame(intra_wave_ref, plane_i, icfg),
+                  f"plane {tuple(plane_i.shape)}")
+    del iw_4k
     # B18: B15 at base 16 on the structured pan's CTUs, R = 32, 26 PU lists.
     b18 = check("base_layout_decide_fc", "1080p 510 CTUs, R=32, default layouts",
                 [base_layout_decide_fc(b_src, p_win, lists16)],
@@ -2270,10 +2338,11 @@ def main() -> int:
         else:
             raise AssertionError(f"GOP {name}: qp 60 did not raise")
 
-    # Intra frames (no registry kernel: the n = 32 mode decision is float64
-    # matrix products and the residual plain torch) on bench content and the
-    # structured pan at 1080p, qp 32, intra_block 32.  The wavefront frame
-    # (126 waves) runs under set_sync_debug_mode("error"): no host read.
+    # Intra frames on bench content and the structured pan at 1080p, qp 32,
+    # intra_block 32: the open-loop frames launch no registry kernel (the n
+    # = 32 mode decision is float64 matrix products, the residual plain
+    # torch); the wavefront frame one intra_wave_fused a wave (126), under
+    # set_sync_debug_mode("error"): no host read.
     intra_cfg = EncodeConfig(qp=32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2291,7 +2360,8 @@ def main() -> int:
         raise AssertionError(f"I frame: {modes_used} modes, psnr {float(intra['psnr_db'])}")
     _, wf_first_reads = host_reads(lambda: encode_intra_frame_wavefront(cur, intra_cfg))
     wavefront = drive("I frame (wavefront, no host read)", lambda: without_host_read(
-        lambda: encode_intra_frame_wavefront(cur, intra_cfg)), {}, exact=True)
+        lambda: encode_intra_frame_wavefront(cur, intra_cfg)), {"intra_wave_fused": WAVES_1080P},
+        exact=True)
     intra_yuv = drive("yuv I frame", lambda: encode_intra_frame_yuv(yuv_cur, intra_cfg), {},
                       exact=True)
     small_i = YuvFrame(*(torch.as_tensor(p) for p in structured_pan(128, 192, seed=5)[0]))
@@ -2310,7 +2380,8 @@ def main() -> int:
     log(f"I frame (open loop): {modes_used} distinct modes, psnr_db "
         f"{float(intra['psnr_db']):.4f}, nnz {int(intra['nnz'])}, no registry kernel, peak "
         f"memory {intra_peak_mb:.1f} MiB above the inputs; wavefront I frame: psnr_db "
-        f"{float(wavefront['psnr_db']):.4f}, nnz {int(wavefront['nnz'])}, no host read "
+        f"{float(wavefront['psnr_db']):.4f}, nnz {int(wavefront['nnz'])}, "
+        f"intra_wave_fused x{WAVES_1080P}, no host read "
         f"({wf_first_reads} on its first call, which builds the wave tables); yuv I frame: "
         f"psnr_y {float(intra_yuv['psnr_y']):.4f}, nnz {int(intra_yuv['nnz'])}; each equal "
         "to the plain path on the card, and at 128x192 to the CPU")
@@ -2329,21 +2400,27 @@ def main() -> int:
     wf_cfg = dataclasses.replace(cfg, intra_mode="wavefront")
     ippp = {"ssd_grid_plane": 4, "inter_ctu_fused_dma": 4}
     ibpbp = {"ssd_grid_plane": 6, "inter_ctu_fused_dma": 2, "bi_ctu_fused_dma": 2}
-    # The 4:2:0 GOPs' P frames code their chroma in chroma_p_fused.
+    # The 4:2:0 GOPs' P frames code their chroma in chroma_p_fused, and a
+    # wavefront I frame its waves in intra_wave_fused.
     ippp_yuv, ibpbp_yuv = {**ippp, "chroma_p_fused": 4}, {**ibpbp, "chroma_p_fused": 2}
+    waves = {"intra_wave_fused": WAVES_1080P}
     gops = {
         "encode_gop": (lambda f, c, t=Tier.ALL: encode_gop(f.y, c, t), cfg, ippp),
-        "encode_gop wavefront": (lambda f, c, t=Tier.ALL: encode_gop(f.y, c, t), wf_cfg, ippp),
+        "encode_gop wavefront": (lambda f, c, t=Tier.ALL: encode_gop(f.y, c, t), wf_cfg,
+                                 {**ippp, **waves}),
         "encode_gop_yuv IPPP": (lambda f, c, t=Tier.ALL: encode_gop_yuv(f, c, tiers=t), cfg,
                                 ippp_yuv),
         "encode_gop_yuv IBPBP": (lambda f, c, t=Tier.ALL: encode_gop_yuv(f, c, True, t), cfg,
                                  ibpbp_yuv),
         "encode_gop_closed_loop": (
-            lambda f, c, t=Tier.ALL: encode_gop_closed_loop(f.y, c, f.y.shape[0], t), cfg, ippp),
+            lambda f, c, t=Tier.ALL: encode_gop_closed_loop(f.y, c, f.y.shape[0], t), cfg,
+            {**ippp, **waves}),
         "encode_gop_closed_loop_yuv": (
-            lambda f, c, t=Tier.ALL: encode_gop_closed_loop_yuv(f, c, t), cfg, ippp_yuv),
+            lambda f, c, t=Tier.ALL: encode_gop_closed_loop_yuv(f, c, t), cfg,
+            {**ippp_yuv, **waves}),
         "encode_gop_closed_loop_yuv_b": (
-            lambda f, c, t=Tier.ALL: encode_gop_closed_loop_yuv_b(f, c, t), cfg, ibpbp_yuv)}
+            lambda f, c, t=Tier.ALL: encode_gop_closed_loop_yuv_b(f, c, t), cfg,
+            {**ibpbp_yuv, **waves})}
 
     def chained(name, f, c):
         """The closed-loop GOP composed from the per-frame entry points."""
@@ -2662,6 +2739,10 @@ def main() -> int:
         "chroma_p_fused": (
             median_ms(lambda: chroma_p_fused(*cf_1080, cf_cfg), calls=10),
             median_ms(lambda: chroma_p_fused_ref(*cf_1080, cf_cfg))),
+        # A call is a 1080p I frame's 126 waves (the host enqueue included).
+        "intra_wave_fused": (
+            median_ms(lambda: intra_wave_frame(intra_wave_fused, cur, intra_cfg)),
+            median_ms(lambda: intra_wave_frame(intra_wave_ref, cur, intra_cfg), reps=3)),
     }
     # Device time beside the CUDA-event time of 10 calls says whether the
     # kernel or the wrapper's host work bounds a call: for the small kernels,
@@ -2686,6 +2767,7 @@ def main() -> int:
         "inter_ctu_fused": lambda: inter_ctu_fused(src, b16_win, *qargs),
         "encode_ctu_mega": lambda: encode_ctu_mega(src, padded, pos, SEARCH_RANGE, *qargs),
         "chroma_p_fused": lambda: chroma_p_fused(*cf_1080, cf_cfg),
+        "intra_wave_fused": lambda: intra_wave_frame(intra_wave_fused, cur, intra_cfg),
         **{b4_name(tu, tr): lambda tu=tu, tr=tr: residual_pipeline_ctu(
             b_src, b4_pred, *b4_args[(tu, tr)], tu=tu, tr_type=tr) for tu, tr in b4_args},
     }
@@ -2711,7 +2793,8 @@ def main() -> int:
                     "pred_uni": "510 64x64 luma blocks, 8-tap, per-block fractions",
                     "pred_bi": "510 64x64 luma block pairs, 8-tap, per-block fractions",
                     "base_layout_decide_fc": "510 CTUs, R=32, 26 PU lists (B15 at base 16)",
-                    "chroma_p_fused": "both 544x960 chroma planes, 1020 32x32 blocks, qp 35"}
+                    "chroma_p_fused": "both 544x960 chroma planes, 1020 32x32 blocks, qp 35",
+                    "intra_wave_fused": "a 1080p I frame's 126 waves, 2040 32x32 blocks, qp 32"}
     more = {
         "refine_qpel_costmap_dma 32640 8x8 tiles": (
             median_ms(lambda: refine_qpel_costmap_dma(tiles8, p_padded, starts8), calls=10),
@@ -2908,6 +2991,9 @@ def main() -> int:
         "chroma_p_fused": ("hevcasm_tpu_torch/csrc/chroma_fused.cu",
                            "none: the port's own (hevcasm_tpu codes chroma in plain ops, "
                            "hevcasm_tpu/encode/video.py)"),
+        "intra_wave_fused": ("hevcasm_tpu_torch/csrc/intra_wave.cu",
+                             "none: the port's own (hevcasm_tpu codes the wavefront I frame "
+                             "in plain ops, hevcasm_tpu/encode/intra_wavefront.py)"),
     }
     # The least time for each timed call: bytes moved (inputs read once,
     # outputs written once) and multiply-adds, from the shapes it was timed
@@ -3083,9 +3169,40 @@ def main() -> int:
         f"({b_by}); kernel {times['chroma_p_fused'][0]:.4f} ms a call"
         + (f" (device {d_ms:.4f}), device at {floor / d_ms:.3f} of the floor and "
            f"{b_ms / d_ms:.3f} of the bound" if d_ms else ", device time not measured"))
+    # intra_wave_fused: a frame is a chain of dependent launches, one a
+    # wave, each a CTA a block (<= 60 of 132 SMs), so no byte or operation
+    # count bounds it: its bound is the chain of as many dependent launches
+    # at the gap that one-element torch kernels take behind a spin.
+    one = torch.zeros(1, device=dev)
+
+    def tiny_chain(k):
+        for _ in range(k):
+            one.add_(1)
+
+    bounds = {}
+    for what_w, plane_w, waves_w in (("1080p", cur, WAVES_1080P),
+                                     ("4K", torch.as_tensor(rate_clip(1, H4K, W4K, 12)[0],
+                                                            device=dev), WAVES_4K)):
+        fn_w = functools.partial(encode_intra_frame_wavefront, plane_w, intra_cfg)
+        chain_ms = unpaced_ms(lambda: tiny_chain(waves_w))
+        frame_ms = unpaced_ms(fn_w)
+        kernel_ms = kernel_device_ms(fn_w, "intra_wave_kernel", calls=5)
+        paced = samples_ms(fn_w)
+        host_ms = statistics.median(host_us(fn_w, calls=1) for _ in range(5)) / 1e3
+        bounds[what_w] = (chain_ms, f"a chain of {waves_w} dependent launches")
+        log(f"{tag} intra_wave_fused, a {what_w} wavefront I frame ({waves_w} waves): kernel "
+            f"{kernel_ms:.4f} ms a frame, {kernel_ms / waves_w * 1e3:.2f} us a wave "
+            f"(torch.profiler); the frame's work unpaced (behind a spin) {frame_ms:.4f} ms, "
+            f"{frame_ms / waves_w * 1e3:.2f} us a wave; paced by the host "
+            f"{statistics.median(paced):.4f} ms (host enqueue {host_ms:.4f} ms, "
+            f"{host_ms / waves_w * 1e3:.2f} us a wave); bound {chain_ms:.4f} ms ({waves_w} "
+            f"dependent one-element kernels behind a spin, "
+            f"{chain_ms / waves_w * 1e3:.2f} us a launch), the unpaced frame at "
+            f"{chain_ms / frame_ms:.3f} of it")
     kernels = []
     for name, (src_path, replaces) in sources.items():
-        bound_ms, bound_by = bound(*costs[name])
+        bound_ms, bound_by = (bounds["1080p"] if name == "intra_wave_fused"
+                              else bound(*costs[name]))
         kernels.append({"name": name, "route": "cuda", "source": src_path,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err[name], "ms": times[name][0],

@@ -12,10 +12,14 @@ The reconstruction stays in block-tiled layout on the device.  Which
 blocks a wave codes, where their neighbour samples lie and which of them
 are available depend on the frame's shape alone, so they are computed once
 on the host and copied to the card without blocking (one table per shape):
-the wave loop makes no host read of the card.  A wave gathers its
-neighbour runs with one index_select and writes its blocks back with one
-index_copy_.  The output equals the raster-order encode bit for bit (and
-hevcasm_tpu's skewed-canvas schedule, whose invalid slots code nothing).
+the wave loop makes no host read of the card.  A CUDA frame at 32x32
+blocks and 8x8 TUs codes each wave in one launch of kernels.intra_wave.
+intra_wave_fused when the tiers include KERNEL (_uses_intra_kernel);
+every other frame runs its plain version, intra_wave_ref, which gathers a
+wave's neighbour runs with one index_select and writes its blocks back
+with one index_copy_.  Both give the same integers, and the output equals
+the raster-order encode bit for bit (and hevcasm_tpu's skewed-canvas
+schedule, whose invalid slots code nothing).
 """
 
 from __future__ import annotations
@@ -25,13 +29,14 @@ import functools
 import numpy as np
 import torch
 
+from .. import registry
 from ..config import Tier
+from ..kernels import intra_wave
 from ..utils.psnr import psnr
 from ..utils.tensor import to_device
 from ..utils.trace import span
 from . import ctu as ctu_mod
-from .loop import (EncodeConfig, _intra_mode_decide, _prepare_intra_refs, _prepare_plane,
-                   _residual_pipeline)
+from .loop import EncodeConfig, _prepare_plane
 
 __all__ = ["encode_intra_frame_wavefront", "UNAVAILABLE"]
 
@@ -75,11 +80,20 @@ def _schedule(h: int, w: int, n: int, device: torch.device):
             to_device(aav, torch.bool, device), to_device(cav, torch.bool, device))
 
 
+def _uses_intra_kernel(cfg: EncodeConfig, tiers: Tier, plane: torch.Tensor) -> bool:
+    """Whether the waves run kernels.intra_wave.intra_wave_fused: tiers with
+    KERNEL, a CUDA plane, 32x32 blocks and 8x8 TUs (the DCT; 4x4 intra TUs
+    take the DST-VII)."""
+    return (bool(tiers & Tier.KERNEL) and plane.is_cuda and cfg.intra_block == intra_wave.BLOCK
+            and cfg.tu == intra_wave.TU)
+
+
 def encode_intra_frame_wavefront(cur, cfg: EncodeConfig = EncodeConfig(),
                                  tiers: Tier = Tier.ALL, device=None) -> dict:
     """Closed-loop intra frame: each block's 35-mode decision
     (loop._intra_mode_decide) against *reconstructed* neighbours, coded
-    wave by wave.
+    wave by wave: one launch of intra_wave_fused a wave where
+    _uses_intra_kernel says so, else its plain version.
 
     cur: (H, W) uint8 tensor or numpy array, H and W multiples of
     cfg.intra_block; devices as for encode_inter_frame.  Returns {"recon":
@@ -92,20 +106,13 @@ def encode_intra_frame_wavefront(cur, cfg: EncodeConfig = EncodeConfig(),
         spans, order, refs, lav, aav, cav = _schedule(h, w, n, dev)
         src = ctu_mod.tile_frame(cur, n).index_select(0, order)      # blocks in wave order
         canvas = torch.full((h * w,), UNAVAILABLE, dtype=torch.uint8, device=dev)
-        tiles = canvas.view(-1, n, n)
         nnz = torch.zeros((), dtype=torch.int32, device=dev)
+        wave = (registry.get("intra_wave", tiers) if _uses_intra_kernel(cfg, tiers, cur)
+                else functools.partial(intra_wave.intra_wave_ref, tiers=tiers))
         for s, e in spans:
             if s == e:          # one block column: odd waves are empty
                 continue
             with span("hevcasm.intra_wave"):
-                nb = canvas.index_select(0, refs[s:e].reshape(-1)).view(e - s, 4 * n + 1)
-                refs_plain, refs_filt = _prepare_intra_refs(
-                    nb[:, :2 * n], nb[:, 2 * n:4 * n], nb[:, 4 * n], lav[s:e], aav[s:e],
-                    cav[s:e], n, cfg)
-                pred, _ = _intra_mode_decide(src[s:e], refs_plain, refs_filt, n)
-                rec, nnz_w, _ = _residual_pipeline(src[s:e], pred, cfg, intra=True,
-                                                   tiers=tiers)
-                tiles.index_copy_(0, order[s:e], rec)
-                nnz = nnz + nnz_w
-        recon = ctu_mod.untile_frame(tiles, h, w)
+                wave(canvas, src, order, refs, lav, aav, cav, s, e, nnz, cfg)
+        recon = ctu_mod.untile_frame(canvas.view(-1, n, n), h, w)
         return {"recon": recon, "nnz": nnz, "psnr_db": psnr(cur, recon)}

@@ -38,6 +38,11 @@ version (tier REF).
                one launch (windows from the reference planes, B5's 4-tap
                core, the residual stage's 4x4 TUs); the port's own, no TPU
                kernel.
+* intra_wave   ``intra_wave_fused``: one wave of the closed-loop I frame
+               (32x32 blocks, 8x8 TUs) in one launch (neighbours from the
+               tiled canvas, the 35-mode decision in the Hadamard domain on
+               the CUDA cores, the residual stage's 8x8 TUs); the port's
+               own, no TPU kernel.
 * build        compiles ``csrc/*.cu`` with nvcc on first use and loads it.
 
 Importing a kernel module registers both tiers of its op; nothing is

@@ -1767,6 +1767,97 @@ def test_selftest_chroma_suite_on_the_card(cuda, capsys):
     assert out.count("KERNEL:ok") == 2 and "MISMATCH" not in out
 
 
+# ---- intra_wave_fused: a wave of the closed-loop I frame in one launch --------------
+
+def wave_tables(cur, n=32):
+    """The wavefront's operands for plane ``cur``: its non-empty spans, the
+    tables, the source blocks in wave order and a fresh canvas."""
+    from hevcasm_tpu_torch.encode import intra_wavefront
+
+    h, w = cur.shape
+    spans, order, refs, lav, aav, cav = intra_wavefront._schedule(h, w, n, cur.device)
+    src = ctu_mod.tile_frame(cur, n).index_select(0, order)
+    canvas = torch.full((h * w,), intra_wavefront.UNAVAILABLE, dtype=torch.uint8,
+                        device=cur.device)
+    return [(s, e) for s, e in spans if s < e], (order, refs, lav, aav, cav), src, canvas
+
+
+@pytest.mark.parametrize("shape,waves", [((1088, 1920), 126), ((2176, 3840), 254)],
+                         ids=["1080p", "4K"])
+def test_intra_wave_fused_frame_equals_plain_a_launch_a_wave(cuda, shape, waves):
+    from hevcasm_tpu_torch.encode.intra_wavefront import encode_intra_frame_wavefront
+    from hevcasm_tpu_torch.kernels import intra_wave
+
+    h, w = shape
+    cur = torch.as_tensor(smooth_clip(1, h, w, seed=h)[0], device=cuda)
+    cfg = EncodeConfig(qp=32)
+    before = intra_wave.intra_wave_fused.launches
+    got = encode_intra_frame_wavefront(cur, cfg)
+    assert intra_wave.intra_wave_fused.launches == before + waves
+    plain = encode_intra_frame_wavefront(cur, cfg, Tier.REF)
+    assert intra_wave.intra_wave_fused.launches == before + waves
+    assert_same_outputs(got, plain)
+
+
+@pytest.mark.parametrize("content", ["random", "full swing"])
+@pytest.mark.parametrize("qp,strong", [(22, True), (37, False), (32, True)])
+def test_intra_wave_fused_modes_and_nnz_wave_by_wave(cuda, content, qp, strong):
+    from hevcasm_tpu_torch.kernels import intra_wave
+
+    rng = np.random.default_rng(qp)
+    h, w = 1088, 1920
+    frame = (rng.integers(0, 256, (h, w)) if content == "random"
+             else 255 * rng.integers(0, 2, (h // 4, w // 4)).repeat(4, 0).repeat(4, 1))
+    cur = torch.as_tensor(frame.astype(np.uint8), device=cuda)
+    cfg = EncodeConfig(qp=qp, strong_intra_smoothing=strong)
+    spans, tabs, src, canvas = wave_tables(cur)
+    outs = []
+    for wave in (intra_wave.intra_wave_fused, intra_wave.intra_wave_ref):
+        canvas_w = canvas.clone()
+        nnz = torch.zeros((), dtype=torch.int32, device=cuda)
+        modes = torch.full((tabs[0].shape[0],), -1, dtype=torch.int32, device=cuda)
+        for s, e in spans:
+            wave(canvas_w, src, *tabs, s, e, nnz, cfg, modes)
+        outs.append((canvas_w, nnz, modes))
+    assert_bit_equal(*outs)
+    assert int((outs[0][2] < 0).sum()) == 0
+    if content == "random":
+        assert int(torch.unique(outs[0][2]).numel()) > 4
+
+
+@pytest.mark.parametrize("entry", ["closed_loop_yuv", "closed_loop_yuv_b"])
+def test_closed_loop_gops_take_intra_wave_fused_and_equal_plain(cuda, entry):
+    from hevcasm_tpu_torch.kernels import intra_wave
+
+    frames = [torch.as_tensor(smooth_clip(3, h, w, seed), device=cuda)
+              for (h, w), seed in (((1088, 1920), 0), ((544, 960), 1), ((544, 960), 2))]
+    cfg = EncodeConfig(search_range=32, inter_impl="fused_dma")
+    before = intra_wave.intra_wave_fused.launches
+    got = gop_call(entry, frames, cfg)
+    assert intra_wave.intra_wave_fused.launches == before + 126
+    assert_same_gop(got, gop_call(entry, frames, cfg, Tier.REF))
+
+
+def test_intra_wave_fused_rejects_what_it_does_not_take(cuda):
+    from hevcasm_tpu_torch.kernels import intra_wave
+
+    cur = torch.as_tensor(smooth_clip(1, 64, 96)[0], device=cuda)
+    spans, tabs, src, canvas = wave_tables(cur)
+    nnz = torch.zeros((), dtype=torch.int32, device=cuda)
+    cfg = EncodeConfig(qp=32)
+    s, e = spans[0]
+    with pytest.raises(ValueError):
+        intra_wave.intra_wave_fused(canvas, src, *tabs, s, e, nnz, EncodeConfig(tu=4))
+    with pytest.raises(ValueError):
+        intra_wave.intra_wave_fused(canvas, src, *tabs, 0, tabs[0].shape[0] + 1, nnz, cfg)
+    with pytest.raises(ValueError):
+        intra_wave.intra_wave_fused(canvas, src, *tabs, s, e, nnz.long(), cfg)
+    with pytest.raises(ValueError):
+        intra_wave.intra_wave_fused(canvas[1:], src, *tabs, s, e, nnz, cfg)
+    with pytest.raises(ValueError):
+        intra_wave.intra_wave_fused(canvas, src.cpu(), *tabs, s, e, nnz, cfg)
+
+
 # ---- the sharded entry points (hevcasm_tpu_torch.parallel) ------------------
 
 def sharded_inputs():
