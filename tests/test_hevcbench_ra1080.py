@@ -14,6 +14,7 @@ import sys
 import pytest
 import torch
 
+import torch_testing  # noqa: F401
 from hevcbench import roofline, run, spans_gop_b
 from hevcbench.profiling import Trace
 from hevcbench.program import Program
@@ -26,14 +27,6 @@ from hevcasm_tpu_torch.utils.trace import SPANS
 
 CELL = "ra1080_ibpbp33"
 SEED = 2**31 + 29
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _overrides(gop: int) -> dict:

@@ -27,6 +27,7 @@ from hevcasm_tpu.encode import partition as jax_partition
 from hevcasm_tpu.kernels import xla_opt
 from hevcasm_tpu.kernels.search_pallas import base_layout_decide as jax_base_layout_decide
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch.encode import partition
 from hevcasm_tpu_torch.kernels import base_grids
 

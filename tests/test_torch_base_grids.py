@@ -13,6 +13,7 @@ import torch
 
 from hevcasm_tpu.kernels import search_pallas as jsearch
 
+from torch_testing import jax_once, same
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode import partition as tpart
 from hevcasm_tpu_torch.kernels import base_grids
@@ -25,14 +26,6 @@ PARTITION_LISTS = (
     tuple(t for t in range(16) if t % 4 < 2),
     tuple(t for t in range(16) if t % 4 >= 2),
 ) + tuple((t,) for t in range(16))
-
-
-def same(ours, theirs):
-    ours = ours.numpy() if isinstance(ours, torch.Tensor) else np.asarray(ours)
-    theirs = np.asarray(theirs)
-    assert ours.dtype == theirs.dtype and ours.shape == theirs.shape, \
-        (ours.dtype, ours.shape, theirs.dtype, theirs.shape)
-    np.testing.assert_array_equal(ours, theirs)
 
 
 def ctus(n, seed, constant=None):
@@ -59,15 +52,6 @@ def with_constant(src, win, seed=5):
     interpreted TPU kernel serves both cases."""
     c_src, c_win = ctus(2, seed, constant=97)
     return np.concatenate([src, c_src]), np.concatenate([win, c_win])
-
-
-_JAX = {}
-
-
-def jax_once(key, fn):
-    if key not in _JAX:
-        _JAX[key] = np.asarray(fn())
-    return _JAX[key]
 
 
 def grids_case(base):

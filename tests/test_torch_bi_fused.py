@@ -14,6 +14,7 @@ from hevcasm_tpu.encode import ctu as jctu
 from hevcasm_tpu.encode import motion as jmotion
 from hevcasm_tpu.kernels.interp_pallas import bi_ctu_fused_dma as jax_bi
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode import motion as tmotion
 from hevcasm_tpu_torch.encode.loop import EncodeConfig

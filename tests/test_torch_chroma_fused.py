@@ -5,7 +5,7 @@ The kernel's CTA body (chroma::code_block, all of csrc/chroma_fused.cu above
 its kernel and C entry) is compiled for the CPU with tests/warp_emu.h, over
 the two cores it runs (csrc/mc_tc.cuh and csrc/residual_core.cuh, their
 inline PTX replaced by the emulated mma.sync and plain copies for cp.async,
-as tests/test_torch_mc_tc.py and test_torch_residual_tc.py build them): a
+as tests/torch_testing.py builds them for every emulated test): a
 CTA of one warp, 32 threads that meet at a barrier at each product, shuffle
 and __syncthreads, its shared memory poisoned, the output planes poisoned
 outside the blocks it codes.  It is held bit for bit against the plain
@@ -20,31 +20,27 @@ and full-swing (0/255 checkerboard and stripes) content.  On the card the
 kernel is held against the plain version in test_torch_cuda.py and
 chip_smoke.py."""
 
-import shutil
-import subprocess
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
+import torch_testing
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode import ctu as ctu_mod
 from hevcasm_tpu_torch.encode import video
 from hevcasm_tpu_torch.encode.loop import EncodeConfig
-from hevcasm_tpu_torch.kernels import build, chroma_fused
+from hevcasm_tpu_torch.kernels import chroma_fused
 from hevcasm_tpu_torch.ops.residual import residual_levels
 
 N = chroma_fused.BLOCK
-MARK = "// ---- the kernel and its C entry"
 
 EMULATED_MAIN = r"""
 #include "chroma_body.cuh"
 
 #include <cstdio>
 #include <random>
-#include <thread>
 #include <vector>
 
 // stdin: h w qscale qshift qoffset dscale dshift runs seed, then the planes
@@ -97,15 +93,7 @@ int main() {
   std::mt19937 poison(seed);
   for (long long i : run) {
     for (int k = 0; k < chroma::SMEM; ++k) smem[k] = static_cast<uint8_t>(poison());
-    std::barrier<> warp(32);
-    g_warp_barrier = &warp;
-    std::vector<std::thread> lanes;
-    for (int l = 0; l < 32; ++l)
-      lanes.emplace_back([&, l] {
-        threadIdx.x = l;
-        chroma::code_block(a, i, 32, smem);
-      });
-    for (auto& lane : lanes) lane.join();
+    emu_run_block([&] { chroma::code_block(a, i, 32, smem); });
   }
   const long long gc = w / 32;
   std::vector<char> coded(h * w, 0);
@@ -129,43 +117,13 @@ int main() {
 @pytest.fixture(scope="module")
 def emulated_chroma(tmp_path_factory):
     """chroma::code_block built for the CPU over the two cores, their inline
-    PTX replaced as their own tests replace it.  Skips without a C++20
+    PTX replaced as for their own tests.  Skips without a C++20
     compiler."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a C++20 compiler (g++) to build the kernel's body for the CPU")
     tmp = tmp_path_factory.mktemp("chroma_emu")
-    csrc = Path(build.CSRC)
-    text = (csrc / "mc_tc.cuh").read_text()
-    start, end = text.index("#define MCTC_PTX"), text.index("#undef MCTC_PTX")
-    emulated = "\n".join(
-        f"inline void {name}(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) "
-        f"{{ const uint32_t b[2] = {{b0, b1}}; emu_mma<32, true, {bs}>(d, a, b); }}"
-        for name, bs in (("mma_s8u8", "false"), ("mma_s8s8", "true")))
-    emulated += ("\ninline void cp_async16(uint8_t* dst, const uint8_t* src) { "
-                 "for (int k = 0; k < 16; ++k) dst[k] = src[k]; }"
-                 "\ninline void cp_async_wait_all() {}\n")
-    (tmp / "mc_tc.cuh").write_text(
-        '#include "warp_emu.h"\n' + text[:start] + emulated + "\n" + text[end:])
-    text = (csrc / "residual_core.cuh").read_text()
-    start, end = text.index("#define RESTC_MMA("), text.index("#undef RESTC_MMA")
-    emulated = "\n".join(
-        f"template <int W> __device__ __forceinline__ void {name}(int (&d)[4], "
-        f"const uint32_t (&a)[W / 8], const uint32_t (&b)[W / 16]) "
-        f"{{ emu_mma<W, {a}, {b}>(d, a, b); }}"
-        for name, a, b in (("mma_s8u8", "true", "false"), ("mma_s8s8", "true", "true"),
-                           ("mma_u8s8", "false", "true")))
-    (tmp / "residual_core.cuh").write_text(
-        '#include "warp_emu.h"\n' + text[:start] + emulated + "\n" + text[end:])
-    (tmp / "cuda_runtime.h").write_text("#pragma once\n")
-    body = (csrc / "chroma_fused.cu").read_text()
-    (tmp / "chroma_body.cuh").write_text(body[:body.index(MARK)])
-    (tmp / "main.cpp").write_text(EMULATED_MAIN)
-    exe = tmp / "chroma"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", "-I", str(tmp), "-I",
-                    str(Path(__file__).parent), "-o", str(exe), str(tmp / "main.cpp")],
-                   check=True, capture_output=True, text=True)
-    return exe
+    torch_testing.emulated_mc_tc(tmp)
+    torch_testing.emulated_residual_core(tmp)
+    torch_testing.kernel_body(tmp, "chroma_fused.cu", "chroma_body.cuh")
+    return torch_testing.build_emulator(tmp, EMULATED_MAIN, "chroma")
 
 
 def reach(cfg) -> int:
@@ -198,8 +156,7 @@ def emulate(exe, planes, mv, cfg, blocks, seed=7):
     stdin = " ".join(map(str, (h, w, *chroma_fused._qargs(cfg.qp), len(blocks), seed,
                                *np.concatenate([p.ravel() for p in planes]), *mv.ravel(),
                                *blocks)))
-    out = subprocess.run([str(exe)], input=stdin, capture_output=True, text=True, check=True,
-                         timeout=600).stdout.split()
+    out = torch_testing.run_emulator(exe, stdin, f"{h}x{w} qp {cfg.qp} seed {seed}").split()
     vals = np.array(out, dtype=np.int64)
     return vals[:-3].reshape(len(blocks), 2, N, N), vals[-3:-1], int(vals[-1])
 

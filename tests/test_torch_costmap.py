@@ -14,17 +14,10 @@ import torch
 from hevcasm_tpu.kernels import interp_pallas as jpallas
 from hevcasm_tpu.kernels import interp_xla as jxla
 
+from torch_testing import jax_once, same
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.kernels import costmap
 from hevcasm_tpu_torch.ops import pred_inter as tpred
-
-
-def same(ours, theirs):
-    ours = ours.numpy() if isinstance(ours, torch.Tensor) else np.asarray(ours)
-    theirs = np.asarray(theirs)
-    assert ours.dtype == theirs.dtype and ours.shape == theirs.shape, \
-        (ours.dtype, ours.shape, theirs.dtype, theirs.shape)
-    np.testing.assert_array_equal(ours, theirs)
 
 
 def tiles(b, n, seed, extra=0, constant=None):
@@ -44,15 +37,9 @@ def tiles(b, n, seed, extra=0, constant=None):
     return src, win
 
 
-_JAX = {}
-
-
 def jax_costmap(b, n, seed, extra=0, constant=None):
-    key = (b, n, seed, extra, constant)
-    if key not in _JAX:
-        src, win = tiles(b, n, seed, extra, constant)
-        _JAX[key] = np.asarray(jpallas.refine_qpel_costmap(jnp.asarray(src), jnp.asarray(win)))
-    return _JAX[key]
+    return jax_once((b, n, seed, extra, constant), lambda: jpallas.refine_qpel_costmap(
+        *map(jnp.asarray, tiles(b, n, seed, extra, constant))))
 
 
 @pytest.mark.parametrize("b,n", [(8, 40), (16, 20), (32, 5), (64, 3)])

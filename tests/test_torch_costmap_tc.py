@@ -31,6 +31,7 @@ from hevcasm_tpu.kernels.interp_pallas import refine_qpel_costmap as jax_b12
 from hevcasm_tpu.kernels.interp_pallas import refine_qpel_costmap_dma as jax_b13
 from hevcasm_tpu.kernels.interp_pallas import refine_quarter_pel_fused as jax_b11
 
+import torch_testing  # noqa: F401
 import chip_smoke
 import test_torch_refine_tc as k2m
 from hevcasm_tpu_torch.kernels import build, costmap, inter_fused

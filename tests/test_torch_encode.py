@@ -16,6 +16,7 @@ import torch
 from hevcasm_tpu.encode import EncodeConfig as JaxConfig
 from hevcasm_tpu.encode.loop import encode_inter_frame as jax_encode
 
+from torch_testing import jax_once, smooth_plane
 from hevcasm_tpu_torch.encode.loop import EncodeConfig, encode_inter_frame
 
 REPO = Path(__file__).resolve().parents[1]
@@ -32,27 +33,20 @@ def frames(h, w, content, seed=0):
     if content == "random":
         base = rng.integers(0, 256, (h + 64, w + 64), dtype=np.uint8)
         return base[2:2 + h, 3:3 + w].copy(), base[:h, :w].copy()
-    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
-
-    def picture(dy, dx):
-        yy, xx = y + dy, x + dx
-        v = 128 + 70 * np.sin(xx / 11 + yy / 17) + 40 * np.cos(xx / 23 - yy / 9)
-        return np.clip(np.rint(v + rng.normal(0, 1.5, v.shape)), 0, 255).astype(np.uint8)
-
-    return picture(2.25, 3.25), picture(0, 0)
+    return smooth_plane(h, w, 2.25, 3.25, rng), smooth_plane(h, w, 0, 0, rng)
 
 
-_JAX_CACHE = {}
+def jax_answer(cur, ref, key, **kw):
+    """hevcasm_tpu's encode_inter_frame of (cur, ref) under JaxConfig(**kw)
+    as numpy, once a ``key``."""
+    return jax_once(key, lambda: {k: np.asarray(v) for k, v in jax_encode(
+        jnp.asarray(cur), jnp.asarray(ref), JaxConfig(**kw)).items()})
 
 
 def jax_result(h, w, r, content):
-    key = (h, w, r, content)
-    if key not in _JAX_CACHE:
-        cur, ref = frames(h, w, content)
-        out = jax_encode(jnp.asarray(cur), jnp.asarray(ref),
-                         JaxConfig(search_range=r, qp=32, inter_impl="fused_dma"))
-        _JAX_CACHE[key] = {k: np.asarray(v) for k, v in out.items()}
-    return _JAX_CACHE[key]
+    cur, ref = frames(h, w, content)
+    return jax_answer(cur, ref, (h, w, r, content), search_range=r, qp=32,
+                      inter_impl="fused_dma")
 
 
 def port_config(r, impl, **kw):
@@ -80,9 +74,6 @@ def test_encode_inter_frame_matches_jax(h, w, r, content, impl):
     assert_matches(ours, jax_result(h, w, r, content))
 
 
-_JAX_IMPL_CACHE = {}
-
-
 @pytest.mark.parametrize("kw", [
     dict(inter_impl="fused"), dict(inter_impl="fused_batched", fused_group=4),
     dict(fused_refine=True), dict(residual_impl="pallas"),
@@ -92,14 +83,10 @@ def test_fused_configurations_match_jax(kw):
     # B16, B11 and B4 (their plain versions here; hevcasm_tpu's Pallas
     # kernels in interpret mode) at 128x192, R = 8, panned content.
     cur, ref = frames(128, 192, "pan")
-    key = tuple(sorted(kw.items()))
-    if key not in _JAX_IMPL_CACHE:
-        out = jax_encode(jnp.asarray(cur), jnp.asarray(ref),
-                         JaxConfig(search_range=8, qp=32, **kw))
-        _JAX_IMPL_CACHE[key] = {k: np.asarray(v) for k, v in out.items()}
+    theirs = jax_answer(cur, ref, ("impl", *sorted(kw.items())), search_range=8, qp=32, **kw)
     ours = encode_inter_frame(cur, ref, EncodeConfig(search_range=8, qp=32, **kw),
                               device="cpu")
-    assert_matches(ours, _JAX_IMPL_CACHE[key])
+    assert_matches(ours, theirs)
 
 
 def test_numpy_input_needs_a_card_or_an_explicit_cpu():
@@ -161,9 +148,6 @@ def test_numpy_inputs_and_output_types():
         encode_inter_frame(cur, ref[:, :64], port_config(8, "fused_dma"), device="cpu")
 
 
-_JAX_SEARCH_CACHE = {}
-
-
 @pytest.mark.parametrize("kwargs", [
     dict(me_metric="sad"),
     dict(me_strategy="pyramid"),
@@ -186,11 +170,7 @@ def test_search_configurations_match_jax(kwargs):
     # interpret mode.  Every key hevcasm_tpu returns must be equal.
     cur, ref = frames(128, 192, "pan")
     kw = {"search_range": 32, "qp": 32, **kwargs}
-    key = tuple(sorted(kw.items()))
-    if key not in _JAX_SEARCH_CACHE:
-        out = jax_encode(jnp.asarray(cur), jnp.asarray(ref), JaxConfig(**kw))
-        _JAX_SEARCH_CACHE[key] = {k: np.asarray(v) for k, v in out.items()}
-    theirs = _JAX_SEARCH_CACHE[key]
+    theirs = jax_answer(cur, ref, ("search", *sorted(kw.items())), **kw)
     ours = encode_inter_frame(cur, ref, EncodeConfig(**kw), device="cpu")
     assert set(ours) == set(theirs)
     for k in theirs:

@@ -21,6 +21,7 @@ from hevcasm_tpu.encode import EncodeConfig as JaxConfig
 from hevcasm_tpu.encode import loop as jloop
 from hevcasm_tpu.encode import video as jvideo
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch.encode import EncodeConfig, YuvFrame, encode_gop
 from hevcasm_tpu_torch.encode import video
 

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_testing  # noqa: F401
 import chip_smoke
 from hevcasm_tpu.encode import partition as jax_partition
 from hevcasm_tpu.kernels import xla_opt

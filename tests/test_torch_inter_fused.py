@@ -19,6 +19,7 @@ from hevcasm_tpu.kernels.interp_pallas import inter_ctu_fused_batched as jax_fus
 from hevcasm_tpu.kernels.interp_pallas import inter_ctu_fused_dma as jax_fused_dma
 from hevcasm_tpu.kernels.interp_pallas import refine_quarter_pel_fused as jax_refine_fused
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode import motion as tmotion
 from hevcasm_tpu_torch.encode.loop import EncodeConfig

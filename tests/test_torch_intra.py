@@ -20,6 +20,7 @@ from hevcasm_tpu.encode.video import YuvFrame as JaxYuv
 from hevcasm_tpu.encode.video import encode_intra_frame_yuv as jax_intra_yuv
 from hevcasm_tpu.kernels import intra_matrix as jmatrix
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch.encode import EncodeConfig, YuvFrame, encode_intra_frame
 from hevcasm_tpu_torch.encode import loop
 from hevcasm_tpu_torch.encode.intra_wavefront import encode_intra_frame_wavefront

@@ -4,7 +4,7 @@ CPU, and the rule by which encode_intra_frame_wavefront takes it.
 The kernel's CTA body (iwave::code_block, all of csrc/intra_wave.cu above
 its kernel and C entry) is compiled for the CPU with tests/warp_emu.h, over
 csrc/residual_core.cuh with its inline PTX replaced by the emulated
-mma.sync (as tests/test_torch_residual_tc.py builds it): a CTA of one warp,
+mma.sync (as tests/torch_testing.py builds it): a CTA of one warp,
 32 threads that meet at a barrier at each product, shuffle and
 __syncthreads, its shared memory poisoned before each block.  The emulated
 kernel codes whole frames wave by wave from the wave tables of
@@ -20,32 +20,28 @@ kernel is held against the plain version in test_torch_cuda.py and
 chip_smoke.py."""
 
 import dataclasses
-import shutil
-import subprocess
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
+import torch_testing
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode import ctu as ctu_mod
 from hevcasm_tpu_torch.encode import intra_wavefront
 from hevcasm_tpu_torch.encode.intra_wavefront import encode_intra_frame_wavefront
 from hevcasm_tpu_torch.encode.loop import EncodeConfig
-from hevcasm_tpu_torch.kernels import build, intra_wave
+from hevcasm_tpu_torch.kernels import intra_wave
 from hevcasm_tpu_torch.ops.pred_intra import strong_smoothing_condition, substitute_references
 
 N = intra_wave.BLOCK
-MARK = "// ---- the kernel and its C entry"
 
 EMULATED_MAIN = r"""
 #include "intra_body.cuh"
 
 #include <cstdio>
 #include <random>
-#include <thread>
 #include <vector>
 
 // stdin: h w qscale qshift qoffset dscale dshift strong num waves seed, then
@@ -105,15 +101,7 @@ int main() {
     for (long long row = a.start; row < a.stop; ++row) {
       auto* bytes = reinterpret_cast<uint8_t*>(sm);
       for (size_t k = 0; k < sizeof(iwave::Smem); ++k) bytes[k] = static_cast<uint8_t>(poison());
-      std::barrier<> warp(32);
-      g_warp_barrier = &warp;
-      std::vector<std::thread> lanes;
-      for (int l = 0; l < 32; ++l)
-        lanes.emplace_back([&, l] {
-          threadIdx.x = l;
-          iwave::code_block(a, row, 32, *sm);
-        });
-      for (auto& lane : lanes) lane.join();
+      emu_run_block([&] { iwave::code_block(a, row, 32, *sm); });
     }
     for (long long k = 0; k < h * w; ++k) printf("%d ", canvas[k]);
     printf("%d", nnz);
@@ -129,32 +117,12 @@ int main() {
 @pytest.fixture(scope="module")
 def emulated_wave(tmp_path_factory):
     """iwave::code_block built for the CPU over residual_core.cuh, its
-    inline PTX replaced as test_torch_residual_tc.py replaces it.  Skips
+    inline PTX replaced as for test_torch_residual_tc.py.  Skips
     without a C++20 compiler."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a C++20 compiler (g++) to build the kernel's body for the CPU")
     tmp = tmp_path_factory.mktemp("intra_wave_emu")
-    csrc = Path(build.CSRC)
-    text = (csrc / "residual_core.cuh").read_text()
-    start, end = text.index("#define RESTC_MMA("), text.index("#undef RESTC_MMA")
-    emulated = "\n".join(
-        f"template <int W> __device__ __forceinline__ void {name}(int (&d)[4], "
-        f"const uint32_t (&a)[W / 8], const uint32_t (&b)[W / 16]) "
-        f"{{ emu_mma<W, {a}, {b}>(d, a, b); }}"
-        for name, a, b in (("mma_s8u8", "true", "false"), ("mma_s8s8", "true", "true"),
-                           ("mma_u8s8", "false", "true")))
-    (tmp / "residual_core.cuh").write_text(
-        '#include "warp_emu.h"\n' + text[:start] + emulated + "\n" + text[end:])
-    (tmp / "cuda_runtime.h").write_text("#pragma once\n")
-    body = (csrc / "intra_wave.cu").read_text()
-    (tmp / "intra_body.cuh").write_text(body[:body.index(MARK)])
-    (tmp / "main.cpp").write_text(EMULATED_MAIN)
-    exe = tmp / "intra_wave"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", "-I", str(tmp), "-I",
-                    str(Path(__file__).parent), "-o", str(exe), str(tmp / "main.cpp")],
-                   check=True, capture_output=True, text=True)
-    return exe
+    torch_testing.emulated_residual_core(tmp)
+    torch_testing.kernel_body(tmp, "intra_wave.cu", "intra_body.cuh")
+    return torch_testing.build_emulator(tmp, EMULATED_MAIN, "intra_wave")
 
 
 def tables(h, w):
@@ -194,8 +162,8 @@ def emulated_waves(exe, frame, cfg, seed=7):
             len(spans), seed)
     body = [t.reshape(-1).to(torch.int64).numpy() for t in (src, order, refs, lav, aav, cav)]
     stdin = " ".join(map(str, (*head, *np.concatenate(body), *np.ravel(spans))))
-    lines = subprocess.run([str(exe)], input=stdin, capture_output=True, text=True, check=True,
-                           timeout=600).stdout.splitlines()
+    lines = torch_testing.run_emulator(exe, stdin,
+                                       f"{h}x{w} qp {cfg.qp} seed {seed}").splitlines()
     out = []
     for line, (s, e) in zip(lines, spans, strict=True):
         vals = np.array(line.split(), dtype=np.int64)

@@ -16,6 +16,7 @@ import pytest
 from hevcasm_tpu import cli as jax_cli
 from hevcasm_tpu import io as jax_io
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch import cli
 from hevcasm_tpu_torch import io as yio
 from hevcasm_tpu_torch.encode import EncodeConfig

@@ -8,6 +8,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as tmp
 
+import torch_testing  # noqa: F401
 import torch_parallel_ranks as ranks
 from hevcasm_tpu_torch.parallel import launch, multihost
 

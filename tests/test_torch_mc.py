@@ -19,6 +19,7 @@ from hevcasm_tpu.kernels.xla_opt import residual_pipeline_frame as jax_frame
 from hevcasm_tpu.kernels.xla_opt import ssd_grid_ref as jax_ssd_grid
 from hevcasm_tpu.ops import pred_inter as jpred
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch import registry
 from hevcasm_tpu_torch.encode import motion as tmotion
 from hevcasm_tpu_torch.encode.loop import EncodeConfig

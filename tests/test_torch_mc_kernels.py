@@ -12,6 +12,7 @@ import torch
 
 from hevcasm_tpu.kernels.mc_pallas import pred_bi_pallas, pred_uni_pallas
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.kernels import mc
 from hevcasm_tpu_torch.ops import pred_inter

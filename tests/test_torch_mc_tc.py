@@ -30,8 +30,6 @@ the card the kernels are held against the plain versions in
 test_torch_cuda.py and chip_smoke.py."""
 
 import functools
-import shutil
-import subprocess
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -43,6 +41,7 @@ import torch
 from hevcasm_tpu.kernels.mc_pallas import pred_bi_pallas, pred_uni_pallas
 
 import chip_smoke
+import torch_testing
 from hevcasm_tpu_torch.kernels import build, mc
 from hevcasm_tpu_torch.ops.pred_inter import KERNEL4, KERNEL8
 
@@ -479,7 +478,6 @@ EMULATED_MAIN = r"""
 
 #include <cstdio>
 #include <random>
-#include <thread>
 #include <vector>
 
 // stdin: n h w taps bi row per_block seed, then each window stack's n x
@@ -492,15 +490,7 @@ void run(const McArgs& a, const mctc::Geom& g, unsigned seed) {
   std::mt19937 poison(seed);
   for (long long cta = 0; cta < a.n; ++cta) {
     for (auto& b : smem) b = static_cast<uint8_t>(poison());
-    std::barrier<> warp(32);
-    g_warp_barrier = &warp;
-    std::vector<std::thread> lanes;
-    for (int l = 0; l < 32; ++l)
-      lanes.emplace_back([&, l] {
-        threadIdx.x = l;
-        mctc::run_cta<T, BI>(a, g, cta, 32, smem.data());
-      });
-    for (auto& lane : lanes) lane.join();
+    emu_run_block([&] { mctc::run_cta<T, BI>(a, g, cta, 32, smem.data()); });
   }
 }
 
@@ -563,27 +553,9 @@ def emulated_mc(tmp_path_factory):
     one warp as 32 threads; the header's inline PTX (the products and
     cp.async) becomes the emulated product and plain copies.  Skips without
     a C++20 compiler."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a C++20 compiler (g++) to build the header for the CPU")
     tmp = tmp_path_factory.mktemp("mc_emu")
-    text = (Path(build.CSRC) / "mc_tc.cuh").read_text()
-    start, end = text.index("#define MCTC_PTX"), text.index("#undef MCTC_PTX")
-    emulated = "\n".join(
-        f"inline void {name}(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) "
-        f"{{ const uint32_t b[2] = {{b0, b1}}; emu_mma<32, true, {bs}>(d, a, b); }}"
-        for name, bs in (("mma_s8u8", "false"), ("mma_s8s8", "true")))
-    emulated += ("\ninline void cp_async16(uint8_t* dst, const uint8_t* src) { "
-                 "for (int k = 0; k < 16; ++k) dst[k] = src[k]; }"
-                 "\ninline void cp_async_wait_all() {}\n")
-    (tmp / "mc_tc.cuh").write_text(
-        '#include "warp_emu.h"\n' + text[:start] + emulated + "\n" + text[end:])
-    (tmp / "main.cpp").write_text(EMULATED_MAIN)
-    exe = tmp / "mc"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", "-I", str(tmp), "-I",
-                    str(Path(__file__).parent), "-o", str(exe), str(tmp / "main.cpp")],
-                   check=True, capture_output=True, text=True)
-    return exe
+    torch_testing.emulated_mc_tc(tmp)
+    return torch_testing.build_emulator(tmp, EMULATED_MAIN, "mc")
 
 
 EMULATED = [(8, 64, 64), (8, 16, 32), (8, 8, 4), (8, 33, 17), (8, 5, 3),
@@ -611,8 +583,8 @@ def test_the_header_itself_on_an_emulated_warp(emulated_mc, taps, w, h):
         for bi in (0, 1):
             stdin = " ".join(map(str, (n, h, w, taps, bi, row, per_block, 7,
                                        *wins[:1 + bi].ravel(), *fr.ravel())))
-            out = subprocess.run([str(emulated_mc)], input=stdin, capture_output=True,
-                                 text=True, check=True, timeout=300).stdout.split()
+            out = torch_testing.run_emulator(
+                emulated_mc, stdin, f"{taps}tap {w}x{h} {content} bi {bi}").split()
             vals = np.array(out, dtype=np.int64)
             assert vals[-1] == 0, "a store past the block"
             np.testing.assert_array_equal(vals[:-1].reshape(n, h, w), want[bi],

@@ -14,6 +14,7 @@ from hevcasm_tpu.encode import ctu as jctu
 from hevcasm_tpu.encode import motion as jmotion
 from hevcasm_tpu.kernels.mega_pallas import encode_ctu_mega as jax_mega
 
+from torch_testing import jax_once, smooth_plane
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode import ctu as tctu
 from hevcasm_tpu_torch.encode import motion as tmotion
@@ -35,28 +36,19 @@ def frames(case):
         return base[2 * r:, 2 * r:].copy(), base[:h, :w].copy(), r
     h, w = {"odd": (128, 192), "even": (128, 256)}[case]
     rng = np.random.default_rng(0)
-    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
-
-    def picture(dy, dx):
-        v = 128 + 70 * np.sin((x + dx) / 11 + (y + dy) / 17) + 40 * np.cos((x + dx) / 23
-                                                                          - (y + dy) / 9)
-        return np.clip(np.rint(v + rng.normal(0, 1.5, v.shape)), 0, 255).astype(np.uint8)
-
-    return picture(2.25, 3.25), picture(0, 0), 8
-
-
-_JAX_CACHE = {}
+    return smooth_plane(h, w, 2.25, 3.25, rng), smooth_plane(h, w, 0, 0, rng), 8
 
 
 def jax_result(case):
-    if case not in _JAX_CACHE:
+    def run():
         cur, ref, r = frames(case)
         h, w = cur.shape
         plane = jctu.pad_frame(jnp.asarray(ref), r + 8, r + 8, r + 8, r + 8)
         pos = jmotion.ctu_positions(h // 64, w // 64, 64)
         out = jax_mega(jctu.tile_frame(jnp.asarray(cur), 64), plane, pos, r, *QARGS)
-        _JAX_CACHE[case] = [np.asarray(o) for o in out]
-    return _JAX_CACHE[case]
+        return [np.asarray(o) for o in out]
+
+    return jax_once(case, run)
 
 
 def port_inputs(case):

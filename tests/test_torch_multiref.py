@@ -15,6 +15,7 @@ import torch
 from hevcasm_tpu.encode import EncodeConfig as JaxConfig
 from hevcasm_tpu.encode.loop import encode_inter_frame_multiref as jax_multiref
 
+from torch_testing import jax_once
 from hevcasm_tpu_torch.encode import (EncodeConfig, encode_inter_frame,
                                       encode_inter_frame_multiref)
 
@@ -57,16 +58,13 @@ def rolled_refs(h=128, w=128, seed=3):
 
 
 SCENES = {"split": split_refs, "shifted": shifted_refs, "rolled": rolled_refs}
-_JAX = {}
-
-
 def jax_result(scene, **kw):
-    key = (scene, tuple(sorted(kw.items())))
-    if key not in _JAX:
+    def run():
         cur, refs = SCENES[scene]()
         out = jax_multiref(jnp.asarray(cur), jnp.asarray(refs), JaxConfig(**kw))
-        _JAX[key] = {k: np.asarray(v) for k, v in out.items()}
-    return _JAX[key]
+        return {k: np.asarray(v) for k, v in out.items()}
+
+    return jax_once((scene, tuple(sorted(kw.items()))), run)
 
 
 def port_result(scene, **kw):

@@ -16,6 +16,7 @@ from jax.experimental import checkify
 from hevcasm_tpu import cref as jax_cref
 from hevcasm_tpu import native as jax_native
 from hevcasm_tpu.ops import pred_inter as jax_pred_inter
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch import cref, native
 from hevcasm_tpu_torch.ops import pred_inter
 

@@ -15,6 +15,7 @@ from hevcasm_tpu.ops import pred_inter as jpred
 from hevcasm_tpu.ops import residual as jres
 from hevcasm_tpu.ops import transform as jtr
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode import ctu as tctu
 from hevcasm_tpu_torch.ops import pred_inter as tpred

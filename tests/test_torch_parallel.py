@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+import torch_testing  # noqa: F401
 import torch_parallel_ranks as ranks
 from hevcasm_tpu import config as jax_config
 from hevcasm_tpu.encode import EncodeConfig as JaxConfig

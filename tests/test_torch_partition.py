@@ -15,6 +15,7 @@ from hevcasm_tpu.encode import partition as jpart
 from hevcasm_tpu.encode.loop import EncodeConfig as JaxConfig
 from hevcasm_tpu.kernels.xla_opt import ssd_grid as jssd_grid
 
+from torch_testing import jax_once, same
 from hevcasm_tpu_torch.encode import ctu as tctu
 from hevcasm_tpu_torch.encode import loop as tloop
 from hevcasm_tpu_torch.encode import motion as tmotion
@@ -25,14 +26,6 @@ from hevcasm_tpu_torch.ops.ssd import ssd_grid
 DEFAULT = ("2Nx2N", "2NxN", "Nx2N", "NxN", "quarter")
 SMALL = ("2Nx2N", "NxN", "eighth")
 ALL = tuple(jpart.PU_LAYOUTS)
-
-
-def same(ours, theirs, what=""):
-    ours = ours.numpy() if isinstance(ours, torch.Tensor) else np.asarray(ours)
-    theirs = np.asarray(theirs)
-    assert ours.dtype == theirs.dtype and ours.shape == theirs.shape, \
-        (what, ours.dtype, ours.shape, theirs.dtype, theirs.shape)
-    np.testing.assert_array_equal(ours, theirs, err_msg=what)
 
 
 class Case:
@@ -60,20 +53,12 @@ class Case:
 
 
 _CASES = {}
-_JAX = {}
 
 
 def case(r):
     if r not in _CASES:
         _CASES[r] = Case(r)
     return _CASES[r]
-
-
-def jax_once(key, fn):
-    if key not in _JAX:
-        out = fn()
-        _JAX[key] = tuple(out) if isinstance(out, (tuple, list)) else out
-    return _JAX[key]
 
 
 def test_layout_tables_equal():

@@ -9,11 +9,11 @@ import importlib
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
 
 from hevcasm_tpu import registry as jregistry
 from hevcasm_tpu.config import Tier as JTier
 
+from torch_testing import same
 from hevcasm_tpu_torch import Tier, registry
 
 # The ops packages export functions named like these modules.
@@ -25,14 +25,6 @@ tsatd = importlib.import_module("hevcasm_tpu_torch.ops.satd")
 tssd = importlib.import_module("hevcasm_tpu_torch.ops.ssd")
 
 SELFTEST_MODES = (0, 1, 10, 26, 2, 18, 34, 23)
-
-
-def same(ours, theirs):
-    ours = ours.numpy() if isinstance(ours, torch.Tensor) else np.asarray(ours)
-    theirs = np.asarray(theirs)
-    assert ours.dtype == theirs.dtype and ours.shape == theirs.shape, \
-        (ours.dtype, ours.shape, theirs.dtype, theirs.shape)
-    np.testing.assert_array_equal(ours, theirs)
 
 
 def neighbours(n, seed, lead=(3,)):

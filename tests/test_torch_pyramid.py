@@ -13,6 +13,7 @@ from hevcasm_tpu.encode import motion as jmotion
 from hevcasm_tpu.kernels import xla_opt
 from hevcasm_tpu.ops.sad import sad_grid as jax_sad_grid
 
+from torch_testing import jax_once
 from hevcasm_tpu_torch import Tier
 from hevcasm_tpu_torch.encode import ctu as tctu
 from hevcasm_tpu_torch.encode import motion as tmotion
@@ -35,12 +36,8 @@ def frames(content, seed=0):
     return pic[45:45 + H, 42:42 + W].copy(), pic[32:32 + H, 32:32 + W].copy()
 
 
-_JAX_CACHE = {}
-
-
 def jax_pyramid(content, r, metric, with_grid):
-    key = (content, r, metric, with_grid)
-    if key not in _JAX_CACHE:
+    def run():
         cur, ref = frames(content)
         src = jctu.tile_frame(jnp.asarray(cur), 64)
         padded = jctu.pad_frame(jnp.asarray(ref), r + 3, r + 4, r + 3, r + 4)
@@ -48,8 +45,9 @@ def jax_pyramid(content, r, metric, with_grid):
         mv, best = jmotion.pyramid_search(src, jnp.asarray(ref), padded, pos, r,
                                           grid_fn=JAX_GRID[metric],
                                           grid=(H // 64, W // 64) if with_grid else None)
-        _JAX_CACHE[key] = (np.asarray(mv), np.asarray(best))
-    return _JAX_CACHE[key]
+        return np.asarray(mv), np.asarray(best)
+
+    return jax_once((content, r, metric, with_grid), run)
 
 
 @pytest.mark.parametrize("with_grid", [True, False])

@@ -19,6 +19,7 @@ import torch
 from hevcasm_tpu.encode import EncodeConfig as JaxConfig
 from hevcasm_tpu.encode import rate as jrate
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch.encode import rate
 from hevcasm_tpu_torch.encode.loop import EncodeConfig, encode_inter_frame
 from hevcasm_tpu_torch.kernels import bi_fused, inter_fused

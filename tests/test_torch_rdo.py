@@ -14,6 +14,7 @@ import torch
 from hevcasm_tpu.encode import EncodeConfig as JaxConfig
 from hevcasm_tpu.encode.loop import encode_inter_frame as jax_encode
 
+from torch_testing import jax_once
 from hevcasm_tpu_torch.encode import ctu as ctu_mod, motion, partition
 from hevcasm_tpu_torch.encode.loop import EncodeConfig, encode_inter_frame
 from hevcasm_tpu_torch.ops.ssd import ssd_grid
@@ -58,14 +59,9 @@ def split_motion(kind, seed=0x48455643):
     return cur, ref
 
 
-_JAX = {}
-
-
 def jax_result(key, cur, ref, **cfg):
-    if key not in _JAX:
-        out = jax_encode(jnp.asarray(cur), jnp.asarray(ref), JaxConfig(qp=32, **cfg))
-        _JAX[key] = {k: np.asarray(v) for k, v in out.items()}
-    return _JAX[key]
+    return jax_once(key, lambda: {k: np.asarray(v) for k, v in jax_encode(
+        jnp.asarray(cur), jnp.asarray(ref), JaxConfig(qp=32, **cfg)).items()})
 
 
 def assert_matches(ours, theirs, extra=()):

@@ -27,6 +27,7 @@ import torch
 from hevcasm_tpu.kernels.interp_pallas import bi_ctu_fused_dma as jax_bi
 from hevcasm_tpu.kernels.interp_pallas import inter_ctu_fused_dma as jax_k2
 
+import torch_testing  # noqa: F401
 import chip_smoke
 from hevcasm_tpu_torch.encode.loop import EncodeConfig
 from hevcasm_tpu_torch.kernels import bi_fused, inter_fused

@@ -15,6 +15,7 @@ import torch
 from hevcasm_tpu.encode import EncodeConfig as JaxConfig
 from hevcasm_tpu.kernels.residual_pallas import residual_pipeline_ctu as jax_residual_ctu
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode.loop import EncodeConfig
 from hevcasm_tpu_torch.kernels import residual_ctu

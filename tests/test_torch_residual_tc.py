@@ -33,8 +33,6 @@ card the kernels are held against the plain version in test_torch_cuda.py
 and chip_smoke.py."""
 
 import functools
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -45,6 +43,7 @@ from hevcasm_tpu.kernels.residual_pallas import block_diag_t
 from hevcasm_tpu.kernels.residual_pallas import residual_pipeline_ctu as jax_residual_ctu
 
 import chip_smoke
+import torch_testing
 from hevcasm_tpu_torch.encode.loop import EncodeConfig
 from hevcasm_tpu_torch.kernels import build, residual_ctu
 from hevcasm_tpu_torch.ops.residual import residual_levels
@@ -524,7 +523,6 @@ EMULATED_MAIN = r"""
 #include "residual_core.cuh"
 
 #include <cstdio>
-#include <thread>
 #include <vector>
 
 // stdin: n tu dst qscale qshift qoffset dscale dshift, then the n * 4096
@@ -538,18 +536,11 @@ void run(int n, const std::vector<uint8_t>& src, const std::vector<uint8_t>& pre
   const int k = B / TU;
   for (int i = 0; i < n; ++i)
     for (int ty = 0; ty < S::SIDE; ++ty)
-      for (int tx = 0; tx < S::SIDE; ++tx) {
-        std::barrier<> warp(32);
-        g_warp_barrier = &warp;
-        std::vector<std::thread> lanes;
-        for (int l = 0; l < 32; ++l)
-          lanes.emplace_back([&, l] {
-            threadIdx.x = l;
-            residual_tile<TU, DST>(&src[i * 4096], &pred[i * 4096], &rec[i * 4096],
-                                   &nnz[i * k * k], &bits[i * k * k], ty, tx, q);
-          });
-        for (auto& lane : lanes) lane.join();
-      }
+      for (int tx = 0; tx < S::SIDE; ++tx)
+        emu_run_block([&] {
+          residual_tile<TU, DST>(&src[i * 4096], &pred[i * 4096], &rec[i * 4096],
+                                 &nnz[i * k * k], &bits[i * k * k], ty, tx, q);
+        });
 }
 
 int main() {
@@ -587,27 +578,9 @@ def emulated_stage(tmp_path_factory):
     warp as 32 threads, and the header's mma.sync wrappers (the one block of
     inline PTX) become its emulated product.  Skips without a C++20
     compiler."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a C++20 compiler (g++) to build the header for the CPU")
     tmp = tmp_path_factory.mktemp("residual_emu")
-    text = (Path(build.CSRC) / "residual_core.cuh").read_text()
-    start, end = text.index("#define RESTC_MMA("), text.index("#undef RESTC_MMA")
-    emulated = "\n".join(
-        f"template <int W> __device__ __forceinline__ void {name}(int (&d)[4], "
-        f"const uint32_t (&a)[W / 8], const uint32_t (&b)[W / 16]) "
-        f"{{ emu_mma<W, {a}, {b}>(d, a, b); }}"
-        for name, a, b in (("mma_s8u8", "true", "false"), ("mma_s8s8", "true", "true"),
-                           ("mma_u8s8", "false", "true")))
-    (tmp / "residual_core.cuh").write_text(
-        '#include "warp_emu.h"\n' + text[:start] + emulated + "\n" + text[end:])
-    (tmp / "cuda_runtime.h").write_text("#pragma once\n")
-    (tmp / "main.cpp").write_text(EMULATED_MAIN)
-    exe = tmp / "stage"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", "-I", str(tmp), "-I",
-                    str(Path(__file__).parent), "-o", str(exe), str(tmp / "main.cpp")],
-                   check=True, capture_output=True, text=True)
-    return exe
+    torch_testing.emulated_residual_core(tmp)
+    return torch_testing.build_emulator(tmp, EMULATED_MAIN, "stage")
 
 
 @pytest.mark.parametrize("tu,tr_type", list(VARIANTS), ids=["4 DST", "4", "8", "16", "32"])
@@ -620,8 +593,8 @@ def test_the_header_itself_on_an_emulated_warp(emulated_stage, tu, tr_type):
         _, _, (plain_rec, plain_nnz, plain_bits) = batch(tu, tr_type, qset)
         stdin = " ".join(map(str, (n, tu, tr_type, *qargs(qset, tu, tr_type),
                                    *src.ravel(), *pred.ravel())))
-        out = subprocess.run([str(emulated_stage)], input=stdin, capture_output=True,
-                             text=True, check=True, timeout=300).stdout.split()
+        out = torch_testing.run_emulator(emulated_stage, stdin,
+                                         f"tu {tu} dst {tr_type} {qset}").split()
         vals = np.array(out, dtype=np.int64)
         rec = vals[:n * B * B].reshape(n, B, B)
         nnz = vals[n * B * B:n * B * B + n * k * k].reshape(n, k, k)

@@ -18,6 +18,7 @@ from hevcasm_tpu.ops.sad import sad as jax_sad
 from hevcasm_tpu.ops.sad import sad_grid as jax_sad_grid
 from hevcasm_tpu.ops.sad import sad_multiref as jax_sad_multiref
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode import motion
 from hevcasm_tpu_torch.kernels import sad as ksad

@@ -18,6 +18,7 @@ import pytest
 
 from hevcasm_tpu.ops.sad import sad_grid as jax_sad_grid
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch.ops.sad import sad_grid
 
 MAX_THREADS = 256

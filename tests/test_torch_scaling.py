@@ -16,6 +16,7 @@ import pytest
 from hevcasm_tpu.encode import EncodeConfig as JaxConfig
 from hevcasm_tpu.parallel import (encode_gop_closed_loop_spatial, encode_gop_data_parallel,
                                   make_mesh)
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch.parallel import scaling
 
 BENCH_SCALING_KEYS = {"config", "desc", "platform", "scale", "fps_1dev", "fps_ndev",

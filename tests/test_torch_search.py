@@ -17,6 +17,7 @@ from hevcasm_tpu.kernels.search_pallas import ssd_grid as jax_ssd_grid
 from hevcasm_tpu.kernels.search_pallas import ssd_grid_plane as jax_ssd_grid_plane
 from hevcasm_tpu.kernels.search_pallas import ssd_grid_plane_multi as jax_ssd_grid_plane_multi
 
+from torch_testing import jax_once
 from hevcasm_tpu_torch import Tier, registry
 from hevcasm_tpu_torch.encode import ctu as tctu
 from hevcasm_tpu_torch.encode import motion as tmotion
@@ -229,9 +230,6 @@ def test_full_search_multi_matches_jax(rng, r, metric, joint):
         assert not (got[1] == 2).any(), "a tie must go to the lower reference"
 
 
-_JAX_B17 = {}
-
-
 def b17_case(content):
     """192 x 256 (a 3 x 4 grid) at R = 32, as hevcasm_tpu's
     test_search_variants_match_full_search: random cur and ref, or a
@@ -250,15 +248,17 @@ def b17_case(content):
     padded = tctu.pad_frame(torch.as_tensor(ref), r + 3, r + 4, r + 3, r + 4)
     pos = tmotion.ctu_positions(3, 4, 64)
     win = tmotion.extract_aligned_windows(padded, (3, 3), (3, 4), 64, 128)
-    if content not in _JAX_B17:
+
+    def run():
         jsrc = jctu.tile_frame(jnp.asarray(cur), 64)
         jpad = jnp.asarray(padded.numpy())
-        _JAX_B17[content] = {
+        return {
             "mv": [np.asarray(o) for o in search_mv(jsrc, jnp.asarray(win.numpy()), 65,
                                                     group=3)],
             "dma": [np.asarray(o) for o in search_mv_dma(jsrc, jpad, jnp.asarray(pos.numpy()),
                                                          r)]}
-    return (src, padded, pos, win), _JAX_B17[content]
+
+    return (src, padded, pos, win), jax_once(("b17", content), run)
 
 
 @pytest.mark.parametrize("entry", ["mv", "dma"])

@@ -29,6 +29,7 @@ import torch
 from hevcasm_tpu.encode import motion as jmotion
 from hevcasm_tpu.kernels import xla_opt
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch.encode import ctu as tctu
 from hevcasm_tpu_torch.encode import motion as tmotion
 from hevcasm_tpu_torch.utils.tensor import PAD_L

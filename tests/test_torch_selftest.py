@@ -14,6 +14,7 @@ from hevcasm_tpu import registry as jregistry
 from hevcasm_tpu import selftest as jselftest
 from hevcasm_tpu.config import Tier as JTier
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch import Tier, registry, selftest
 from hevcasm_tpu_torch.cli import main as cli_main
 from hevcasm_tpu_torch.utils import timing

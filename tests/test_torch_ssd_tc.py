@@ -20,6 +20,7 @@ from hevcasm_tpu.kernels import xla_opt
 from hevcasm_tpu.kernels.search_pallas import ssd_grid_plane as jax_ssd_grid_plane
 from hevcasm_tpu.kernels.search_pallas import ssd_grid_plane_multi as jax_ssd_grid_plane_multi
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch.kernels import search
 
 CTU = 64

@@ -14,6 +14,7 @@ from hevcasm_tpu.encode import partition as jpartition
 from hevcasm_tpu.ops import pred_inter as jpred
 from hevcasm_tpu.ops import transform as jtransform
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch.encode import loop as tloop
 from hevcasm_tpu_torch.ops import pred_inter as tpred
 from hevcasm_tpu_torch.ops import transform as ttransform

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_testing  # noqa: F401
 from hevcasm_tpu_torch.encode import EncodeConfig, YuvFrame, video
 from hevcasm_tpu_torch.encode.intra_wavefront import _schedule
 from hevcasm_tpu_torch.utils import trace

@@ -18,6 +18,7 @@ from hevcasm_tpu.encode.video import chroma_qp as jax_chroma_qp
 from hevcasm_tpu.encode.video import encode_b_frame_yuv as jax_b
 from hevcasm_tpu.encode.video import encode_inter_frame_yuv as jax_p
 
+from torch_testing import jax_once, smooth_plane
 from hevcasm_tpu_torch.encode import (EncodeConfig, YuvFrame, chroma_qp,
                                       encode_b_frame_yuv, encode_inter_frame,
                                       encode_inter_frame_yuv)
@@ -35,16 +36,11 @@ def clip(w=W, seed=0):
     (half that on chroma), so the MVs need quarter-pel fractions."""
     rng = np.random.default_rng(seed)
 
-    def plane(h, w, dy, dx, fy, fx):
-        y, x = np.mgrid[0:h, 0:w].astype(np.float64)
-        yy, xx = y + dy, x + dx
-        v = 128 + 70 * np.sin(xx / fx + yy / fy) + 40 * np.cos(xx / 23 - yy / 9)
-        return np.clip(np.rint(v + rng.normal(0, 1.5, v.shape)), 0, 255).astype(np.uint8)
-
     def frame(t):
         dy, dx = 2.25 * t, 3.25 * t
-        return (plane(H, w, dy, dx, 17, 11), plane(H // 2, w // 2, dy / 2, dx / 2, 7, 5),
-                plane(H // 2, w // 2, dy / 2, dx / 2, 5, 9))
+        return (smooth_plane(H, w, dy, dx, rng),
+                smooth_plane(H // 2, w // 2, dy / 2, dx / 2, rng, fy=7, fx=5),
+                smooth_plane(H // 2, w // 2, dy / 2, dx / 2, rng, fy=5, fx=9))
 
     return frame(0), frame(1), frame(2)
 
@@ -65,14 +61,8 @@ def run_port(kind, w=W, **kw):
     return encode_b_frame_yuv(YuvFrame(*cur), ref0, ref1, cfg, device="cpu")
 
 
-_JAX_CACHE = {}
-
-
 def jax_result(kind, **kw):
-    key = (kind, tuple(sorted(kw.items())))
-    if key not in _JAX_CACHE:
-        _JAX_CACHE[key] = run_jax(kind, **kw)
-    return _JAX_CACHE[key]
+    return jax_once((kind, tuple(sorted(kw.items()))), lambda: run_jax(kind, **kw))
 
 
 def assert_matches(kind, ours, theirs):

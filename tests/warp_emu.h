@@ -2,15 +2,18 @@
 // host C++20 compiler: each of the 32 lanes is a thread with its own
 // threadIdx, and every warp-collective operation (shuffle, __syncwarp, an
 // mma.sync product) meets the other lanes at a barrier.  The header's
-// mma.sync wrappers are replaced by emu_mma (the test that compiles the
-// header does the replacement), which forms the product from the lanes'
+// mma.sync wrappers are replaced by emu_mma (tests/torch_testing.py does
+// the replacement), which forms the product from the lanes'
 // registers with the PTX ISA's fragment layouts of mma.m16n8k16 and
-// mma.m16n8k32 with 8-bit integer types.  A kernel's block is one warp.
+// mma.m16n8k32 with 8-bit integer types.  A kernel's block is one warp,
+// which emu_run_block runs.
 #pragma once
 
 #include <algorithm>
 #include <barrier>
 #include <cstdint>
+#include <thread>
+#include <vector>
 
 #define __host__
 #define __device__
@@ -103,4 +106,19 @@ void emu_mma(int (&d)[4], const uint32_t* a, const uint32_t* b) {
     d[r] = static_cast<int>(static_cast<uint32_t>(acc));
   }
   g_warp_barrier->arrive_and_wait();
+}
+
+// One block of one warp: fn() on 32 threads, one a lane with its threadIdx.x,
+// meeting at a new warp barrier; returns when every lane has returned.
+template <class F>
+void emu_run_block(F&& fn) {
+  std::barrier<> warp(32);
+  g_warp_barrier = &warp;
+  std::vector<std::thread> lanes;
+  for (int l = 0; l < 32; ++l)
+    lanes.emplace_back([&fn, l] {
+      threadIdx.x = l;
+      fn();
+    });
+  for (auto& lane : lanes) lane.join();
 }
