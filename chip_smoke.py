@@ -26,7 +26,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             K2's and B3's kernels must each have two instances, the
             host-int one and the device-q one (the quantizer parameters
             read from an int32[5] on the card), both with IMMA; prints
-            their registers and local memory.
+            their registers and local memory.  chroma_p_fused's and
+            chroma_b_fused's kernels must show IMMA; prints their
+            registers and local memory.
 3. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit on every output: the 1080p shapes (510 CTUs, R = 32), an
             odd grid width (3) at R = 8 (K1 also at R = 1, 2 and 31, and B7
@@ -58,7 +60,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
             intra_wave_fused over every wave of the 1080p bench frame and of
             a random 4K one, at qp 32 with strong intra smoothing and qp 22
             without, against intra_wave_ref wave by wave (the canvas, the
-            nnz and each block's mode).
+            nnz and each block's mode).  chroma_p_fused (luma qp 35 and 22)
+            and chroma_b_fused (a second reference at its own MVs, luma qp
+            32 and 22) on the 1080p and 4K chroma planes, MVs past every
+            edge.
             The search configurations'
             kernels: B9 on the pyramid's shapes (510 16x16 decimated blocks
             at num 17, 510 CTUs at num 7), the full search (510 CTUs, R =
@@ -95,8 +100,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             encode_inter_frame on a 1920x1088 luma P frame of bench content
             (seed 0, a pure (2, 3) shift) must launch K1 and K2;
             encode_inter_frame_yuv on a 1920x1088 4:2:0 P frame of bench's
-            structured pan must launch K1 and K2; encode_b_frame_yuv on the
-            B frame of that content must launch K1 twice and B3.  The RDO P
+            structured pan must launch K1, K2 and chroma_p_fused;
+            encode_b_frame_yuv on the B frame of that content must launch
+            K1 twice, B3 and chroma_b_fused.  The RDO P
             frame, encode_inter_frame(EncodeConfig(search_range=32, qp=32,
             pu_decision=True)) on the structured pan's luma, must launch B15
             and B13; with all six layouts B14 and B13; with tu_sizes=(4, 8,
@@ -890,7 +896,8 @@ COUNTED = {"ssd_grid_plane": "search", "inter_ctu_fused_dma": "inter_fused",
            "sad_grid": "sad", "search_mv": "search", "search_mv_dma": "search",
            "encode_ctu_mega": "mega", "sad": "sad", "sad_multiref": "sad", "pred_uni": "mc",
            "pred_bi": "mc", "base_layout_decide_fc": "base_grids",
-           "chroma_p_fused": "chroma_fused", "intra_wave_fused": "intra_wave"}
+           "chroma_p_fused": "chroma_fused", "chroma_b_fused": "chroma_fused",
+           "intra_wave_fused": "intra_wave"}
 
 
 def counted_wrappers() -> dict:
@@ -1145,7 +1152,8 @@ def main() -> int:
         base_layout_decide_fc_ref, base_layout_decide_ref)
     from hevcasm_tpu_torch.kernels.bi_fused import (
         bi_ctu_fused_dma, bi_ctu_fused_dma_ref)
-    from hevcasm_tpu_torch.kernels.chroma_fused import chroma_p_fused, chroma_p_fused_ref
+    from hevcasm_tpu_torch.kernels.chroma_fused import (
+        chroma_b_fused, chroma_b_fused_ref, chroma_p_fused, chroma_p_fused_ref)
     from hevcasm_tpu_torch.kernels.intra_wave import intra_wave_fused, intra_wave_ref
     from hevcasm_tpu_torch.kernels.costmap import (
         refine_qpel_costmap, refine_qpel_costmap_dma, refine_qpel_costmap_dma_ref,
@@ -1234,6 +1242,14 @@ def main() -> int:
             f"{resource_usage(build, kernel)}")
         if len(q_imma) != 2 or not min(q_imma.values()):
             raise AssertionError(f"{name}: not two tensor-core instances ({q_imma})")
+    # chroma_p_fused's and chroma_b_fused's kernels (one CTA body over one or
+    # two references): MC and residual on the tensor cores in each.
+    for kernel in ("chroma_p_kernel", "chroma_b_kernel"):
+        c_imma = sass_count(build, kernel, "IMMA")
+        log(f"SASS: {kernel}: {c_imma} IMMA; registers and local memory (cuobjdump "
+            f"-res-usage): {resource_usage(build, kernel)}")
+        if not c_imma:
+            raise AssertionError(f"{kernel} has no IMMA (tensor-core) instruction")
 
     # ---- 3. each kernel against its plain version ---------------------------
     cfg = EncodeConfig(search_range=SEARCH_RANGE, qp=32, inter_impl="fused_dma")
@@ -1245,7 +1261,7 @@ def main() -> int:
                          "inter_ctu_fused", "residual_pipeline_ctu", "sad_grid",
                          "search_mv", "search_mv_dma", "encode_ctu_mega", "sad",
                          "sad_multiref", "pred_uni", "pred_bi", "base_layout_decide_fc",
-                         "chroma_p_fused", "intra_wave_fused"), 0)
+                         "chroma_p_fused", "chroma_b_fused", "intra_wave_fused"), 0)
 
     def search_inputs(cur, ref, r):
         """K1 operands as full_search_slab builds them."""
@@ -1846,6 +1862,19 @@ def main() -> int:
             check("chroma_p_fused", f"{what_c} 4:2:0 P frame's chroma planes, luma qp {qp_c}",
                   list(chroma_p_fused(*ops_c, ccfg)), list(chroma_p_fused_ref(*ops_c, ccfg)),
                   f"planes {tuple(ops_c[0].shape)}")
+    # chroma_b_fused: the same planes with a second reference at its own
+    # MVs, at luma qp 32 (qPc 31, ra1080_ibpbp33's) and 22.
+    cb_1080 = (*cf_1080[:4], yuv_ref1.cb, yuv_ref1.cr, cf_1080[4], chroma_mvs(H // 2, W // 2))
+    cb_4k = (*cf_4k[:4], *(torch.as_tensor(cf_rng.integers(0, 256, (H4K // 2, W4K // 2),
+                                                          dtype=np.uint8), device=dev)
+                           for _ in range(2)), cf_4k[4], chroma_mvs(H4K // 2, W4K // 2))
+    for what_c, ops_c in (("1080p", cb_1080), ("4K", cb_4k)):
+        for qp_c in (32, 22):
+            ccfg = EncodeConfig(search_range=SEARCH_RANGE, qp=qp_c)
+            check("chroma_b_fused", f"{what_c} 4:2:0 B frame's chroma planes, luma qp {qp_c}",
+                  list(chroma_b_fused(*ops_c, ccfg)), list(chroma_b_fused_ref(*ops_c, ccfg)),
+                  f"planes {tuple(ops_c[0].shape)}")
+    del cb_4k
     # intra_wave_fused: every wave of the 1080p bench frame and of a random
     # 4K one against intra_wave_ref wave by wave.
     iw_4k = torch.as_tensor(np.random.default_rng(24).integers(0, 256, (H4K, W4K),
@@ -1969,7 +1998,7 @@ def main() -> int:
 
     yuv_frames = (yuv_cur, yuv_ref0, yuv_ref1)
     need = {"P": {"ssd_grid_plane": 1, "inter_ctu_fused_dma": 1, "chroma_p_fused": 1},
-            "B": {"ssd_grid_plane": 2, "bi_ctu_fused_dma": 1}}
+            "B": {"ssd_grid_plane": 2, "bi_ctu_fused_dma": 1, "chroma_b_fused": 1}}
     int_shapes = {"P": {"mvs": (n, 2), "nnz": ()},
                   "B": {"mvs0": (n, 2), "mvs1": (n, 2), "nnz": ()}}
     for kind in ("P", "B"):
@@ -2204,7 +2233,7 @@ def main() -> int:
                                                     pu_decision=True, me_metric="sad"),
                                 {"sad_grid": 1, "refine_qpel_costmap_dma": 1}),
         "yuv B sad": ("B", EncodeConfig(**fused, me_metric="sad"),
-                      {"sad_grid": 1, "bi_ctu_fused_dma": 1}),
+                      {"sad_grid": 1, "bi_ctu_fused_dma": 1, "chroma_b_fused": 1}),
     }
     for name, (kind, pcfg, need_p) in search_paths.items():
         run = search_path(kind)
@@ -2247,7 +2276,7 @@ def main() -> int:
     # mean the fixtures stayed on the CPU and the plain version ran).
     st_need = {"sad": 23, "sad_multiref": 23, "sad_grid": 3, "ssd_grid": 3, "pred_uni": 32,
                "pred_bi": 4, "refine_quarter_pel_fused": 2, "residual_pipeline_ctu": 2,
-               "chroma_p_fused": 2}
+               "chroma_p_fused": 2, "chroma_b_fused": 2}
     st_errors = drive("self-test (selftest.main, time_it=False)",
                       lambda: selftest.main(time_it=False), st_need, exact=True)
     if st_errors:
@@ -2400,9 +2429,11 @@ def main() -> int:
     wf_cfg = dataclasses.replace(cfg, intra_mode="wavefront")
     ippp = {"ssd_grid_plane": 4, "inter_ctu_fused_dma": 4}
     ibpbp = {"ssd_grid_plane": 6, "inter_ctu_fused_dma": 2, "bi_ctu_fused_dma": 2}
-    # The 4:2:0 GOPs' P frames code their chroma in chroma_p_fused, and a
-    # wavefront I frame its waves in intra_wave_fused.
-    ippp_yuv, ibpbp_yuv = {**ippp, "chroma_p_fused": 4}, {**ibpbp, "chroma_p_fused": 2}
+    # The 4:2:0 GOPs' P frames code their chroma in chroma_p_fused, their B
+    # frames in chroma_b_fused, and a wavefront I frame its waves in
+    # intra_wave_fused.
+    ippp_yuv = {**ippp, "chroma_p_fused": 4}
+    ibpbp_yuv = {**ibpbp, "chroma_p_fused": 2, "chroma_b_fused": 2}
     waves = {"intra_wave_fused": WAVES_1080P}
     gops = {
         "encode_gop": (lambda f, c, t=Tier.ALL: encode_gop(f.y, c, t), cfg, ippp),
@@ -2671,6 +2702,7 @@ def main() -> int:
                           "sad_multiref cdist": lambda: torch.cdist(cd_mr, cd_refs, p=1)})
     library = {"sad": b10_turns["sad cdist"], "sad_multiref": b10_turns["sad_multiref cdist"]}
     cf_cfg = EncodeConfig(search_range=SEARCH_RANGE, qp=35)
+    cb_cfg = EncodeConfig(search_range=SEARCH_RANGE, qp=32)
     times = {
         "ssd_grid_plane": (
             median_ms(lambda: ssd_grid_plane(src, plane, grid, num), calls=10),
@@ -2739,6 +2771,9 @@ def main() -> int:
         "chroma_p_fused": (
             median_ms(lambda: chroma_p_fused(*cf_1080, cf_cfg), calls=10),
             median_ms(lambda: chroma_p_fused_ref(*cf_1080, cf_cfg))),
+        "chroma_b_fused": (
+            median_ms(lambda: chroma_b_fused(*cb_1080, cb_cfg), calls=10),
+            median_ms(lambda: chroma_b_fused_ref(*cb_1080, cb_cfg))),
         # A call is a 1080p I frame's 126 waves (the host enqueue included).
         "intra_wave_fused": (
             median_ms(lambda: intra_wave_frame(intra_wave_fused, cur, intra_cfg)),
@@ -2767,6 +2802,7 @@ def main() -> int:
         "inter_ctu_fused": lambda: inter_ctu_fused(src, b16_win, *qargs),
         "encode_ctu_mega": lambda: encode_ctu_mega(src, padded, pos, SEARCH_RANGE, *qargs),
         "chroma_p_fused": lambda: chroma_p_fused(*cf_1080, cf_cfg),
+        "chroma_b_fused": lambda: chroma_b_fused(*cb_1080, cb_cfg),
         "intra_wave_fused": lambda: intra_wave_frame(intra_wave_fused, cur, intra_cfg),
         **{b4_name(tu, tr): lambda tu=tu, tr=tr: residual_pipeline_ctu(
             b_src, b4_pred, *b4_args[(tu, tr)], tu=tu, tr_type=tr) for tu, tr in b4_args},
@@ -2794,6 +2830,8 @@ def main() -> int:
                     "pred_bi": "510 64x64 luma block pairs, 8-tap, per-block fractions",
                     "base_layout_decide_fc": "510 CTUs, R=32, 26 PU lists (B15 at base 16)",
                     "chroma_p_fused": "both 544x960 chroma planes, 1020 32x32 blocks, qp 35",
+                    "chroma_b_fused": "both 544x960 chroma planes from two references, 1020 "
+                                      "32x32 blocks, qp 32",
                     "intra_wave_fused": "a 1080p I frame's 126 waves, 2040 32x32 blocks, qp 32"}
     more = {
         "refine_qpel_costmap_dma 32640 8x8 tiles": (
@@ -2991,6 +3029,9 @@ def main() -> int:
         "chroma_p_fused": ("hevcasm_tpu_torch/csrc/chroma_fused.cu",
                            "none: the port's own (hevcasm_tpu codes chroma in plain ops, "
                            "hevcasm_tpu/encode/video.py)"),
+        "chroma_b_fused": ("hevcasm_tpu_torch/csrc/chroma_fused.cu",
+                           "none: the port's own (hevcasm_tpu codes a B frame's chroma in "
+                           "plain ops, hevcasm_tpu/encode/video.py)"),
         "intra_wave_fused": ("hevcasm_tpu_torch/csrc/intra_wave.cu",
                              "none: the port's own (hevcasm_tpu codes the wavefront I frame "
                              "in plain ops, hevcasm_tpu/encode/intra_wavefront.py)"),
@@ -3044,6 +3085,10 @@ def main() -> int:
     cf_blocks = 2 * cf_1080[-1].shape[0]
     costs["chroma_p_fused"] = (nbytes(*cf_1080) + 2 * cf_1080[0].numel() + 8,
                                cf_blocks * (2 * mc_macs(32, 32, 4) + residual_ops(4) // 4))
+    # chroma_b_fused: six planes read (the source and two references), two
+    # written, both MV arrays and two counts; each block two 4-tap MCs.
+    costs["chroma_b_fused"] = (nbytes(*cb_1080) + 2 * cb_1080[0].numel() + 8,
+                               cf_blocks * (2 * 2 * mc_macs(32, 32, 4) + residual_ops(4) // 4))
     # K2 (and B16, its kernel on gathered windows) and B3: the refinement's
     # and the residual stage's products at mma.sync's own rates, beside the
     # bound.
@@ -3159,16 +3204,18 @@ def main() -> int:
     # chroma_p_fused: each 32x32 block of each plane 4 MC tasks (a strip and
     # a step: 2 chunks of 2 horizontal products, 4 vertical) of 8 m16n8k32
     # products, and 4 residual tiles of 16 m16n8k16 (a quarter of a CTU's).
-    k32 = cf_blocks * 4 * 8
-    k16 = cf_blocks * residual_tc_products(1, 4)[0] // 4
-    floor = (k32 / mma32_pps + k16 / mma16_pps) * 1e3
-    b_ms, b_by = bound(*costs["chroma_p_fused"])
-    d_ms = device["chroma_p_fused"]
-    log(f"{tag} chroma_p_fused 1080p (1020 32x32 blocks): {k32} m16n8k32 + {k16} m16n8k16 "
-        f"products, design floor {floor:.4f} ms at mma.sync's own rates; bound {b_ms:.4f} ms "
-        f"({b_by}); kernel {times['chroma_p_fused'][0]:.4f} ms a call"
-        + (f" (device {d_ms:.4f}), device at {floor / d_ms:.3f} of the floor and "
-           f"{b_ms / d_ms:.3f} of the bound" if d_ms else ", device time not measured"))
+    # chroma_b_fused's MC tasks run each product for both references.
+    for name, refs in (("chroma_p_fused", 1), ("chroma_b_fused", 2)):
+        k32 = cf_blocks * 4 * 8 * refs
+        k16 = cf_blocks * residual_tc_products(1, 4)[0] // 4
+        floor = (k32 / mma32_pps + k16 / mma16_pps) * 1e3
+        b_ms, b_by = bound(*costs[name])
+        d_ms = device[name]
+        log(f"{tag} {name} 1080p (1020 32x32 blocks): {k32} m16n8k32 + {k16} m16n8k16 "
+            f"products, design floor {floor:.4f} ms at mma.sync's own rates; bound "
+            f"{b_ms:.4f} ms ({b_by}); kernel {times[name][0]:.4f} ms a call"
+            + (f" (device {d_ms:.4f}), device at {floor / d_ms:.3f} of the floor and "
+               f"{b_ms / d_ms:.3f} of the bound" if d_ms else ", device time not measured"))
     # intra_wave_fused: a frame is a chain of dependent launches, one a
     # wave, each a CTA a block (<= 60 of 132 SMs), so no byte or operation
     # count bounds it: its bound is the chain of as many dependent launches

@@ -1,61 +1,76 @@
-// Kernel chroma_p_fused: the chroma of a 4:2:0 P frame, both planes, in one
-// launch.
+// Kernels chroma_p_fused and chroma_b_fused: the chroma of a 4:2:0 P frame
+// (one reference) or B frame (two references), both planes, in one launch.
 //
-// Replaces no TPU kernel: hevcasm_tpu codes a P frame's chroma in plain ops
-// (encode/video.py _chroma_mc, then _chroma_residual, a plane at a time),
-// which the port ran as some 140 small torch ops and launches a plane, with
-// the 4x4 transforms as float64 matrix products.  This kernel computes the
+// Replace no TPU kernel: hevcasm_tpu codes a frame's chroma in plain ops
+// (encode/video.py _chroma_mc, then _chroma_residual, a plane at a time; a
+// B frame predicts each plane from both references as int16 (acc >> 6)
+// intermediates and takes their mean (p0 + p1 + 64) >> 7), which the port
+// ran as some 140 (P) or 200 (B) small torch ops and launches a plane, with
+// the 4x4 transforms as float64 matrix products.  These kernels compute the
 // same integers.  For 32x32 chroma block i (the chroma of 64x64 luma CTU i,
 // raster order) of each plane, one CTA of 8 warps, with nothing written to
 // device memory between the steps:
 //
-//   1. stages the 35x35 reference window at the block's position plus
-//      (mv >> 3) - 1 straight from the (h, w) reference plane, rows and
-//      columns past the plane clamped to its edge (pad_frame's edge
-//      replication): by 16-byte cp.async (mc_tc.cuh stage_window) where the
-//      window lies inside the plane, else sample by sample; and the 32x32
-//      source block, 16 bytes a thread;
+//   1. stages, for each reference r, the 35x35 window at the block's
+//      position plus (mv_r >> 3) - 1 straight from the (h, w) reference
+//      plane, rows and columns past the plane clamped to its edge
+//      (pad_frame's edge replication): by 16-byte cp.async (mc_tc.cuh
+//      stage_window) where the window lies inside the plane, else sample by
+//      sample; and the 32x32 source block, 16 bytes a thread;
 //   2. predicts it at fraction mv & 7 on both axes with B5's 4-tap
 //      tensor-core core (mc_tc.cuh strip_task: a warp a 16-column strip and
-//      a 16-row step), the prediction into shared memory;
+//      a 16-row step), or, for a B frame, on B6's bi path of that core: each
+//      reference's window at its own fraction, clip((wrap16(acc0 >> 6) +
+//      wrap16(acc1 >> 6) + 64) >> 7), which is pred_uni_16 of each and
+//      their mean; the prediction into shared memory;
 //   3. codes it with the residual stage K2, B3, B4 and B19 share
 //      (residual_core.cuh residual_tile<4>: a warp a 16x16 tile, 4x4 DCT,
 //      quantize, per-TU nnz, dequantize, inverse, add and clip, the four
-//      passes on mma.sync), at the chroma quantizer the wrapper passes;
+//      passes on mma.sync), at the chroma quantizer the wrapper passes (the
+//      B frame's chroma takes the P frame's: inter, 4x4 TUs);
 //   4. writes the 32x32 reconstruction into the (h, w) output plane, 16
 //      bytes a thread, and adds the block's nnz to the plane's count
 //      (nnz[0] Cb, nnz[1] Cr) with one atomicAdd; the C entry zeroes the
 //      two counts before the launch.
 //
-// Steps 2 and 3 keep the stride-64 layout their cores were written for
-// (B5's output rows w apart, residual_tile's rows B apart), so the cores
-// serve this kernel unchanged: the prediction, source and reconstruction
-// tiles are 32 rows of 64 bytes in shared memory, and step 4 moves the
+// One CTA body, code_block<R> over R = 1 (P) or 2 (B) references, serves
+// both kernels: its arrays of R entries are indexed by constants the
+// compiler unrolls, so the P instance is the body it was alone.  Steps 2
+// and 3 keep the stride-64 layout their cores were written for (B5's
+// output rows w apart, residual_tile's rows B apart), so the cores serve
+// these kernels unchanged: the prediction, source and reconstruction tiles
+// are 32 rows of 64 bytes in shared memory, and step 4 moves the
 // reconstruction to the plane in whole 16-byte rows pieces.
 //
-// What bounds it on the H100: a 1920x1088 frame's two 960x544 planes are
-// 0.52 MB each read twice (source, reference) and written once, 3.1 MB
-// (0.0009 ms at 3.35 TB/s; the windows' overlap reads the reference ~1.2
-// times, from L2), for 2 x 510 blocks of 5 m16n8k32 products a 16-row step
-// of MC and 16 m16n8k16 a 16x16 tile of residual: neither bytes nor
-// products.  A call is bound by its latency (the launch, the window's
-// trip into shared memory, three barriers and each warp's chain of
-// products) and, on the frame's path, by the host: one launch, and
-// nothing else, where the plain composition enqueued ~280.
+// What bounds them on the H100: a 1920x1088 frame's two 960x544 planes are
+// 0.52 MB each, read once as the source and once from each reference and
+// written once: 3.1 MB (P) or 4.2 MB (B), 0.0009 or 0.0013 ms at 3.35 TB/s
+// (the windows' overlap reads a reference ~1.2 times, from L2), for 2 x 510
+// blocks of 5 m16n8k32 products a 16-row step of MC (twice for B) and 16
+// m16n8k16 a 16x16 tile of residual: neither bytes nor products.  A call is
+// bound by its latency (the launch, the windows' trip into shared memory,
+// three barriers and each warp's chain of products) and, on the frame's
+// path, by the host: one launch, and nothing else, where the plain
+// composition enqueued ~280 (P) or ~400 (B).
 
 #include "mc_tc.cuh"
 #include "residual_core.cuh"
 
-// The C entry's packed argument block (kernels/chroma_fused.py _ARGS: 17
-// int64).  Planes j = 0 (Cb) and 1 (Cr): cur[j], ref[j] and rec[j] are (h,
-// w) uint8, contiguous and 16-byte aligned; mv is block i's (dy, dx) luma
-// quarter-pel MV at mv + 2i (int32); nnz int32[2].
-struct ChromaArgs {
-  long long cur[2], ref[2], rec[2];
-  long long mv, nnz, h, w;
+// The C entries' packed argument block over R references
+// (kernels/chroma_fused.py: 17 int64 for the P frame's R = 1, 20 for the B
+// frame's R = 2).  Planes j = 0 (Cb) and 1 (Cr): cur[j], ref[r][j] and
+// rec[j] are (h, w) uint8, contiguous and 16-byte aligned; mv[r] holds block
+// i's (dy, dx) luma quarter-pel MV into reference r at mv[r] + 2i (int32);
+// nnz int32[2].
+template <int R>
+struct ChromaFusedArgs {
+  long long cur[2], ref[R][2], rec[2];
+  long long mv[R], nnz, h, w;
   long long q[5];    // qscale, qshift, qoffset, dscale, dshift
   long long device, stream;
 };
+using ChromaArgs = ChromaFusedArgs<1>;
+using ChromaBiArgs = ChromaFusedArgs<2>;
 
 namespace {
 namespace chroma {
@@ -72,9 +87,12 @@ constexpr int COUNTS = 128;                // a plane's per-TU counts (TU grid r
 constexpr int WS = 16 * ((N / 16 + 2) | 1);
 constexpr int WIN_BYTES = 16 * (N / 16 + 1) * WS;
 
-// Shared memory of a CTA: two windows, then the prediction, source and
-// reconstruction tiles of both planes, then both planes' counts.
-constexpr int SMEM = 2 * WIN_BYTES + 3 * 2 * TILE + 2 * COUNTS * 4;
+// Shared memory of a CTA over R references: 2R windows (plane p's from
+// reference r at R p + r), then the prediction, source and reconstruction
+// tiles of both planes, then both planes' counts: 21,504 bytes (P) or
+// 28,672 (B), static, so two CTAs share an SM.
+template <int R>
+constexpr int SMEM = 2 * R * WIN_BYTES + 3 * 2 * TILE + 2 * COUNTS * 4;
 
 struct alignas(16) Bytes16 {
   uint32_t w[4];
@@ -92,35 +110,47 @@ __device__ __forceinline__ void stage_clamped(const uint8_t* __restrict__ plane,
   }
 }
 
-// Block i of both planes by a CTA of nthreads threads (a multiple of 32);
-// smem holds SMEM bytes, 16-byte aligned.
-__device__ __forceinline__ void code_block(const ChromaArgs& a, long long i, int nthreads,
-                                           uint8_t* smem) {
+// Block i of both planes, predicted from R references, by a CTA of nthreads
+// threads (a multiple of 32); smem holds SMEM<R> bytes, 16-byte aligned.
+template <int R>
+__device__ __forceinline__ void code_block(const ChromaFusedArgs<R>& a, long long i,
+                                           int nthreads, uint8_t* smem) {
   const int h = static_cast<int>(a.h), w = static_cast<int>(a.w), gc = w / N;
   const int by = static_cast<int>(i / gc), bx = static_cast<int>(i - static_cast<long long>(by) * gc);
-  const int32_t* mv = reinterpret_cast<const int32_t*>(a.mv) + 2 * i;
-  const int my = __ldg(mv), mx = __ldg(mv + 1);
-  const int y0 = N * by + (my >> 3) - (TAPS / 2 - 1), x0 = N * bx + (mx >> 3) - (TAPS / 2 - 1);
-  const bool inside = y0 >= 0 && x0 >= 0 && y0 + WIN <= h && x0 + WIN <= w;
+  int my[R], mx[R], y0[R], x0[R];
+  bool inside[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int32_t* mv = reinterpret_cast<const int32_t*>(a.mv[r]) + 2 * i;
+    my[r] = __ldg(mv);
+    mx[r] = __ldg(mv + 1);
+    y0[r] = N * by + (my[r] >> 3) - (TAPS / 2 - 1);
+    x0[r] = N * bx + (mx[r] >> 3) - (TAPS / 2 - 1);
+    inside[r] = y0[r] >= 0 && x0[r] >= 0 && y0[r] + WIN <= h && x0[r] + WIN <= w;
+  }
   uint8_t* const win = smem;
-  uint8_t* const pred = win + 2 * WIN_BYTES;
+  uint8_t* const pred = win + 2 * R * WIN_BYTES;
   uint8_t* const src = pred + 2 * TILE;
   uint8_t* const out = src + 2 * TILE;
   int32_t* const counts = reinterpret_cast<int32_t*>(out + 2 * TILE);
 
   // ---- 1. the windows and the source blocks ---------------------------------
-  mctc::Staged staged[2];
+  mctc::Staged staged[2][R];
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
-    const uint8_t* ref = reinterpret_cast<const uint8_t*>(a.ref[p]);
-    if (inside) {
-      const uint8_t* origin = ref + static_cast<size_t>(y0) * w + x0;
-      mctc::stage_window(origin, w, WIN, WIN, nthreads, win + p * WIN_BYTES, WS);
-      staged[p] = {win + p * WIN_BYTES, static_cast<unsigned>(reinterpret_cast<uintptr_t>(origin) & 15),
-                   static_cast<unsigned>(w & 15)};
-    } else {
-      stage_clamped(ref, h, w, y0, x0, nthreads, win + p * WIN_BYTES);
-      staged[p] = {win + p * WIN_BYTES, 0u, 0u};
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const uint8_t* ref = reinterpret_cast<const uint8_t*>(a.ref[r][p]);
+      uint8_t* const dst = win + (R * p + r) * WIN_BYTES;
+      if (inside[r]) {
+        const uint8_t* origin = ref + static_cast<size_t>(y0[r]) * w + x0[r];
+        mctc::stage_window(origin, w, WIN, WIN, nthreads, dst, WS);
+        staged[p][r] = {dst, static_cast<unsigned>(reinterpret_cast<uintptr_t>(origin) & 15),
+                        static_cast<unsigned>(w & 15)};
+      } else {
+        stage_clamped(ref, h, w, y0[r], x0[r], nthreads, dst);
+        staged[p][r] = {dst, 0u, 0u};
+      }
     }
   }
   for (int k = threadIdx.x; k < 2 * N * N / 16; k += nthreads) {
@@ -129,19 +159,22 @@ __device__ __forceinline__ void code_block(const ChromaArgs& a, long long i, int
         *reinterpret_cast<const Bytes16*>(reinterpret_cast<const uint8_t*>(a.cur[p]) +
                                           static_cast<size_t>(N * by + r) * w + N * bx + c);
   }
-  const mctc::Bands bands = mctc::bands<TAPS>(mx & 7, my & 7);
+  mctc::Bands bands[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) bands[r] = mctc::bands<TAPS>(mx[r] & 7, my[r] & 7);
   mctc::cp_async_wait_all();
   __syncthreads();
 
   // ---- 2. the predictions: task k is plane k >> 2, strip (k >> 1) & 1, step k & 1
   // store_rows puts output row y at y * w: w = B lays the prediction out as
   // residual_tile reads it, the two strips filling the first 32 bytes of a row.
+  // A B frame's task runs both references' products on its tile.
   mctc::Geom g = mctc::geometry(N, N, 1);
   g.w = B;
   for (int k = threadIdx.x >> 5; k < 8; k += nthreads >> 5) {
     const int p = k >> 2, q = k & 1;
-    mctc::strip_task<false>(g, staged[p], staged[p], (k >> 1) & 1, q, q + 1, bands, bands,
-                            pred + p * TILE);
+    mctc::strip_task<R == 2>(g, staged[p][0], staged[p][R - 1], (k >> 1) & 1, q, q + 1,
+                             bands[0], bands[R - 1], pred + p * TILE);
   }
   __syncthreads();
 
@@ -182,18 +215,21 @@ __device__ __forceinline__ void code_block(const ChromaArgs& a, long long i, int
 namespace {
 
 __global__ void __launch_bounds__(chroma::NTHREADS, 2) chroma_p_kernel(const ChromaArgs a) {
-  __shared__ __align__(16) uint8_t smem[chroma::SMEM];
+  __shared__ __align__(16) uint8_t smem[chroma::SMEM<1>];
   chroma::code_block(a, blockIdx.x, blockDim.x, smem);
 }
 
-}  // namespace
+__global__ void __launch_bounds__(chroma::NTHREADS, 2) chroma_b_kernel(const ChromaBiArgs a) {
+  __shared__ __align__(16) uint8_t smem[chroma::SMEM<2>];
+  chroma::code_block(a, blockIdx.x, blockDim.x, smem);
+}
 
-// Zeroes nnz[0..1], then launches one CTA a 32x32 block on the stream, and
-// returns cudaGetLastError() (cudaErrorInvalidValue for a shape or a
-// quantizer it does not take: h and w multiples of 32 up to 2^16; the caller
-// checks 1 <= qscale < 2^15 and 0 <= qoffset < 2^15).
-extern "C" int hevc_chroma_p_fused(const ChromaArgs* args) {
-  const ChromaArgs& a = *args;
+// Zeroes nnz[0..1], then launches kernel, one CTA a 32x32 block, on the
+// stream, and returns cudaGetLastError() (cudaErrorInvalidValue for a shape
+// or a quantizer it does not take: h and w multiples of 32 up to 2^16; the
+// caller checks 1 <= qscale < 2^15 and 0 <= qoffset < 2^15).
+template <int R>
+int launch(const ChromaFusedArgs<R>& a, void (*kernel)(const ChromaFusedArgs<R>)) {
   if (a.h < chroma::N || a.w < chroma::N || a.h % chroma::N || a.w % chroma::N
       || a.h > (1 << 16) || a.w > (1 << 16) || a.q[1] < 16 || a.q[1] > 27 || a.q[4] < 1
       || a.q[4] > 31 || a.device < 0 || a.device >= (1LL << 31))
@@ -206,6 +242,18 @@ extern "C" int hevc_chroma_p_fused(const ChromaArgs* args) {
   err = cudaMemsetAsync(reinterpret_cast<void*>(a.nnz), 0, 2 * sizeof(int32_t), s);
   if (err != cudaSuccess) return err;
   const long long n = (a.h / chroma::N) * (a.w / chroma::N);
-  chroma_p_kernel<<<static_cast<unsigned>(n), chroma::NTHREADS, 0, s>>>(a);
+  kernel<<<static_cast<unsigned>(n), chroma::NTHREADS, 0, s>>>(a);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// A P frame's chroma, from one reference.
+extern "C" int hevc_chroma_p_fused(const ChromaArgs* args) {
+  return launch(*args, chroma_p_kernel);
+}
+
+// A B frame's chroma, from two references at their own MVs.
+extern "C" int hevc_chroma_b_fused(const ChromaBiArgs* args) {
+  return launch(*args, chroma_b_kernel);
 }

@@ -16,13 +16,14 @@ frame's search, refine and residual as loop._inter_core runs them (K1, B8,
 B9, K2, B16, B11, B4), and under inter_impl "fused*" B3
 (kernels.bi_fused.bi_ctu_fused_dma, the B frame's two refinements, combine
 and residual), else the staged B path with B4 under residual_impl
-"pallas".  A CUDA P frame at 64x64 CTUs codes both chroma planes in one
-launch of kernels.chroma_fused.chroma_p_fused (window, 4-tap MC and 4x4
+"pallas".  A CUDA P or B frame at 64x64 CTUs codes both chroma planes in
+one launch of kernels.chroma_fused.chroma_p_fused or chroma_b_fused
+(windows, 4-tap MC, the B frame's mean of its two references, and 4x4
 residual of every 32x32 chroma block) when the tiers include KERNEL; the
-CPU, tiers=Tier.REF, other CTU sizes, the B frame's chroma and intra chroma
-run the plain PyTorch composition (_chroma_mc, _chroma_residual,
-_chroma_intra_plane), the golden model.  Every path gives the same
-integers as hevcasm_tpu.
+CPU, tiers=Tier.REF, other CTU sizes and intra chroma run the plain
+PyTorch composition (_chroma_mc, _chroma_residual, the B frame's as
+chroma_fused.chroma_b_fused_ref, _chroma_intra_plane), the golden model.
+Every path gives the same integers as hevcasm_tpu.
 
 The I frame (encode_intra_frame_yuv: loop.encode_intra_frame's luma,
 chroma planar/DC/H/V) starts the GOPs: encode_gop_yuv (open loop, IPPP or
@@ -131,9 +132,10 @@ def _chroma_residual(cur_plane, pred_blocks, cfg: EncodeConfig, intra: bool,
 
 
 def _uses_chroma_kernel(cfg: EncodeConfig, tiers: Tier, plane: torch.Tensor) -> bool:
-    """Whether a P frame's chroma runs kernels.chroma_fused.chroma_p_fused:
-    tiers with KERNEL, CUDA planes and 64x64 luma CTUs (the 32x32 chroma
-    blocks at 4x4 TUs that _chroma_cfg gives)."""
+    """Whether a P or B frame's chroma runs kernels.chroma_fused's kernel
+    (chroma_p_fused, chroma_b_fused): tiers with KERNEL, CUDA planes and
+    64x64 luma CTUs (the 32x32 chroma blocks at 4x4 TUs that _chroma_cfg
+    gives)."""
     return bool(tiers & Tier.KERNEL) and plane.is_cuda and cfg.ctu == 2 * chroma_fused.BLOCK
 
 
@@ -258,7 +260,11 @@ def encode_b_frame_yuv(cur, ref0, ref1, cfg: EncodeConfig = EncodeConfig(),
     """One B frame over 4:2:0 planes: independent integer search against
     both references, quarter-pel refinement of each, the combining mean
     (r0 + r1 + 64) >> 7 on luma and on chroma (with the same MV pair), and
-    the residual of each plane.
+    the residual of each plane.  Chroma runs in one launch of
+    chroma_b_fused (both planes) where _uses_chroma_kernel says so, else
+    its plain version chroma_b_fused_ref (per plane: _chroma_mc of each
+    reference as int16, the mean, _chroma_residual); both give the same
+    integers.
 
     cur, ref0, ref1: YuvFrame (or 3-tuples) of uint8 tensors or numpy
     arrays; devices as for encode_inter_frame_yuv.  Returns {"recon": YuvFrame, "mvs0", "mvs1":
@@ -276,15 +282,10 @@ def encode_b_frame_yuv(cur, ref0, ref1, cfg: EncodeConfig = EncodeConfig(),
                 src_ctus, ref0_y, ref1_y, pos, grid, cfg, tiers=tiers)
             rec_y = ctu_mod.untile_frame(rec_y_ctus, *cur_y.shape)
 
-        def chroma_bi(plane0, plane1, cur_plane):
-            p0 = _chroma_mc(plane0, mv0, cfg, out16=True).to(torch.int32)
-            p1 = _chroma_mc(plane1, mv1, cfg, out16=True).to(torch.int32)
-            pred = ((p0 + p1 + 64) >> 7).clamp(0, 255).to(torch.uint8)
-            return _chroma_residual(cur_plane, pred, cfg, False, tiers)
-
         with span("hevcasm.bi_chroma"):
-            rec_cb, nnz_cb = chroma_bi(ref0.cb, ref1.cb, cur.cb)
-            rec_cr, nnz_cr = chroma_bi(ref0.cr, ref1.cr, cur.cr)
+            tier = tiers if _uses_chroma_kernel(cfg, tiers, cur.cb) else Tier.REF
+            rec_cb, nnz_cb, rec_cr, nnz_cr = _op("chroma_b_fused", tier)(
+                cur.cb, cur.cr, ref0.cb, ref0.cr, ref1.cb, ref1.cr, mv0, mv1, cfg)
         with span("hevcasm.psnr"):
             psnr_y = psnr(cur_y, rec_y)
         return {

@@ -34,10 +34,10 @@ version (tier REF).
                sub-block SSD grids of every CTU, and each PU's first minimum
                (the grids on the u8 tensor cores, kept in the block); B18
                ``base_layout_decide_fc``: B15 at base 16, R = 32.
-* chroma_fused ``chroma_p_fused``: a 4:2:0 P frame's chroma, both planes in
-               one launch (windows from the reference planes, B5's 4-tap
-               core, the residual stage's 4x4 TUs); the port's own, no TPU
-               kernel.
+* chroma_fused ``chroma_p_fused`` and ``chroma_b_fused``: a 4:2:0 P or B
+               frame's chroma, both planes in one launch (windows from the
+               reference planes, B5's 4-tap core or B6's bi path of it, the
+               residual stage's 4x4 TUs); the port's own, no TPU kernel.
 * intra_wave   ``intra_wave_fused``: one wave of the closed-loop I frame
                (32x32 blocks, 8x8 TUs) in one launch (neighbours from the
                tiled canvas, the 35-mode decision in the Hadamard domain on

@@ -6,9 +6,9 @@ interface, on first use, into ``build/hevcasm_tpu_torch/<hash>/`` beside
 the package (the hash covers the sources, the ``csrc/*.cuh`` headers they
 share and the flags, so an edited kernel is rebuilt and an unchanged one is
 not).  The library is loaded with ``ctypes``; each C entry takes device
-pointers, ints and a CUDA stream (B10's, B5's, B6's, chroma_p_fused's and
-intra_wave_fused's, whose calls are host-bound, take them packed in one
-block), launches one
+pointers, ints and a CUDA stream (B10's, B5's, B6's, chroma_p_fused's,
+chroma_b_fused's and intra_wave_fused's, whose calls are host-bound, take
+them packed in one block), launches one
 kernel on that stream and returns ``cudaGetLastError()``.
 """
 
@@ -96,6 +96,10 @@ _ENTRIES = {
     # rec[2], mv, nnz, h, w, qscale, qshift, qoffset, dscale, dshift,
     # device, stream
     "hevc_chroma_p_fused": [ctypes.c_char_p],
+    # one block of 20 int64 (ChromaBiArgs): cur[2], ref0[2], ref1[2], rec[2],
+    # mv0, mv1, nnz, h, w, qscale, qshift, qoffset, dscale, dshift, device,
+    # stream
+    "hevc_chroma_b_fused": [ctypes.c_char_p],
     # one block of 20 int64 (csrc/intra_wave.cu IntraWaveArgs): canvas, src,
     # order, refs, lav, aav, cav, nnz, modes, start, stop, num, strong,
     # qscale, qshift, qoffset, dscale, dshift, device, stream

@@ -1,30 +1,37 @@
-"""Kernel chroma_p_fused: the chroma of a 4:2:0 P frame, both planes, in one
-launch.
+"""Kernels chroma_p_fused and chroma_b_fused: the chroma of a 4:2:0 P frame
+(one reference) or B frame (two references), both planes, in one launch.
 
-It replaces no TPU kernel: hevcasm_tpu codes a P frame's chroma in plain ops
-(``encode.video._chroma_mc`` then ``_chroma_residual``, a plane at a time),
-and so did the port, some 280 small torch launches a frame with the 4x4
-transforms as float64 matrix products.  ``csrc/chroma_fused.cu`` computes
-the same integers in one launch: for each 32x32 chroma block of both planes
-(the chroma of one 64x64 luma CTU) its window straight from the unpadded
-reference plane (edges clamped), the 4-tap prediction on B5's tensor-core
-core (``csrc/mc_tc.cuh``), the 4x4 residual on the stage K2, B3, B4 and B19
+They replace no TPU kernel: hevcasm_tpu codes a frame's chroma in plain ops
+(``encode.video._chroma_mc`` then ``_chroma_residual``, a plane at a time;
+a B frame predicts from both references as int16 intermediates and takes
+their rounded mean), and so did the port, some 280 (P) or 400 (B) small
+torch launches a frame with the 4x4 transforms as float64 matrix products.
+``csrc/chroma_fused.cu`` computes the same integers in one launch: for each
+32x32 chroma block of both planes (the chroma of one 64x64 luma CTU) its
+windows straight from the unpadded reference planes (edges clamped), the
+4-tap prediction on B5's tensor-core core, or B6's bi path of it
+(``csrc/mc_tc.cuh``), the 4x4 residual on the stage K2, B3, B4 and B19
 share (``csrc/residual_core.cuh``), and the reconstruction and nnz written
-to the frame's planes; the header says what bounds it on the card.  Beside
-it stands its plain version, ``chroma_p_fused_ref``.
+to the frame's planes; the header says what bounds them on the card.
+Beside each stands its plain version, ``chroma_p_fused_ref`` and
+``chroma_b_fused_ref``.
 
 Contract: ``chroma_p_fused(cur_cb, cur_cr, ref_cb, ref_cr, mv_qpel, cfg)``
-with four (H/2, W/2) uint8 planes, H/2 and W/2 multiples of 32, mv_qpel (n,
-2) integer (dy, dx) luma quarter-pel MVs, one a 32x32 chroma block in raster
-order, and cfg the luma EncodeConfig (64x64 CTUs; its qp gives the chroma
-quantizer at 4x4 TUs, encode.video._chroma_cfg's).  Returns (rec_cb, nnz_cb,
-rec_cr, nnz_cr): (H/2, W/2) uint8 planes and () int32 counts of coded
-coefficients.  MVs within cfg's search range reach at most the padding the
-plain version builds; the kernel clamps any reach to the plane's edge.
+and ``chroma_b_fused(cur_cb, cur_cr, ref0_cb, ref0_cr, ref1_cb, ref1_cr,
+mv0_qpel, mv1_qpel, cfg)`` with (H/2, W/2) uint8 planes, H/2 and W/2
+multiples of 32, MVs (n, 2) integer (dy, dx) luma quarter-pel, one a 32x32
+chroma block in raster order (mv0 into ref0, mv1 into ref1), and cfg the
+luma EncodeConfig (64x64 CTUs; its qp gives the chroma quantizer at 4x4
+TUs, encode.video._chroma_cfg's, for both frame types).  Each returns
+(rec_cb, nnz_cb, rec_cr, nnz_cr): (H/2, W/2) uint8 planes and () int32
+counts of coded coefficients.  MVs within cfg's search range reach at most
+the padding the plain versions build; the kernels clamp any reach to the
+plane's edge.
 
-It is the KERNEL tier of the registry's ``chroma_p_fused``, whose REF tier
-is the plain version; encode.video.encode_inter_frame_yuv takes it for CUDA
-planes at 64x64 CTUs when the tiers include KERNEL.
+They are the KERNEL tiers of the registry's ``chroma_p_fused`` and
+``chroma_b_fused``, whose REF tiers are the plain versions;
+encode.video.encode_inter_frame_yuv and encode_b_frame_yuv take them for
+CUDA planes at 64x64 CTUs when the tiers include KERNEL.
 """
 
 from __future__ import annotations
@@ -40,10 +47,14 @@ from ..ops.quantize import check_quant_params
 from ..utils.tensor import as_tensor
 from . import build
 
-__all__ = ["chroma_p_fused", "chroma_p_fused_ref", "BLOCK"]
+__all__ = ["chroma_p_fused", "chroma_p_fused_ref", "chroma_b_fused", "chroma_b_fused_ref",
+           "BLOCK"]
 
 BLOCK = 32                          # chroma block side: the chroma of a 64x64 luma CTU
-_ARGS = struct.Struct("17q")        # csrc/chroma_fused.cu ChromaArgs
+# By the number R of references: the kernel's name (its C entry is hevc_<name>)
+# and csrc/chroma_fused.cu's packed ChromaFusedArgs<R>.
+_KERNELS = {1: ("chroma_p_fused", struct.Struct("17q")),
+            2: ("chroma_b_fused", struct.Struct("20q"))}
 _U8, _I32 = torch.uint8, torch.int32
 
 
@@ -62,6 +73,25 @@ def chroma_p_fused_ref(cur_cb, cur_cr, ref_cb, ref_cr, mv_qpel, cfg):
     return tuple(out)
 
 
+def chroma_b_fused_ref(cur_cb, cur_cr, ref0_cb, ref0_cr, ref1_cb, ref1_cr, mv0_qpel,
+                       mv1_qpel, cfg):
+    """Plain version: for each plane, encode.video's _chroma_mc of each
+    reference at its MVs as int16 intermediates, their mean (p0 + p1 + 64)
+    >> 7 clipped to 8 bits, then _chroma_residual at Tier.REF."""
+    from ..encode import video
+
+    cur_cb = as_tensor(cur_cb)
+    dev = cur_cb.device
+    mv0, mv1 = as_tensor(mv0_qpel, dev), as_tensor(mv1_qpel, dev)
+    out = []
+    for cur, ref0, ref1 in ((cur_cb, ref0_cb, ref1_cb), (cur_cr, ref0_cr, ref1_cr)):
+        p0 = video._chroma_mc(as_tensor(ref0, dev), mv0, cfg, out16=True).to(_I32)
+        p1 = video._chroma_mc(as_tensor(ref1, dev), mv1, cfg, out16=True).to(_I32)
+        pred = ((p0 + p1 + 64) >> 7).clamp(0, 255).to(_U8)
+        out += video._chroma_residual(as_tensor(cur, dev), pred, cfg, False, Tier.REF)
+    return tuple(out)
+
+
 @functools.lru_cache(maxsize=None)
 def _qargs(qp: int) -> tuple:
     """The chroma quantizer (qscale, qshift, qoffset, dscale, dshift) of
@@ -75,27 +105,29 @@ def _qargs(qp: int) -> tuple:
     return q
 
 
-def _enqueue(card: int, planes, mv: torch.Tensor, h: int, w: int, qp: int):
-    """Launch the kernel on card ``card`` (its index) on checked operands:
-    four (h, w) uint8 planes, contiguous and 16-byte aligned, and (h / 32 *
-    w / 32, 2) int32 contiguous MVs there."""
+def _enqueue(card: int, planes, mvs, h: int, w: int, qp: int):
+    """Launch the kernel of len(mvs) references on card ``card`` (its
+    index) on checked operands: the source planes, then each reference's,
+    (h, w) uint8, contiguous and 16-byte aligned, and (h / 32 * w / 32, 2)
+    int32 contiguous MVs there, one a reference."""
+    what, args = _KERNELS[len(mvs)]
     rec = torch.empty((2, h, w), dtype=_U8, device=card)
     nnz = torch.empty(2, dtype=_I32, device=card)
-    err = build.load().hevc_chroma_p_fused(_ARGS.pack(
-        planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(), planes[3].data_ptr(),
-        rec.data_ptr(), rec.data_ptr() + h * w, mv.data_ptr(), nnz.data_ptr(), h, w,
-        *_qargs(qp), card, build.raw_stream(card)))
-    build.check(err, "chroma_p_fused")
+    err = getattr(build.load(), f"hevc_{what}")(args.pack(
+        *[p.data_ptr() for p in planes], rec.data_ptr(), rec.data_ptr() + h * w,
+        *[mv.data_ptr() for mv in mvs], nnz.data_ptr(), h, w, *_qargs(qp), card,
+        build.raw_stream(card)))
+    build.check(err, what)
     return rec[0], nnz[0], rec[1], nnz[1]
 
 
 # A frame's call is host-bound (the kernel takes microseconds), so, as B5's
-# and B10's, the launch path does per call only what it must: for four
+# and B10's, the launch path does per call only what it must: for
 # contiguous, 16-byte aligned (h, w) uint8 planes on one card and contiguous
 # int32 MVs there, it reads shapes and pointers inline and hands the C entry
 # one packed block.  Every other layout, and every error, goes through
 # _launch's checks.
-def _fast(planes, mv, cfg):
+def _fast(planes, mvs, cfg):
     first = planes[0]
     if type(first) is not torch.Tensor or not first.is_cuda or cfg.ctu != 2 * BLOCK:
         return None
@@ -107,10 +139,11 @@ def _fast(planes, mv, cfg):
                 or not p.is_contiguous() or p.data_ptr() & 15 or p.get_device() != card:
             return None
     h, w = shape
-    if type(mv) is not torch.Tensor or mv.dtype is not _I32 or not mv.is_contiguous() \
-            or mv.shape != (h // BLOCK * (w // BLOCK), 2) or mv.get_device() != card:
-        return None
-    return _enqueue(card, planes, mv, h, w, cfg.qp)
+    for mv in mvs:
+        if type(mv) is not torch.Tensor or mv.dtype is not _I32 or not mv.is_contiguous() \
+                or mv.shape != (h // BLOCK * (w // BLOCK), 2) or mv.get_device() != card:
+            return None
+    return _enqueue(card, planes, mvs, h, w, cfg.qp)
 
 
 def _aligned(plane: torch.Tensor) -> torch.Tensor:
@@ -119,9 +152,8 @@ def _aligned(plane: torch.Tensor) -> torch.Tensor:
     return plane.clone() if plane.data_ptr() & 15 else plane
 
 
-def _launch(planes, mv, cfg):
-    what = "chroma_p_fused"
-    dev = build.on_card(what, *planes, mv)
+def _launch(what, planes, mvs, cfg):
+    dev = build.on_card(what, *planes, *mvs)
     if cfg.ctu != 2 * BLOCK:
         raise ValueError(f"{what}: {cfg.ctu}x{cfg.ctu} CTUs; the kernel codes the "
                          f"{BLOCK}x{BLOCK} chroma blocks of 64x64 CTUs")
@@ -134,31 +166,52 @@ def _launch(planes, mv, cfg):
                          f"{BLOCK}, got {[tuple(p.shape) for p in planes]}")
     h, w = shape
     n = h // BLOCK * (w // BLOCK)
-    if mv.dtype.is_floating_point or mv.dtype.is_complex or mv.dtype == torch.bool:
-        raise TypeError(f"{what}: MVs must be integers, got {mv.dtype}")
-    if tuple(mv.shape) != (n, 2):
-        raise ValueError(f"{what}: MVs {tuple(mv.shape)} for {n} blocks; need ({n}, 2)")
-    return _enqueue(dev.index, [_aligned(p) for p in planes], mv.to(_I32).contiguous(), h, w,
-                    cfg.qp)
+    for mv in mvs:
+        if mv.dtype.is_floating_point or mv.dtype.is_complex or mv.dtype == torch.bool:
+            raise TypeError(f"{what}: MVs must be integers, got {mv.dtype}")
+        if tuple(mv.shape) != (n, 2):
+            raise ValueError(f"{what}: MVs {tuple(mv.shape)} for {n} blocks; need ({n}, 2)")
+    return _enqueue(dev.index, [_aligned(p) for p in planes],
+                    [mv.to(_I32).contiguous() for mv in mvs], h, w, cfg.qp)
 
 
 def chroma_p_fused(cur_cb, cur_cr, ref_cb, ref_cr, mv_qpel, cfg):
     """(rec_cb, nnz_cb, rec_cr, nnz_cr).  CPU tensors run the plain version;
     CUDA tensors launch the kernel (and raise if it cannot be built or
     launched, or the shape is one it does not take)."""
-    planes = (cur_cb, cur_cr, ref_cb, ref_cr)
-    out = _fast(planes, mv_qpel, cfg)
+    planes, mvs = (cur_cb, cur_cr, ref_cb, ref_cr), (mv_qpel,)
+    out = _fast(planes, mvs, cfg)
     if out is None:
         planes = [as_tensor(p) for p in planes]
         mv = as_tensor(mv_qpel, planes[0].device)
         if planes[0].device.type == "cpu":
             return chroma_p_fused_ref(*planes, mv, cfg)
-        out = _launch(planes, mv, cfg)
+        out = _launch("chroma_p_fused", planes, (mv,), cfg)
     chroma_p_fused.launches += 1
     return out
 
 
+def chroma_b_fused(cur_cb, cur_cr, ref0_cb, ref0_cr, ref1_cb, ref1_cr, mv0_qpel, mv1_qpel,
+                   cfg):
+    """(rec_cb, nnz_cb, rec_cr, nnz_cr).  CPU tensors run the plain version;
+    CUDA tensors launch the kernel (and raise if it cannot be built or
+    launched, or the shape is one it does not take)."""
+    planes = (cur_cb, cur_cr, ref0_cb, ref0_cr, ref1_cb, ref1_cr)
+    out = _fast(planes, (mv0_qpel, mv1_qpel), cfg)
+    if out is None:
+        planes = [as_tensor(p) for p in planes]
+        mvs = [as_tensor(mv, planes[0].device) for mv in (mv0_qpel, mv1_qpel)]
+        if planes[0].device.type == "cpu":
+            return chroma_b_fused_ref(*planes, *mvs, cfg)
+        out = _launch("chroma_b_fused", planes, mvs, cfg)
+    chroma_b_fused.launches += 1
+    return out
+
+
 chroma_p_fused.launches = 0
+chroma_b_fused.launches = 0
 
 registry.register("chroma_p_fused", Tier.REF, chroma_p_fused_ref)
 registry.register("chroma_p_fused", Tier.KERNEL, chroma_p_fused)
+registry.register("chroma_b_fused", Tier.REF, chroma_b_fused_ref)
+registry.register("chroma_b_fused", Tier.KERNEL, chroma_b_fused)

@@ -388,9 +388,25 @@ def _chroma_p_fused_cases(rng):
     return cases
 
 
+def _chroma_b_fused_cases(rng):
+    # Both chroma planes of a 1920x1088 4:2:0 B frame and of a frame of 2 x
+    # 3 CTUs, each reference at its own MVs anywhere within R = 32, at the
+    # chroma qp of luma qp 32 (qPc 31, ra1080_ibpbp33's) and 22.
+    cases = []
+    for (h, w), qp, name, iters in [((544, 960), 32, "1080p 4:2:0, qp 32", 4),
+                                    ((64, 96), 22, "2x3 CTUs, qp 22", 10)]:
+        planes = [rng.integers(0, 256, (h, w), dtype=np.uint8) for _ in range(6)]
+        mvs = [rng.integers(-131, 132, (h // 32 * (w // 32), 2)).astype(np.int32)
+               for _ in range(2)]
+        cases.append(Case(name, (*planes, *mvs, EncodeConfig(qp=qp, search_range=32)),
+                          iters=iters, heavy=h > 64))
+    return cases
+
+
 # Suites of the port's own kernels, which hevcasm_tpu has no counterpart of.
 PORT_SUITES = [
     Suite("chroma_p_fused", _chroma_p_fused_cases),
+    Suite("chroma_b_fused", _chroma_b_fused_cases),
 ]
 
 

@@ -1708,8 +1708,8 @@ def test_chroma_p_fused_other_layouts(cuda):
         v[1:129, 3:195] = p
     views = [v[1:129, 3:195] for v in wide]
     cfg = EncodeConfig(qp=33)
-    assert chroma_fused._fast(views, mv, cfg) is None
-    assert chroma_fused._fast(planes, mv.long(), cfg) is None
+    assert chroma_fused._fast(views, (mv,), cfg) is None
+    assert chroma_fused._fast(planes, (mv.long(),), cfg) is None
     want = chroma_fused.chroma_p_fused_ref(*planes, mv, cfg)
     assert_bit_equal(chroma_fused.chroma_p_fused(*views, mv.long(), cfg), want)
     assert_bit_equal(chroma_fused.chroma_p_fused(*planes, mv, cfg), want)
@@ -1763,6 +1763,121 @@ def test_selftest_chroma_suite_on_the_card(cuda, capsys):
     before = chroma_fused.chroma_p_fused.launches
     assert selftest.main(time_it=False, suites=["chroma_p_fused"]) == 0
     assert chroma_fused.chroma_p_fused.launches == before + 2
+    out = capsys.readouterr().out
+    assert out.count("KERNEL:ok") == 2 and "MISMATCH" not in out
+
+
+# ---- chroma_b_fused: a B frame's chroma, both planes, in one launch -----------------
+
+def chroma_b_case(rng, shape, device, r=32):
+    """Six random (h, w) planes (cur, ref0, ref1; cb and cr each) and two
+    MV arrays whose windows reach the plain version's padding."""
+    planes, mv0 = chroma_case(rng, shape, device, r)
+    more, mv1 = chroma_case(rng, shape, device, r)
+    return planes + more[:2], [mv0, mv1]
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (544, 960), (1088, 1920)],
+                         ids=["2x3", "1080p", "4K"])
+@pytest.mark.parametrize("qp", [32, 35, 22])
+def test_chroma_b_fused_matches_plain(cuda, shape, qp):
+    rng = np.random.default_rng(shape[1] + qp)
+    planes, mvs = chroma_b_case(rng, shape, cuda)
+    cfg = EncodeConfig(qp=qp)
+    before = chroma_fused.chroma_b_fused.launches
+    got = chroma_fused.chroma_b_fused(*planes, *mvs, cfg)
+    assert chroma_fused.chroma_b_fused.launches == before + 1
+    assert_bit_equal(got, chroma_fused.chroma_b_fused_ref(*planes, *mvs, cfg))
+    cpu = chroma_fused.chroma_b_fused_ref(*(p.cpu() for p in planes), *(m.cpu() for m in mvs),
+                                          cfg)
+    assert_bit_equal([g.cpu() for g in got], cpu)
+
+
+@pytest.mark.parametrize("pattern", ["checkerboard", "stripes"])
+def test_chroma_b_fused_full_swing(cuda, pattern):
+    h, w = 128, 192
+    y, x = np.mgrid[:h, :w]
+    pats = ([(y + x) & 1, ((y >> 1) + (x >> 1)) & 1, (y + x + 1) & 1, ((y >> 1) + x) & 1,
+             (y + (x >> 1)) & 1, ((y >> 1) + (x >> 1) + 1) & 1]
+            if pattern == "checkerboard" else
+            [x & 1, y & 1, (x >> 1) & 1, (y >> 2) & 1, (x >> 2) & 1, (y >> 1) & 1])
+    planes = [torch.as_tensor((255 * p).astype(np.uint8), device=cuda) for p in pats]
+    _, mvs = chroma_b_case(np.random.default_rng(1), (h, w), cuda)
+    for qp in (32, 22):
+        cfg = EncodeConfig(qp=qp)
+        assert_bit_equal(chroma_fused.chroma_b_fused(*planes, *mvs, cfg),
+                         chroma_fused.chroma_b_fused_ref(*planes, *mvs, cfg))
+
+
+def test_chroma_b_fused_other_layouts(cuda):
+    # Planes that are views (rows wider than the plane, an odd offset) and
+    # int64 MVs go through the full checks, to the same integers.
+    rng = np.random.default_rng(19)
+    planes, mvs = chroma_b_case(rng, (128, 192), cuda)
+    wide = [random_u8(rng, (130, 200), cuda) for _ in range(6)]
+    for v, p in zip(wide, planes):
+        v[1:129, 3:195] = p
+    views = [v[1:129, 3:195] for v in wide]
+    cfg = EncodeConfig(qp=32)
+    assert chroma_fused._fast(views, mvs, cfg) is None
+    assert chroma_fused._fast(planes, [mvs[0], mvs[1].long()], cfg) is None
+    want = chroma_fused.chroma_b_fused_ref(*planes, *mvs, cfg)
+    assert_bit_equal(chroma_fused.chroma_b_fused(*views, mvs[0].long(), mvs[1], cfg), want)
+    assert_bit_equal(chroma_fused.chroma_b_fused(*planes, *mvs, cfg), want)
+
+
+def test_chroma_b_fused_rejects_what_it_does_not_take(cuda):
+    planes, mvs = chroma_b_case(np.random.default_rng(2), (64, 96), cuda)
+    cfg = EncodeConfig(qp=32)
+    with pytest.raises(TypeError):
+        chroma_fused.chroma_b_fused(*planes[:5], planes[5].to(torch.int16), *mvs, cfg)
+    with pytest.raises(ValueError):
+        chroma_fused.chroma_b_fused(*(p[:48] for p in planes), mvs[0][:4], mvs[1][:4], cfg)
+    with pytest.raises(ValueError):
+        chroma_fused.chroma_b_fused(*planes, mvs[0], mvs[1][:5], cfg)
+    with pytest.raises(TypeError):
+        chroma_fused.chroma_b_fused(*planes, mvs[0], mvs[1].float(), cfg)
+    with pytest.raises(ValueError):
+        chroma_fused.chroma_b_fused(*planes, *mvs, EncodeConfig(ctu=32, qp=32, search_range=8))
+    with pytest.raises(ValueError):
+        chroma_fused.chroma_b_fused(*planes[:5], planes[5].cpu(), *mvs, cfg)
+
+
+def test_yuv_b_frame_1080p_takes_chroma_b_fused_once_and_equals_plain(cuda):
+    # encode_b_frame_yuv with Tier.ALL against Tier.REF on a 1920x1088
+    # 4:2:0 triple: one launch of the kernel, none on the plain path, the
+    # same integers.
+    ref0, cur, ref1 = yuv_clip(1088, 1920, cuda)
+    cfg = EncodeConfig(search_range=32, qp=32, inter_impl="fused_dma")
+    before = chroma_fused.chroma_b_fused.launches
+    out = encode_b_frame_yuv(cur, ref0, ref1, cfg)
+    assert chroma_fused.chroma_b_fused.launches == before + 1
+    plain = encode_b_frame_yuv(cur, ref0, ref1, cfg, tiers=Tier.REF)
+    assert chroma_fused.chroma_b_fused.launches == before + 1
+    assert_same_outputs(out, plain)
+
+
+@pytest.mark.parametrize("entry,b_frames", [
+    ("gop", 0), ("gop_yuv", 0), ("gop_yuv b", 2), ("closed_loop_yuv", 0),
+    ("closed_loop_yuv_b", 2)])
+def test_chroma_b_fused_runs_once_a_yuv_b_frame(cuda, entry, b_frames):
+    frames = [torch.as_tensor(smooth_clip(5, h, w, seed), device=cuda)
+              for (h, w), seed in (((128, 192), 0), ((64, 96), 1), ((64, 96), 2))]
+    cfg = EncodeConfig(search_range=8, inter_impl="fused_dma")
+    before = chroma_fused.chroma_b_fused.launches
+    gop_call(entry, frames, cfg)
+    assert chroma_fused.chroma_b_fused.launches == before + b_frames
+    ref0, cur, ref1 = yuv_clip(128, 192, cuda)
+    encode_inter_frame_yuv(cur, ref0, cfg)
+    assert chroma_fused.chroma_b_fused.launches == before + b_frames
+    encode_b_frame_yuv(cur, ref0, ref1, dataclasses.replace(cfg, ctu=32, inter_impl="stages"))
+    assert chroma_fused.chroma_b_fused.launches == before + b_frames
+
+
+def test_selftest_chroma_b_suite_on_the_card(cuda, capsys):
+    before = chroma_fused.chroma_b_fused.launches
+    assert selftest.main(time_it=False, suites=["chroma_b_fused"]) == 0
+    assert chroma_fused.chroma_b_fused.launches == before + 2
     out = capsys.readouterr().out
     assert out.count("KERNEL:ok") == 2 and "MISMATCH" not in out
 
