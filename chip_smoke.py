@@ -28,7 +28,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
             read from an int32[5] on the card), both with IMMA; prints
             their registers and local memory.  chroma_p_fused's and
             chroma_b_fused's kernels must show IMMA; prints their
-            registers and local memory.
+            registers and local memory, and chroma_pu_fused's (its MC is
+            scalar 4-tap on the CUDA cores).
 3. kernels  each kernel against its plain PyTorch version on the card, bit
             for bit on every output: the 1080p shapes (510 CTUs, R = 32), an
             odd grid width (3) at R = 8 (K1 also at R = 1, 2 and 31, and B7
@@ -63,7 +64,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             nnz and each block's mode).  chroma_p_fused (luma qp 35 and 22)
             and chroma_b_fused (a second reference at its own MVs, luma qp
             32 and 22) on the 1080p and 4K chroma planes, MVs past every
-            edge.
+            edge; chroma_pu_fused (luma qp 35 and 22) on the same planes at
+            random MV fields, an MV a (32 / k)-square tile, k = 1, 2, 4, 8
+            at 1080p and 4 and 8 at 4K, past every edge.
             The search configurations'
             kernels: B9 on the pyramid's shapes (510 16x16 decimated blocks
             at num 17, 510 CTUs at num 7), the full search (510 CTUs, R =
@@ -102,7 +105,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
             encode_inter_frame_yuv on a 1920x1088 4:2:0 P frame of bench's
             structured pan must launch K1, K2 and chroma_p_fused;
             encode_b_frame_yuv on the B frame of that content must launch
-            K1 twice, B3 and chroma_b_fused.  The RDO P
+            K1 twice, B3 and chroma_b_fused.  The 4:2:0 RD P frame,
+            encode_inter_frame_yuv with pu_decision, the six layouts and
+            tu_sizes=(4, 8, 16, 32) on the structured pan, must launch
+            exactly B14, B13 and chroma_pu_fused, once each, and no other
+            kernel (chroma_p_fused 0), equal its plain path on the card
+            (mv_field, pu_layout and tu_choice included) and its luma
+            encode_inter_frame's; a 128x192 frame at R = 8 must equal the
+            plain path on the CPU.  The RDO P
             frame, encode_inter_frame(EncodeConfig(search_range=32, qp=32,
             pu_decision=True)) on the structured pan's luma, must launch B15
             and B13; with all six layouts B14 and B13; with tu_sizes=(4, 8,
@@ -204,10 +214,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
             path also 20 frames back to back, and each path's plain version;
             the four RDO variants of tools/bench_rdo.py (pu_decision,
             pu_amp+8x8, tu_select, pu+tu), pu_decision at R = 16 and the
-            plain pu_decision path on the structured pan's luma, each with
-            the minimum and maximum of its samples; each kernel beside its
+            plain pu_decision path on the structured pan's luma, and the
+            4:2:0 RD P frame (six layouts, TUs 4-32), each with the
+            minimum and maximum of its samples; each kernel beside its
             plain version at the 1080p shapes, a kernel sample being 10
-            launches back to back so that its host overhead is hidden.
+            launches back to back so that its host overhead is hidden;
+            chroma_pu_fused at k = 1 beside chroma_p_fused on the same MVs,
+            in turns.
             The multi-reference and fused paths, with min and max too (the
             plain multi-reference path, ~0.3 s a frame, over 3 samples),
             and B7 (its plain version over 3 samples), B11, B16 and B4 (at
@@ -897,7 +910,7 @@ COUNTED = {"ssd_grid_plane": "search", "inter_ctu_fused_dma": "inter_fused",
            "encode_ctu_mega": "mega", "sad": "sad", "sad_multiref": "sad", "pred_uni": "mc",
            "pred_bi": "mc", "base_layout_decide_fc": "base_grids",
            "chroma_p_fused": "chroma_fused", "chroma_b_fused": "chroma_fused",
-           "intra_wave_fused": "intra_wave"}
+           "intra_wave_fused": "intra_wave", "chroma_pu_fused": "chroma_fused"}
 
 
 def counted_wrappers() -> dict:
@@ -1153,7 +1166,8 @@ def main() -> int:
     from hevcasm_tpu_torch.kernels.bi_fused import (
         bi_ctu_fused_dma, bi_ctu_fused_dma_ref)
     from hevcasm_tpu_torch.kernels.chroma_fused import (
-        chroma_b_fused, chroma_b_fused_ref, chroma_p_fused, chroma_p_fused_ref)
+        chroma_b_fused, chroma_b_fused_ref, chroma_p_fused, chroma_p_fused_ref,
+        chroma_pu_fused)
     from hevcasm_tpu_torch.kernels.intra_wave import intra_wave_fused, intra_wave_ref
     from hevcasm_tpu_torch.kernels.costmap import (
         refine_qpel_costmap, refine_qpel_costmap_dma, refine_qpel_costmap_dma_ref,
@@ -1250,6 +1264,11 @@ def main() -> int:
             f"-res-usage): {resource_usage(build, kernel)}")
         if not c_imma:
             raise AssertionError(f"{kernel} has no IMMA (tensor-core) instruction")
+    # chroma_pu_fused's kernel: a scalar 4-tap MC a PU tile, then the same
+    # residual stage.
+    log(f"SASS: chroma_pu_kernel: {sass_count(build, 'chroma_pu_kernel', 'IMMA')} IMMA; "
+        f"registers and local memory (cuobjdump -res-usage): "
+        f"{resource_usage(build, 'chroma_pu_kernel')}")
 
     # ---- 3. each kernel against its plain version ---------------------------
     cfg = EncodeConfig(search_range=SEARCH_RANGE, qp=32, inter_impl="fused_dma")
@@ -1261,7 +1280,8 @@ def main() -> int:
                          "inter_ctu_fused", "residual_pipeline_ctu", "sad_grid",
                          "search_mv", "search_mv_dma", "encode_ctu_mega", "sad",
                          "sad_multiref", "pred_uni", "pred_bi", "base_layout_decide_fc",
-                         "chroma_p_fused", "chroma_b_fused", "intra_wave_fused"), 0)
+                         "chroma_p_fused", "chroma_b_fused", "intra_wave_fused",
+                         "chroma_pu_fused"), 0)
 
     def search_inputs(cur, ref, r):
         """K1 operands as full_search_slab builds them."""
@@ -1875,6 +1895,28 @@ def main() -> int:
                   list(chroma_b_fused(*ops_c, ccfg)), list(chroma_b_fused_ref(*ops_c, ccfg)),
                   f"planes {tuple(ops_c[0].shape)}")
     del cb_4k
+    # chroma_pu_fused: the same planes, an MV a (32 / k)-square tile (k = 8:
+    # the 4x4 chroma tiles of the RD frame's 8x8 luma base tiles), at
+    # fields whose windows reach past every edge, at luma qp 35 and 22.
+
+    def chroma_field(h_c, w_c, k):
+        return torch.as_tensor(
+            cf_rng.integers(-136, 144, (h_c // 32 * (w_c // 32), k, k, 2)),
+            dtype=torch.int32, device=dev)
+
+    cp_1080 = (*cf_1080[:4], chroma_field(H // 2, W // 2, 8))
+    for what_c, planes_c, ks in (("1080p", cf_1080[:4], (8, 4, 2, 1)),
+                                 ("4K", cf_4k[:4], (8, 4))):
+        for k_c in ks:
+            ops_c = (*planes_c, cp_1080[4] if what_c == "1080p" and k_c == 8
+                     else chroma_field(*planes_c[0].shape, k_c))
+            for qp_c in (35, 22):
+                ccfg = EncodeConfig(search_range=SEARCH_RANGE, qp=qp_c)
+                check("chroma_pu_fused", f"{what_c} 4:2:0 RD P frame's chroma planes, an MV "
+                      f"a {32 // k_c}x{32 // k_c} tile, luma qp {qp_c}",
+                      list(chroma_pu_fused(*ops_c, ccfg)),
+                      list(chroma_p_fused_ref(*ops_c, ccfg)),
+                      f"planes {tuple(ops_c[0].shape)}, field {tuple(ops_c[4].shape)}")
     # intra_wave_fused: every wave of the 1080p bench frame and of a random
     # 4K one against intra_wave_ref wave by wave.
     iw_4k = torch.as_tensor(np.random.default_rng(24).integers(0, 256, (H4K, W4K),
@@ -2029,6 +2071,47 @@ def main() -> int:
         log(f"yuv {kind} path: {', '.join(f'{k}={v:.4f}' for k, v in psnrs.items())} "
             f"nnz={int(got['nnz'])}; equal to the plain path on the card, and a "
             "128x192 R=8 frame equal to the plain path on the CPU")
+
+    # The 4:2:0 RD P frame (ldp1080_rdo's): the PU decision at the six
+    # layouts (B14 + B13), the TU decision at 4-32, and each PU's chroma in
+    # one launch of chroma_pu_fused, exactly.
+    rd_yuv_cfg = EncodeConfig(search_range=SEARCH_RANGE, qp=32, pu_decision=True,
+                              pu_layouts=tuple(partition.PU_LAYOUTS), tu_sizes=(4, 8, 16, 32))
+    got = drive("yuv RD P path (six layouts, TUs 4-32)",
+                lambda: encode_inter_frame_yuv(yuv_cur, yuv_ref0, rd_yuv_cfg),
+                {"base_grids_ctu": 1, "refine_qpel_costmap_dma": 1, "chroma_pu_fused": 1},
+                exact=True)
+    k_rd = 64 // partition.base_for(rd_yuv_cfg.pu_layouts)
+    rd_shapes = {"mvs": (n, 2), "mv_field": (n, k_rd, k_rd, 2), "pu_layout": (n,),
+                 "tu_choice": (n,), "nnz": ()}
+    for key, shape in rd_shapes.items():
+        if tuple(got[key].shape) != shape or got[key].dtype != torch.int32:
+            raise AssertionError(f"yuv RD {key}: {tuple(got[key].shape)} {got[key].dtype}")
+    if [tuple(p.shape) for p in got["recon"]] != [(H, W), (H // 2, W // 2), (H // 2, W // 2)]:
+        raise AssertionError(f"yuv RD: recon planes {[tuple(p.shape) for p in got['recon']]}")
+    diff = outputs_differ(got, encode_inter_frame_yuv(yuv_cur, yuv_ref0, rd_yuv_cfg,
+                                                      tiers=Tier.REF))
+    if diff:
+        raise AssertionError(f"yuv RD differs from the plain path on the card: {diff}")
+    luma_rd = encode_inter_frame(yuv_cur.y, yuv_ref0.y, rd_yuv_cfg)
+    if max_abs_err([got["recon"].y, got["mvs"], got["pu_layout"], got["tu_choice"]],
+                   [luma_rd[k] for k in ("recon", "mvs", "pu_layout", "tu_choice")]):
+        raise AssertionError("yuv RD: its luma differs from encode_inter_frame's")
+    small_yuv = [YuvFrame(*(torch.as_tensor(p) for p in f))
+                 for f in structured_pan(128, 192, seed=5)]
+    small_rd = dataclasses.replace(rd_yuv_cfg, search_range=8)
+    diff = outputs_differ(
+        encode_inter_frame_yuv(*[YuvFrame(*(p.to(dev) for p in f)) for f in small_yuv[:2]],
+                               small_rd),
+        encode_inter_frame_yuv(*small_yuv[:2], small_rd))
+    if diff:
+        raise AssertionError(f"128x192 yuv RD: the card differs from the CPU: {diff}")
+    rd_psnrs = ", ".join(f"{k}={float(v):.4f}" for k, v in got.items() if k.startswith("psnr"))
+    log(f"yuv RD P path (six layouts, TUs 4-32): {rd_psnrs} nnz={int(got['nnz'])} "
+        f"pu_layout {torch.bincount(got['pu_layout'].long(), minlength=6).tolist()} "
+        f"tu_choice {torch.bincount(got['tu_choice'].long(), minlength=4).tolist()}; equal to "
+        "the plain path on the card and its luma to encode_inter_frame's, and a 128x192 R=8 "
+        "frame equal to the plain path on the CPU")
 
     # The RDO P frame on the structured pan's luma: the PU decision at the
     # default layouts (B15 + B13), at all six (B14 + B13) and at R = 16
@@ -2666,6 +2749,9 @@ def main() -> int:
                 float(encode_inter_frame(yuv_cur.y, yuv_ref0.y, rcfg)["psnr_db"]))
     log_rdo("pu_decision plain path", samples_ms(lambda: encode_inter_frame(
         yuv_cur.y, yuv_ref0.y, rdo_cfgs["pu_decision"], tiers=Tier.REF)))
+    log_rdo("4:2:0 RD P frame (six layouts, TUs 4-32)",
+            samples_ms(lambda: encode_inter_frame_yuv(yuv_cur, yuv_ref0, rd_yuv_cfg)),
+            float(encode_inter_frame_yuv(yuv_cur, yuv_ref0, rd_yuv_cfg)["psnr_y"]))
 
     def log_path(what, samples, reps=REPS):
         ms_r = statistics.median(samples)
@@ -2774,6 +2860,9 @@ def main() -> int:
         "chroma_b_fused": (
             median_ms(lambda: chroma_b_fused(*cb_1080, cb_cfg), calls=10),
             median_ms(lambda: chroma_b_fused_ref(*cb_1080, cb_cfg))),
+        "chroma_pu_fused": (
+            median_ms(lambda: chroma_pu_fused(*cp_1080, cf_cfg), calls=10),
+            median_ms(lambda: chroma_p_fused_ref(*cp_1080, cf_cfg), reps=5)),
         # A call is a 1080p I frame's 126 waves (the host enqueue included).
         "intra_wave_fused": (
             median_ms(lambda: intra_wave_frame(intra_wave_fused, cur, intra_cfg)),
@@ -2803,6 +2892,11 @@ def main() -> int:
         "encode_ctu_mega": lambda: encode_ctu_mega(src, padded, pos, SEARCH_RANGE, *qargs),
         "chroma_p_fused": lambda: chroma_p_fused(*cf_1080, cf_cfg),
         "chroma_b_fused": lambda: chroma_b_fused(*cb_1080, cb_cfg),
+        "chroma_pu_fused": lambda: chroma_pu_fused(*cp_1080, cf_cfg),
+        # At k = 1 the per-tile kernel does chroma_p_fused's work: one MV a
+        # block, scalar MC in place of the tensor-core strip.
+        "chroma_pu_fused at k = 1": lambda: chroma_pu_fused(*cf_1080[:4],
+                                                            cf_1080[4][:, None, None], cf_cfg),
         "intra_wave_fused": lambda: intra_wave_frame(intra_wave_fused, cur, intra_cfg),
         **{b4_name(tu, tr): lambda tu=tu, tr=tr: residual_pipeline_ctu(
             b_src, b4_pred, *b4_args[(tu, tr)], tu=tu, tr_type=tr) for tu, tr in b4_args},
@@ -2832,6 +2926,8 @@ def main() -> int:
                     "chroma_p_fused": "both 544x960 chroma planes, 1020 32x32 blocks, qp 35",
                     "chroma_b_fused": "both 544x960 chroma planes from two references, 1020 "
                                       "32x32 blocks, qp 32",
+                    "chroma_pu_fused": "both 544x960 chroma planes, 1020 32x32 blocks, an MV "
+                                       "a 4x4 tile (k = 8), qp 35",
                     "intra_wave_fused": "a 1080p I frame's 126 waves, 2040 32x32 blocks, qp 32"}
     more = {
         "refine_qpel_costmap_dma 32640 8x8 tiles": (
@@ -2898,6 +2994,16 @@ def main() -> int:
     }
     for what, (k_ms, p_ms) in more.items():
         log(f"{tag} {what} at 1080p: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+    # chroma_pu_fused at k = 1 beside chroma_p_fused on the same MVs, in
+    # turns, 10 launches a sample: whether the scalar MC loses to the strip.
+    k1_turns = turns_ms({
+        "chroma_pu_fused": lambda: chroma_pu_fused(*cf_1080[:4], cf_1080[4][:, None, None],
+                                                   cf_cfg),
+        "chroma_p_fused": lambda: chroma_p_fused(*cf_1080, cf_cfg)})
+    log(f"{tag} 1020 32x32 chroma blocks at one MV a block (k = 1), in turns: "
+        f"chroma_pu_fused {k1_turns['chroma_pu_fused']:.4f} ms a call (device "
+        f"{device['chroma_pu_fused at k = 1']:.4f}), chroma_p_fused "
+        f"{k1_turns['chroma_p_fused']:.4f} ms (device {device['chroma_p_fused']:.4f})")
     for name, (k_ms, p_ms) in times.items():
         shape = f" ({shapes_timed[name]})" if name in shapes_timed else ""
         dev_ms = f" (device {device[name]:.4f})" if name in device else ""
@@ -3035,6 +3141,8 @@ def main() -> int:
         "intra_wave_fused": ("hevcasm_tpu_torch/csrc/intra_wave.cu",
                              "none: the port's own (hevcasm_tpu codes the wavefront I frame "
                              "in plain ops, hevcasm_tpu/encode/intra_wavefront.py)"),
+        "chroma_pu_fused": ("hevcasm_tpu_torch/csrc/chroma_fused.cu",
+                            "none: the port's own (hevcasm_tpu has no 4:2:0 RD P frame)"),
     }
     # The least time for each timed call: bytes moved (inputs read once,
     # outputs written once) and multiply-adds, from the shapes it was timed
@@ -3089,6 +3197,12 @@ def main() -> int:
     # written, both MV arrays and two counts; each block two 4-tap MCs.
     costs["chroma_b_fused"] = (nbytes(*cb_1080) + 2 * cb_1080[0].numel() + 8,
                                cf_blocks * (2 * 2 * mc_macs(32, 32, 4) + residual_ops(4) // 4))
+    # chroma_pu_fused: four planes read, two written, the MV field and two
+    # counts; each block of each plane k * k 4-tap MCs of a (32 / k) tile.
+    k_cp = cp_1080[-1].shape[1]
+    costs["chroma_pu_fused"] = (
+        nbytes(*cp_1080) + 2 * cp_1080[0].numel() + 8,
+        cf_blocks * (2 * k_cp * k_cp * mc_macs(32 // k_cp, 32 // k_cp, 4) + residual_ops(4) // 4))
     # K2 (and B16, its kernel on gathered windows) and B3: the refinement's
     # and the residual stage's products at mma.sync's own rates, beside the
     # bound.

@@ -1,5 +1,6 @@
-// Kernels chroma_p_fused and chroma_b_fused: the chroma of a 4:2:0 P frame
-// (one reference) or B frame (two references), both planes, in one launch.
+// Kernels chroma_p_fused, chroma_b_fused and chroma_pu_fused: the chroma of
+// a 4:2:0 P frame (one reference) or B frame (two references), both planes,
+// in one launch; chroma_pu_fused is the P frame's with an MV a PU tile.
 //
 // Replace no TPU kernel: hevcasm_tpu codes a frame's chroma in plain ops
 // (encode/video.py _chroma_mc, then _chroma_residual, a plane at a time; a
@@ -33,8 +34,17 @@
 //      (nnz[0] Cb, nnz[1] Cr) with one atomicAdd; the C entry zeroes the
 //      two counts before the launch.
 //
+// The RD P frame (pu_decision) predicts each PU at its own MV, so its
+// chroma takes an MV field: one MV a (32 / k)-square tile of each block, k
+// = 8 (4x4 tiles, the chroma of 8x8 luma PU tiles), 4, 2 or 1.
+// chroma_pu_fused's CTA body, code_block_pu, replaces steps 1-2 by a scalar
+// 4-tap filter on the CUDA cores, each thread 4 rows of one column of one
+// tile, its 7 window rows read from the plane through the read-only cache
+// with the edges clamped (B5's tensor-core strip takes one fraction a
+// 16-column strip), and shares steps 3 and 4.
+//
 // One CTA body, code_block<R> over R = 1 (P) or 2 (B) references, serves
-// both kernels: its arrays of R entries are indexed by constants the
+// the other two kernels: its arrays of R entries are indexed by constants the
 // compiler unrolls, so the P instance is the body it was alone.  Steps 2
 // and 3 keep the stride-64 layout their cores were written for (B5's
 // output rows w apart, residual_tile's rows B apart), so the cores serve
@@ -51,7 +61,9 @@
 // bound by its latency (the launch, the windows' trip into shared memory,
 // three barriers and each warp's chain of products) and, on the frame's
 // path, by the host: one launch, and nothing else, where the plain
-// composition enqueued ~280 (P) or ~400 (B).
+// composition enqueued ~280 (P) or ~400 (B).  chroma_pu_fused at k = 8 also
+// reads its MV field (0.26 MB): 3.4 MB, 0.0010 ms, for 11 multiply-adds a
+// predicted sample (a task's 7 x 4 horizontal and 4 x 4 vertical for 4).
 
 #include "mc_tc.cuh"
 #include "residual_core.cuh"
@@ -71,6 +83,16 @@ struct ChromaFusedArgs {
 };
 using ChromaArgs = ChromaFusedArgs<1>;
 using ChromaBiArgs = ChromaFusedArgs<2>;
+
+// The per-PU instance's block (18 int64): the P frame's, with one MV a
+// (32 / k)-square tile of each block, k = 1, 2, 4 or 8: tile (ty, tx) of
+// block i at mv + 2 (k^2 i + k ty + tx).
+struct ChromaPuArgs {
+  long long cur[2], ref[2], rec[2];
+  long long mv, nnz, h, w, k;
+  long long q[5];
+  long long device, stream;
+};
 
 namespace {
 namespace chroma {
@@ -93,6 +115,8 @@ constexpr int WIN_BYTES = 16 * (N / 16 + 1) * WS;
 // 28,672 (B), static, so two CTAs share an SM.
 template <int R>
 constexpr int SMEM = 2 * R * WIN_BYTES + 3 * 2 * TILE + 2 * COUNTS * 4;
+// The per-PU instance reads its windows from the planes: 13,312 bytes.
+constexpr int SMEM_PU = 3 * 2 * TILE + 2 * COUNTS * 4;
 
 struct alignas(16) Bytes16 {
   uint32_t w[4];
@@ -107,6 +131,53 @@ __device__ __forceinline__ void stage_clamped(const uint8_t* __restrict__ plane,
     const int r = k / WIN, c = k - r * WIN;
     win[r * WS + c] = plane[static_cast<size_t>(clip3(0, h - 1, y0 + r)) * w +
                             clip3(0, w - 1, x0 + c)];
+  }
+}
+
+// Step 1's source blocks: block (by, bx) of both planes into the source
+// tiles, 16 bytes a thread.
+__device__ __forceinline__ void stage_source(const long long (&cur)[2], int w, int by, int bx,
+                                             int nthreads, uint8_t* src) {
+  for (int k = threadIdx.x; k < 2 * N * N / 16; k += nthreads) {
+    const int p = k / (N * N / 16), r = (k >> 1) % N, c = 16 * (k & 1);
+    *reinterpret_cast<Bytes16*>(src + p * TILE + r * B + c) =
+        *reinterpret_cast<const Bytes16*>(reinterpret_cast<const uint8_t*>(cur[p]) +
+                                          static_cast<size_t>(N * by + r) * w + N * bx + c);
+  }
+}
+
+// Steps 3 and 4, once the prediction tiles are written and the CTA has met.
+__device__ __forceinline__ void code_and_store(const long long (&q)[5], const long long (&rec)[2],
+                                               long long nnz, int w, int by, int bx,
+                                               int nthreads, const uint8_t* src,
+                                               const uint8_t* pred, uint8_t* out,
+                                               int32_t* counts) {
+  // ---- 3. the residual: task k is plane k >> 2, 16x16 tile ((k >> 1) & 1, k & 1)
+  const QParams qp = {static_cast<int>(q[0]), static_cast<int>(q[1]), static_cast<int>(q[2]),
+                      static_cast<int>(q[3]), static_cast<int>(q[4])};
+  for (int k = threadIdx.x >> 5; k < 8; k += nthreads >> 5) {
+    const int p = k >> 2;
+    residual_tile<4>(src + p * TILE, pred + p * TILE, out + p * TILE, counts + p * COUNTS,
+                     nullptr, (k >> 1) & 1, k & 1, qp);
+  }
+  __syncthreads();
+
+  // ---- 4. the reconstruction to the planes, and the counts ------------------
+  for (int k = threadIdx.x; k < 2 * N * N / 16; k += nthreads) {
+    const int p = k / (N * N / 16), r = (k >> 1) % N, c = 16 * (k & 1);
+    *reinterpret_cast<Bytes16*>(reinterpret_cast<uint8_t*>(rec[p]) +
+                                static_cast<size_t>(N * by + r) * w + N * bx + c) =
+        *reinterpret_cast<const Bytes16*>(out + p * TILE + r * B + c);
+  }
+  // The block's 8x8 TUs are entries (r, c < 8) of the TU grid residual_tile
+  // fills (rows B / 4 apart): lane l sums row l >> 2, columns 2 (l & 3), + 1.
+  for (int p = threadIdx.x >> 5; p < 2; p += nthreads >> 5) {
+    const int lane = threadIdx.x & 31;
+    const int32_t* row = counts + p * COUNTS + (lane >> 2) * (B / 4) + 2 * (lane & 3);
+    int v = row[0] + row[1];
+#pragma unroll
+    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0 && v) atomicAdd(reinterpret_cast<int*>(nnz) + p, v);
   }
 }
 
@@ -153,12 +224,7 @@ __device__ __forceinline__ void code_block(const ChromaFusedArgs<R>& a, long lon
       }
     }
   }
-  for (int k = threadIdx.x; k < 2 * N * N / 16; k += nthreads) {
-    const int p = k / (N * N / 16), r = (k >> 1) % N, c = 16 * (k & 1);
-    *reinterpret_cast<Bytes16*>(src + p * TILE + r * B + c) =
-        *reinterpret_cast<const Bytes16*>(reinterpret_cast<const uint8_t*>(a.cur[p]) +
-                                          static_cast<size_t>(N * by + r) * w + N * bx + c);
-  }
+  stage_source(a.cur, w, by, bx, nthreads, src);
   mctc::Bands bands[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) bands[r] = mctc::bands<TAPS>(mx[r] & 7, my[r] & 7);
@@ -177,34 +243,70 @@ __device__ __forceinline__ void code_block(const ChromaFusedArgs<R>& a, long lon
                              bands[0], bands[R - 1], pred + p * TILE);
   }
   __syncthreads();
+  code_and_store(a.q, a.rec, a.nnz, w, by, bx, nthreads, src, pred, out, counts);
+}
 
-  // ---- 3. the residual: task k is plane k >> 2, 16x16 tile ((k >> 1) & 1, k & 1)
-  const QParams qp = {static_cast<int>(a.q[0]), static_cast<int>(a.q[1]), static_cast<int>(a.q[2]),
-                      static_cast<int>(a.q[3]), static_cast<int>(a.q[4])};
-  for (int k = threadIdx.x >> 5; k < 8; k += nthreads >> 5) {
-    const int p = k >> 2;
-    residual_tile<4>(src + p * TILE, pred + p * TILE, out + p * TILE, counts + p * COUNTS,
-                     nullptr, (k >> 1) & 1, k & 1, qp);
-  }
-  __syncthreads();
+// KERNEL4[f][t] (H.265 table 8-12) from mc_tc.cuh's packed bytes.
+__device__ __forceinline__ int chroma_tap(uint64_t taps, int t) {
+  return static_cast<int8_t>(taps >> (8 * t));
+}
 
-  // ---- 4. the reconstruction to the planes, and the counts ------------------
-  for (int k = threadIdx.x; k < 2 * N * N / 16; k += nthreads) {
-    const int p = k / (N * N / 16), r = (k >> 1) % N, c = 16 * (k & 1);
-    *reinterpret_cast<Bytes16*>(reinterpret_cast<uint8_t*>(a.rec[p]) +
-                                static_cast<size_t>(N * by + r) * w + N * bx + c) =
-        *reinterpret_cast<const Bytes16*>(out + p * TILE + r * B + c);
-  }
-  // The block's 8x8 TUs are entries (r, c < 8) of the TU grid residual_tile
-  // fills (rows B / 4 apart): lane l sums row l >> 2, columns 2 (l & 3), + 1.
-  for (int p = threadIdx.x >> 5; p < 2; p += nthreads >> 5) {
-    const int lane = threadIdx.x & 31;
-    const int32_t* row = counts + p * COUNTS + (lane >> 2) * (B / 4) + 2 * (lane & 3);
-    int v = row[0] + row[1];
+// Step 2 of the per-PU instance: block (by, bx) of both planes predicted
+// from one reference, each (32 / k)-square tile at its own MV, on the CUDA
+// cores.  Task j is plane p, column x and rows 4 q .. 4 q + 3, which lie in
+// one tile (a tile has 4 rows or more): the 7 window rows from the plane
+// through the read-only cache, rows and columns clamped to its edges, the
+// horizontal pass stored to int16, then the vertical pass, rounded and
+// clipped into the prediction tile.  B5's tensor-core strip takes one
+// fraction a 16-column strip, and a 4x4 tile has its own.
+__device__ __forceinline__ void predict_tiles(const ChromaPuArgs& a, long long i, int by,
+                                              int bx, int nthreads, uint8_t* pred) {
+  const int h = static_cast<int>(a.h), w = static_cast<int>(a.w), k = static_cast<int>(a.k);
+  const int side = N / k;
+  const int32_t* mv = reinterpret_cast<const int32_t*>(a.mv) + 2 * i * k * k;
+  for (int j = threadIdx.x; j < 2 * N * N / 4; j += nthreads) {
+    const int x = j % N, q = (j / N) % (N / 4), p = j / (N * N / 4);
+    const int t = (4 * q / side) * k + x / side;
+    const int my = __ldg(mv + 2 * t), mx = __ldg(mv + 2 * t + 1);
+    const int y0 = N * by + 4 * q + (my >> 3) - (TAPS / 2 - 1);
+    const int x0 = N * bx + x + (mx >> 3) - (TAPS / 2 - 1);
+    const uint64_t fh = mctc::filter_bytes<TAPS>(mx & 7), fv = mctc::filter_bytes<TAPS>(my & 7);
+    const uint8_t* ref = reinterpret_cast<const uint8_t*>(a.ref[p]);
+    int col[TAPS], mid[4 + TAPS - 1];
 #pragma unroll
-    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0 && v) atomicAdd(reinterpret_cast<int*>(a.nnz) + p, v);
+    for (int c = 0; c < TAPS; ++c) col[c] = clip3(0, w - 1, x0 + c);
+#pragma unroll
+    for (int r = 0; r < 4 + TAPS - 1; ++r) {
+      const uint8_t* row = ref + static_cast<size_t>(clip3(0, h - 1, y0 + r)) * w;
+      int s = 0;
+#pragma unroll
+      for (int c = 0; c < TAPS; ++c) s += chroma_tap(fh, c) * __ldg(row + col[c]);
+      mid[r] = static_cast<int16_t>(s);
+    }
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      int acc = 0;
+#pragma unroll
+      for (int c = 0; c < TAPS; ++c) acc += chroma_tap(fv, c) * mid[o + c];
+      pred[p * TILE + (4 * q + o) * B + x] = static_cast<uint8_t>(clip3(0, 255, (acc + 2048) >> 12));
+    }
   }
+}
+
+// The per-PU instance's CTA body: block i of both planes, each tile at its
+// own MV (step 2 above), then code_block's steps 3 and 4.
+__device__ __forceinline__ void code_block_pu(const ChromaPuArgs& a, long long i, int nthreads,
+                                              uint8_t* smem) {
+  const int w = static_cast<int>(a.w), gc = w / N;
+  const int by = static_cast<int>(i / gc), bx = static_cast<int>(i - static_cast<long long>(by) * gc);
+  uint8_t* const pred = smem;
+  uint8_t* const src = pred + 2 * TILE;
+  uint8_t* const out = src + 2 * TILE;
+  int32_t* const counts = reinterpret_cast<int32_t*>(out + 2 * TILE);
+  stage_source(a.cur, w, by, bx, nthreads, src);
+  predict_tiles(a, i, by, bx, nthreads, pred);
+  __syncthreads();
+  code_and_store(a.q, a.rec, a.nnz, w, by, bx, nthreads, src, pred, out, counts);
 }
 
 }  // namespace chroma
@@ -224,12 +326,17 @@ __global__ void __launch_bounds__(chroma::NTHREADS, 2) chroma_b_kernel(const Chr
   chroma::code_block(a, blockIdx.x, blockDim.x, smem);
 }
 
+__global__ void __launch_bounds__(chroma::NTHREADS, 2) chroma_pu_kernel(const ChromaPuArgs a) {
+  __shared__ __align__(16) uint8_t smem[chroma::SMEM_PU];
+  chroma::code_block_pu(a, blockIdx.x, blockDim.x, smem);
+}
+
 // Zeroes nnz[0..1], then launches kernel, one CTA a 32x32 block, on the
 // stream, and returns cudaGetLastError() (cudaErrorInvalidValue for a shape
 // or a quantizer it does not take: h and w multiples of 32 up to 2^16; the
 // caller checks 1 <= qscale < 2^15 and 0 <= qoffset < 2^15).
-template <int R>
-int launch(const ChromaFusedArgs<R>& a, void (*kernel)(const ChromaFusedArgs<R>)) {
+template <class Args>
+int launch(const Args& a, void (*kernel)(const Args)) {
   if (a.h < chroma::N || a.w < chroma::N || a.h % chroma::N || a.w % chroma::N
       || a.h > (1 << 16) || a.w > (1 << 16) || a.q[1] < 16 || a.q[1] > 27 || a.q[4] < 1
       || a.q[4] > 31 || a.device < 0 || a.device >= (1LL << 31))
@@ -256,4 +363,11 @@ extern "C" int hevc_chroma_p_fused(const ChromaArgs* args) {
 // A B frame's chroma, from two references at their own MVs.
 extern "C" int hevc_chroma_b_fused(const ChromaBiArgs* args) {
   return launch(*args, chroma_b_kernel);
+}
+
+// A P frame's chroma, from one reference at an MV a (32 / k)-square tile.
+extern "C" int hevc_chroma_pu_fused(const ChromaPuArgs* args) {
+  const long long k = args->k;
+  if (k != 1 && k != 2 && k != 4 && k != 8) return cudaErrorInvalidValue;
+  return launch(*args, chroma_pu_kernel);
 }

@@ -25,7 +25,8 @@ layout in B15 (kernels.base_grids.base_layout_decide, or B14 base_grids_ctu
 when the "eighth" layout sets base 8; at R != 32, B8 kernels.search.ssd_grid
 scores the sub-block grids) and refines its PUs in B13
 (kernels.costmap.refine_qpel_costmap_dma); ``tu_sizes`` picks each CTU's TU
-size.  A CPU frame runs the plain PyTorch version of every step, and so
+size.  Its luma (_rd_core) is shared with the 4:2:0 RD frame of
+encode.video.encode_inter_frame_yuv.  A CPU frame runs the plain PyTorch version of every step, and so
 does a CUDA frame when ``tiers=Tier.REF``.  Every path gives the same
 integers.
 
@@ -360,18 +361,47 @@ def _decide_pu(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid, tiers: Tier):
     windows and kernels the configuration and tiers select.  Returns (pred
     (n, 64, 64) uint8, choice (n,) int32, mv_tiles (n, k, k, 2) int32,
     best64 (n,) int32)."""
-    r = cfg.search_range
-    size = cfg.ctu + 2 * r
-    if size % cfg.ctu == 0:
-        win = motion.extract_aligned_windows(
-            ref_padded, (motion.PAD_L, motion.PAD_L), grid, cfg.ctu, size)
+    with span("hevcasm.pu_decision"):
+        r = cfg.search_range
+        size = cfg.ctu + 2 * r
+        if size % cfg.ctu == 0:
+            win = motion.extract_aligned_windows(
+                ref_padded, (motion.PAD_L, motion.PAD_L), grid, cfg.ctu, size)
+        else:
+            win = motion.extract_windows(ref_padded, pos + motion.PAD_L, size)
+        return partition.select_pu_layout_pruned(
+            src_ctus, ref_padded, pos, win, r, partition.mv_lambda(cfg.qp), cfg.pu_layouts,
+            motion.grid_metric_fn(cfg.me_metric, tiers), grid=grid, metric=cfg.me_metric,
+            decide_fn=_op("base_layout_decide", tiers), grids_fn=_op("base_grids_ctu", tiers),
+            costmap_dma_fn=_op("refine_qpel_costmap_dma", tiers))
+
+
+def _rd_core(src_ctus, ref_padded, pos, cfg: EncodeConfig, grid, tiers: Tier):
+    """The RD P frame's luma, which encode_inter_frame and
+    video.encode_inter_frame_yuv share: with pu_decision the PU decision
+    (_decide_pu: B15 or B14, the layout decision, B13), else the integer
+    search and hevcasm_tpu's (XLA) sweep, whatever refine_impl and
+    fused_refine say; then with tu_sizes the TU decision
+    (partition.select_tu_recon), else the residual at cfg.tu.  Returns
+    (rec_ctus (n, B, B) uint8, mv_field (n, k, k, 2) int32 quarter-pel, the
+    MV of each base tile of the PU decision (k = 1 without it), best (n,)
+    int32, nnz () int32, and {"pu_layout", "tu_choice"} where decided)."""
+    out = {}
+    if cfg.pu_decision:
+        pred, out["pu_layout"], mv_field, best = _decide_pu(src_ctus, ref_padded, pos, cfg,
+                                                            grid, tiers)
     else:
-        win = motion.extract_windows(ref_padded, pos + motion.PAD_L, size)
-    return partition.select_pu_layout_pruned(
-        src_ctus, ref_padded, pos, win, r, partition.mv_lambda(cfg.qp), cfg.pu_layouts,
-        motion.grid_metric_fn(cfg.me_metric, tiers), grid=grid, metric=cfg.me_metric,
-        decide_fn=_op("base_layout_decide", tiers), grids_fn=_op("base_grids_ctu", tiers),
-        costmap_dma_fn=_op("refine_qpel_costmap_dma", tiers))
+        mv_int, best = _integer_search(src_ctus, ref_padded, pos, cfg, grid, tiers)
+        pred, mv_qpel, _ = motion.refine_quarter_pel(
+            src_ctus, ref_padded, pos, mv_int, cfg.search_range,
+            refine_fn=_op("refine_qpel", Tier.REF))
+        mv_field = mv_qpel[:, None, None]
+    if cfg.tu_sizes:
+        rec_ctus, out["tu_choice"], nnz = partition.select_tu_recon(src_ctus, pred, cfg,
+                                                                    cfg.tu_sizes)
+    else:
+        rec_ctus, nnz, _ = _residual_pipeline(src_ctus, pred, cfg, intra=False, tiers=tiers)
+    return rec_ctus, mv_field, best, nnz, out
 
 
 def encode_inter_frame(cur, ref, cfg: EncodeConfig = EncodeConfig(),
@@ -399,7 +429,6 @@ def encode_inter_frame(cur, ref, cfg: EncodeConfig = EncodeConfig(),
     index into cfg.pu_layouts; with tu_sizes, "tu_choice" (n,) int32
     indexes cfg.tu_sizes and "nnz" counts coded TUs.
     """
-    rdo = cfg.pu_decision or bool(cfg.tu_sizes)
     if cfg.pu_decision:
         partition.base_for(cfg.pu_layouts)
     cur, (ref,), src_ctus, pos, grid = _prepare_frame(cfg, cur, ref, device=device)
@@ -410,27 +439,12 @@ def encode_inter_frame(cur, ref, cfg: EncodeConfig = EncodeConfig(),
             src_ctus, ref_padded, pos, cfg.search_range, *cfg.quant_params(False),
             *cfg.dequant_params())
         mv_qpel, nnz = motion.qpel_mvs(mv_int, frac), nnz_tu.sum(dtype=torch.int32)
-    elif not rdo:
-        rec_ctus, mv_qpel, best, nnz = _inter_core(src_ctus, ref_padded, pos, cfg, grid, tiers)
-    else:
-        if cfg.pu_decision:
-            pred, choice, mv_tiles, best = _decide_pu(src_ctus, ref_padded, pos, cfg, grid,
+    elif cfg.pu_decision or cfg.tu_sizes:
+        rec_ctus, mv_field, best, nnz, out = _rd_core(src_ctus, ref_padded, pos, cfg, grid,
                                                       tiers)
-            mv_qpel = mv_tiles[:, 0, 0]
-            out["pu_layout"] = choice
-        else:
-            mv_int, best = _integer_search(src_ctus, ref_padded, pos, cfg, grid, tiers)
-            # hevcasm_tpu refines with its (XLA) sweep here, whatever
-            # refine_impl and fused_refine say.
-            pred, mv_qpel, _ = motion.refine_quarter_pel(
-                src_ctus, ref_padded, pos, mv_int, cfg.search_range,
-                refine_fn=_op("refine_qpel", Tier.REF))
-        if cfg.tu_sizes:
-            rec_ctus, out["tu_choice"], nnz = partition.select_tu_recon(
-                src_ctus, pred, cfg, cfg.tu_sizes)
-        else:
-            rec_ctus, nnz, _ = _residual_pipeline(src_ctus, pred, cfg, intra=False,
-                                                  tiers=tiers)
+        mv_qpel = mv_field[:, 0, 0]
+    else:
+        rec_ctus, mv_qpel, best, nnz = _inter_core(src_ctus, ref_padded, pos, cfg, grid, tiers)
     recon = ctu_mod.untile_frame(rec_ctus, *cur.shape)
     return {"recon": recon, "mvs": mv_qpel, **out, "sad": best, "nnz": nnz,
             "psnr_db": psnr(cur, recon)}

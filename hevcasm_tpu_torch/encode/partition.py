@@ -22,6 +22,12 @@ plain version).  The defaults are the kernel wrappers, which run the plain
 versions on CPU tensors; encode.loop picks them from the registry, so
 Tier.REF runs the plain path on a card.  Every route gives the same
 integers.
+
+Under a profiler the pruned PU decision records its steps as spans
+(utils.trace): ``hevcasm.pu_grids`` (B15, or B14 / the grid scorer),
+``hevcasm.pu_layout`` (the layout decision's glue) and ``hevcasm.pu_refine``
+(B13 and the prediction's assembly); the TU decision records
+``hevcasm.tu_select``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ..kernels.costmap import PLANE_SIZES, refine_qpel_costmap, refine_qpel_cost
 from ..ops.pred_inter import pred_uni
 from ..ops.residual import residual_pipeline_frame
 from ..utils.tensor import first_min
+from ..utils.trace import span
 from . import ctu as ctu_mod
 from . import motion
 
@@ -238,57 +245,62 @@ def select_pu_layout_pruned(src_ctus, ref_padded, pos, windows, r: int, lam: int
     if aligned:
         win_ctu = motion.extract_aligned_windows(
             ref_padded, (motion.PAD_L, motion.PAD_L), grid, CTU, 128)
-    if aligned and base >= 16:
-        dec = decide_fn(src_ctus, win_ctu, base, _pu_lists(layouts, base))
-        costs_l, mvs = [], {}
-        o = 0
-        for name in layouts:
-            p = len(PU_LAYOUTS[name])
-            seg = dec[:, o:o + p]
-            o += p
-            mvs[name] = seg[:, :, :2]
-            costs_l.append(seg[:, :, 2].sum(dim=1, dtype=torch.int32) + lam * p)
-        costs = torch.stack(costs_l, dim=-1)
-        best64 = dec[:, -1, 2]
-    else:
-        if aligned:
+    decided = aligned and base >= 16
+    with span("hevcasm.pu_grids"):
+        if decided:
+            dec = decide_fn(src_ctus, win_ctu, base, _pu_lists(layouts, base))
+        elif aligned:
             g = grids_fn(src_ctus, win_ctu, base)
         else:
             g = base_grid_search(src_ctus, windows, r, grid_fn, base)
-        gint = grid_integral(g)
-        costs, mvs = layout_decision(gint, layouts, r, lam, base)
-        _, best64 = _argmin_grid(rect_grid(gint, (0, 0, CTU, CTU), base), r)
-    choice, _ = first_min(costs)
+    with span("hevcasm.pu_layout"):
+        if decided:
+            costs_l, mvs = [], {}
+            o = 0
+            for name in layouts:
+                p = len(PU_LAYOUTS[name])
+                seg = dec[:, o:o + p]
+                o += p
+                mvs[name] = seg[:, :, :2]
+                costs_l.append(seg[:, :, 2].sum(dim=1, dtype=torch.int32) + lam * p)
+            costs = torch.stack(costs_l, dim=-1)
+            best64 = dec[:, -1, 2]
+        else:
+            gint = grid_integral(g)
+            costs, mvs = layout_decision(gint, layouts, r, lam, base)
+            _, best64 = _argmin_grid(rect_grid(gint, (0, 0, CTU, CTU), base), r)
+        choice, _ = first_min(costs)
 
-    # Per-tile PU index and integer MV of the chosen layout only.
-    table = torch.as_tensor(_tile_pu_table(layouts, base), device=dev).long()   # (L, m)
-    pu_of = table[choice.long()]                                            # (n, m)
-    mv_tiles_l = torch.stack([mvs[name][:, table[li]] for li, name in enumerate(layouts)],
-                             dim=1)                                         # (n, L, m, 2)
-    mv_tiles = mv_tiles_l[torch.arange(n, device=dev), choice.long()]      # (n, m, 2)
+        # Per-tile PU index and integer MV of the chosen layout only.
+        table = torch.as_tensor(_tile_pu_table(layouts, base), device=dev).long()  # (L, m)
+        pu_of = table[choice.long()]                                           # (n, m)
+        mv_tiles_l = torch.stack([mvs[name][:, table[li]] for li, name in enumerate(layouts)],
+                                 dim=1)                                        # (n, L, m, 2)
+        mv_tiles = mv_tiles_l[torch.arange(n, device=dev), choice.long()]     # (n, m, 2)
 
-    # One cost-map call over every base tile of the frame, the windows read
-    # from the plane at the MV offsets.
-    offs = torch.tensor([(ty * base, tx * base) for ty in range(k) for tx in range(k)],
-                        dtype=torch.int32, device=dev)
-    src_tiles = ctu_mod.split_blocks(src_ctus, base).contiguous()          # (n*m, b, b)
-    start = (pos[:, None, :] + offs[None] + mv_tiles + r).reshape(n * m, 2)
-    cost_t, win = costmap_dma_fn(src_tiles, ref_padded.contiguous(),
-                                 start.to(torch.int32).contiguous())
-    cost_t = cost_t.reshape(n, m, 16)
+    with span("hevcasm.pu_refine"):
+        # One cost-map call over every base tile of the frame, the windows
+        # read from the plane at the MV offsets.
+        offs = torch.tensor([(ty * base, tx * base) for ty in range(k) for tx in range(k)],
+                            dtype=torch.int32, device=dev)
+        src_tiles = ctu_mod.split_blocks(src_ctus, base).contiguous()      # (n*m, b, b)
+        start = (pos[:, None, :] + offs[None] + mv_tiles + r).reshape(n * m, 2)
+        cost_t, win = costmap_dma_fn(src_tiles, ref_padded.contiguous(),
+                                     start.to(torch.int32).contiguous())
+        cost_t = cost_t.reshape(n, m, 16)
 
-    # Tile maps -> per-PU maps (slots past a layout's PU count stay 0);
-    # one fraction per PU.
-    cost_pu = torch.zeros((n, pmax, 16), dtype=torch.int32, device=dev)
-    cost_pu.scatter_add_(1, pu_of[:, :, None].expand(n, m, 16), cost_t)
-    frac_pu, _ = first_min(cost_pu)                                         # (n, pmax)
-    frac_t = torch.gather(frac_pu, 1, pu_of).reshape(n * m)
+        # Tile maps -> per-PU maps (slots past a layout's PU count stay 0);
+        # one fraction per PU.
+        cost_pu = torch.zeros((n, pmax, 16), dtype=torch.int32, device=dev)
+        cost_pu.scatter_add_(1, pu_of[:, :, None].expand(n, m, 16), cost_t)
+        frac_pu, _ = first_min(cost_pu)                                     # (n, pmax)
+        frac_t = torch.gather(frac_pu, 1, pu_of).reshape(n * m)
 
-    # Interpolate each tile once at its PU's fraction, assemble the CTU.
-    pt = pred_uni(win, frac_t % 4, frac_t // 4)                             # (n*m, b, b)
-    pred = ctu_mod.merge_blocks(pt, CTU)
-    mv_qpel = motion.qpel_mvs(mv_tiles, frac_t.reshape(n, m))
-    return pred, choice, mv_qpel.reshape(n, k, k, 2), best64
+        # Interpolate each tile once at its PU's fraction, assemble the CTU.
+        pt = pred_uni(win, frac_t % 4, frac_t // 4)                         # (n*m, b, b)
+        pred = ctu_mod.merge_blocks(pt, CTU)
+        mv_qpel = motion.qpel_mvs(mv_tiles, frac_t.reshape(n, m))
+        return pred, choice, mv_qpel.reshape(n, k, k, 2), best64
 
 
 def select_pu_layout(src_ctus, ref_padded, pos, windows, r: int, lam: int, layouts,
@@ -350,24 +362,25 @@ def select_tu_recon(src_ctus, pred, cfg, tu_sizes, intra: bool = False):
 
     Returns (recon (n, 64, 64) uint8, tu_choice (n,) int32 index into
     tu_sizes, nnz () int32 coded TUs of the selected sizes)."""
-    n = src_ctus.shape[0]
-    lam = mv_lambda(cfg.qp)
-    src32 = src_ctus.to(torch.int32)
-    recs, costs, nnzs = [], [], []
-    for tu in tu_sizes:
-        c = dataclasses.replace(cfg, tu=tu)
-        tr_type = 1 if (intra and tu == 4) else 0
-        scale, shift, offset = c.quant_params(intra)
-        dscale, dshift = c.dequant_params()
-        rec, _, cbf, bits = residual_pipeline_frame(
-            src_ctus, pred, scale, shift, offset, dscale, dshift, tu=tu, tr_type=tr_type)
-        d = src32 - rec.to(torch.int32)
-        dist = (d * d).sum(dim=(-2, -1), dtype=torch.int32)
-        costs.append(dist + lam * bits)
-        recs.append(rec)
-        nnzs.append(cbf.reshape(n, -1).sum(dim=-1, dtype=torch.int32))
-    choice, _ = first_min(torch.stack(costs, dim=-1))                       # (n,)
-    rows = torch.arange(n, device=src_ctus.device)
-    recon = torch.stack(recs, dim=1)[rows, choice.long()]
-    nnz_sel = torch.stack(nnzs, dim=-1)[rows, choice.long()]
-    return recon, choice, nnz_sel.sum(dtype=torch.int32)
+    with span("hevcasm.tu_select"):
+        n = src_ctus.shape[0]
+        lam = mv_lambda(cfg.qp)
+        src32 = src_ctus.to(torch.int32)
+        recs, costs, nnzs = [], [], []
+        for tu in tu_sizes:
+            c = dataclasses.replace(cfg, tu=tu)
+            tr_type = 1 if (intra and tu == 4) else 0
+            scale, shift, offset = c.quant_params(intra)
+            dscale, dshift = c.dequant_params()
+            rec, _, cbf, bits = residual_pipeline_frame(
+                src_ctus, pred, scale, shift, offset, dscale, dshift, tu=tu, tr_type=tr_type)
+            d = src32 - rec.to(torch.int32)
+            dist = (d * d).sum(dim=(-2, -1), dtype=torch.int32)
+            costs.append(dist + lam * bits)
+            recs.append(rec)
+            nnzs.append(cbf.reshape(n, -1).sum(dim=-1, dtype=torch.int32))
+        choice, _ = first_min(torch.stack(costs, dim=-1))                   # (n,)
+        rows = torch.arange(n, device=src_ctus.device)
+        recon = torch.stack(recs, dim=1)[rows, choice.long()]
+        nnz_sel = torch.stack(nnzs, dim=-1)[rows, choice.long()]
+        return recon, choice, nnz_sel.sum(dtype=torch.int32)

@@ -16,10 +16,13 @@ frame's search, refine and residual as loop._inter_core runs them (K1, B8,
 B9, K2, B16, B11, B4), and under inter_impl "fused*" B3
 (kernels.bi_fused.bi_ctu_fused_dma, the B frame's two refinements, combine
 and residual), else the staged B path with B4 under residual_impl
-"pallas".  A CUDA P or B frame at 64x64 CTUs codes both chroma planes in
+"pallas".  The RD P frame (pu_decision, tu_sizes) runs
+encode_inter_frame's RD luma (loop._rd_core) and predicts each PU's chroma
+at its own MV.  A CUDA P or B frame at 64x64 CTUs codes both chroma planes in
 one launch of kernels.chroma_fused.chroma_p_fused or chroma_b_fused
 (windows, 4-tap MC, the B frame's mean of its two references, and 4x4
-residual of every 32x32 chroma block) when the tiers include KERNEL; the
+residual of every 32x32 chroma block), or for the RD P frame's PU tiles
+chroma_pu_fused, when the tiers include KERNEL; the
 CPU, tiers=Tier.REF, other CTU sizes and intra chroma run the plain
 PyTorch composition (_chroma_mc, _chroma_residual, the B frame's as
 chroma_fused.chroma_b_fused_ref, _chroma_intra_plane), the golden model.
@@ -35,6 +38,7 @@ encode_gop_closed_loop_yuv_b (encode order I, P2, B1, P4, B3, ...).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -48,10 +52,12 @@ from ..utils.tensor import as_tensor, constant, entry_device, first_min
 from ..utils.trace import span
 from . import ctu as ctu_mod
 from . import motion
+from . import partition
 from .intra_wavefront import encode_intra_frame_wavefront
 from .loop import (EncodeConfig, _inter_core, _intra_neighbours, _op, _pad_reference,
-                   _prepare_frame, _prepare_frames, _prepare_intra_refs, _residual_pipeline,
-                   _satd_cost, _search_impl_resolved, encode_inter_frame, encode_intra_frame)
+                   _prepare_frame, _prepare_frames, _prepare_intra_refs, _rd_core,
+                   _residual_pipeline, _satd_cost, _search_impl_resolved, encode_inter_frame,
+                   encode_intra_frame)
 
 __all__ = ["YuvFrame", "chroma_qp", "encode_inter_frame_yuv", "encode_b_frame_yuv",
            "encode_intra_frame_yuv", "encode_gop_yuv", "encode_gop_closed_loop",
@@ -102,9 +108,11 @@ def _as_yuv(frame, device=None) -> YuvFrame:
 def _chroma_mc(plane: torch.Tensor, mv_qpel: torch.Tensor, cfg: EncodeConfig,
                out16: bool = False) -> torch.Tensor:
     """Motion-compensate one chroma plane (H/2, W/2) with the luma
-    quarter-pel MVs (n, 2), one per 64x64 luma CTU = one per 32x32 chroma
-    block.  Returns (n, ctu/2, ctu/2) uint8 predictions, or with ``out16``
-    the int16 (acc >> 6) bi intermediates."""
+    quarter-pel MVs: (n, 2), one per luma CTU = one per chroma block of half
+    its side, or an MV field (n, k, k, 2), one per (ctu / 2k)-square tile of
+    each block in raster order (the RD frame's PU tiles).  Returns (n,
+    ctu/2, ctu/2) uint8 predictions, or with ``out16`` the int16 (acc >> 6)
+    bi intermediates."""
     with span("hevcasm.chroma_mc"):
         taps = 4
         b = cfg.ctu // 2
@@ -114,11 +122,16 @@ def _chroma_mc(plane: torch.Tensor, mv_qpel: torch.Tensor, cfg: EncodeConfig,
                                    rc + pad_r + 1)
         gr, gc = ctu_mod.grid_shape(*plane.shape, b)
         pos = motion.ctu_positions(gr, gc, b, plane.device)
-        mv_int = mv_qpel >> 3
-        frac = mv_qpel & 7
-        win = motion.extract_windows(padded, pos + mv_int + rc, b + taps - 1)
+        mv = mv_qpel.reshape(pos.shape[0], -1, 2)            # (n, k * k, 2)
+        k = math.isqrt(mv.shape[1])
+        t = b // k
+        offs = constant([(t * (j // k), t * (j % k)) for j in range(k * k)], torch.int32,
+                        plane.device)
+        start = (pos[:, None] + offs + (mv >> 3) + rc).reshape(-1, 2)
+        win = motion.extract_windows(padded, start, t + taps - 1)
+        frac = (mv & 7).reshape(-1, 2)
         fn = pred_uni_16 if out16 else pred_uni
-        return fn(win, frac[:, 1], frac[:, 0], taps)
+        return ctu_mod.merge_blocks(fn(win, frac[:, 1], frac[:, 0], taps), b)
 
 
 def _chroma_residual(cur_plane, pred_blocks, cfg: EncodeConfig, intra: bool,
@@ -148,35 +161,69 @@ def encode_inter_frame_yuv(cur, ref, cfg: EncodeConfig = EncodeConfig(),
     the plain _chroma_mc and _chroma_residual a plane; both give the same
     integers.
 
+    With pu_decision and/or tu_sizes it codes the RD P frame: its luma is
+    encode_inter_frame's RD branch (loop._rd_core: the PU decision, B15 or
+    B14 then B13; or, with tu_sizes alone, the integer search and the
+    sweep; then the TU decision, partition.select_tu_recon, or the residual
+    at cfg.tu), and each PU's chroma is predicted at that PU's MV: the luma
+    quarter-pel MV of the PU that owns a base tile drives that tile's
+    chroma, an eighth-pel MV at chroma resolution (an 8x8 luma base tile
+    gives a 4x4 chroma tile, base 16 an 8x8 one), in one launch of
+    chroma_pu_fused where _uses_chroma_kernel says so (chroma_p_fused for
+    one MV a CTU), else the plain path.  Chroma TUs stay 4x4.
+
     cur, ref: YuvFrame (or 3-tuples) of uint8 tensors or numpy arrays.  A
     tensor cur.y runs on its own device, numpy planes on ``device``, by
-    default the CUDA card (with none, pass device="cpu").  Returns {"recon": YuvFrame, "mvs": (n, 2) int32
-    quarter-pel, "nnz": () int32 over the three planes, "psnr_y",
-    "psnr_cb", "psnr_cr": () float32}."""
+    default the CUDA card (with none, pass device="cpu").  Returns {"recon":
+    YuvFrame, "mvs": (n, 2) int32 quarter-pel, "nnz": () int32 over the
+    three planes, "psnr_y", "psnr_cb", "psnr_cr": () float32}.  The RD
+    frame adds "mv_field": (n, k, k, 2) int32 quarter-pel, the MV of every
+    base tile of the PU decision (k = 1 without it), with "mvs" its
+    top-left PU's MV as encode_inter_frame's; "pu_layout" (n,) int32 with
+    pu_decision and "tu_choice" (n,) int32 with tu_sizes, as
+    encode_inter_frame returns them; and "nnz" counts luma's coded TUs of
+    the selected sizes with tu_sizes (as select_tu_recon counts them, else
+    coefficients), plus both chroma planes' coded coefficients."""
     with span("hevcasm.inter_yuv"):
         _chroma_cfg(cfg)  # its guards, before any work
+        rd = cfg.pu_decision or bool(cfg.tu_sizes)
+        if cfg.pu_decision:
+            partition.base_for(cfg.pu_layouts)
         cur = _as_yuv(cur, None if device is None else entry_device(cur[0], device))
         ref = _as_yuv(ref, cur.y.device)
+        extra = {}
         with span("hevcasm.luma"):
             cur_y, (ref_y,), src_ctus, pos, grid = _prepare_frame(cfg, cur.y, ref.y)
-            rec_y_ctus, mv_qpel, _, nnz_y = _inter_core(
-                src_ctus, _pad_reference(ref_y, cfg.search_range), pos, cfg, grid, tiers)
+            ref_padded = _pad_reference(ref_y, cfg.search_range)
+            if rd:
+                rec_y_ctus, mv_field, _, nnz_y, decided = _rd_core(src_ctus, ref_padded, pos,
+                                                                   cfg, grid, tiers)
+                mv_qpel = mv_field[:, 0, 0]
+                extra = {"mv_field": mv_field, **decided}
+            else:
+                rec_y_ctus, mv_qpel, _, nnz_y = _inter_core(src_ctus, ref_padded, pos, cfg,
+                                                            grid, tiers)
             rec_y = ctu_mod.untile_frame(rec_y_ctus, *cur_y.shape)
 
         with span("hevcasm.chroma"):
-            if _uses_chroma_kernel(cfg, tiers, cur.cb):
-                rec_cb, nnz_cb, rec_cr, nnz_cr = _op("chroma_p_fused", tiers)(
-                    cur.cb, cur.cr, ref.cb, ref.cr, mv_qpel, cfg)
+            # One MV a block unless the PU decision gave one a tile.
+            per_tile = rd and mv_field.shape[1] > 1
+            chroma_mv = mv_field if per_tile else mv_qpel
+            if not _uses_chroma_kernel(cfg, tiers, cur.cb):
+                rec_cb, nnz_cb = _chroma_residual(cur.cb, _chroma_mc(ref.cb, chroma_mv, cfg),
+                                                  cfg, False, tiers)
+                rec_cr, nnz_cr = _chroma_residual(cur.cr, _chroma_mc(ref.cr, chroma_mv, cfg),
+                                                  cfg, False, tiers)
             else:
-                rec_cb, nnz_cb = _chroma_residual(cur.cb, _chroma_mc(ref.cb, mv_qpel, cfg),
-                                                  cfg, False, tiers)
-                rec_cr, nnz_cr = _chroma_residual(cur.cr, _chroma_mc(ref.cr, mv_qpel, cfg),
-                                                  cfg, False, tiers)
+                rec_cb, nnz_cb, rec_cr, nnz_cr = _op(
+                    "chroma_pu_fused" if per_tile else "chroma_p_fused", tiers)(
+                    cur.cb, cur.cr, ref.cb, ref.cr, chroma_mv, cfg)
         with span("hevcasm.psnr"):
             psnrs = psnr(cur_y, rec_y), psnr(cur.cb, rec_cb), psnr(cur.cr, rec_cr)
         return {
             "recon": YuvFrame(rec_y, rec_cb, rec_cr),
             "mvs": mv_qpel,
+            **extra,
             "nnz": nnz_y + nnz_cb + nnz_cr,
             "psnr_y": psnrs[0],
             "psnr_cb": psnrs[1],

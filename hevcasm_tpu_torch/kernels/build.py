@@ -7,7 +7,7 @@ the package (the hash covers the sources, the ``csrc/*.cuh`` headers they
 share and the flags, so an edited kernel is rebuilt and an unchanged one is
 not).  The library is loaded with ``ctypes``; each C entry takes device
 pointers, ints and a CUDA stream (B10's, B5's, B6's, chroma_p_fused's,
-chroma_b_fused's and intra_wave_fused's, whose calls are host-bound, take
+chroma_b_fused's, chroma_pu_fused's and intra_wave_fused's, whose calls are host-bound, take
 them packed in one block), launches one
 kernel on that stream and returns ``cudaGetLastError()``.
 """
@@ -100,6 +100,10 @@ _ENTRIES = {
     # mv0, mv1, nnz, h, w, qscale, qshift, qoffset, dscale, dshift, device,
     # stream
     "hevc_chroma_b_fused": [ctypes.c_char_p],
+    # one block of 18 int64 (ChromaPuArgs): cur[2], ref[2], rec[2], mv
+    # field, nnz, h, w, k, qscale, qshift, qoffset, dscale, dshift, device,
+    # stream
+    "hevc_chroma_pu_fused": [ctypes.c_char_p],
     # one block of 20 int64 (csrc/intra_wave.cu IntraWaveArgs): canvas, src,
     # order, refs, lav, aav, cav, nnz, modes, start, stop, num, strong,
     # qscale, qshift, qoffset, dscale, dshift, device, stream

@@ -1,5 +1,6 @@
-"""Kernels chroma_p_fused and chroma_b_fused: the chroma of a 4:2:0 P frame
-(one reference) or B frame (two references), both planes, in one launch.
+"""Kernels chroma_p_fused, chroma_b_fused and chroma_pu_fused: the chroma of
+a 4:2:0 P frame (one reference) or B frame (two references), both planes, in
+one launch; chroma_pu_fused is the RD P frame's, an MV a PU tile.
 
 They replace no TPU kernel: hevcasm_tpu codes a frame's chroma in plain ops
 (``encode.video._chroma_mc`` then ``_chroma_residual``, a plane at a time;
@@ -14,7 +15,11 @@ windows straight from the unpadded reference planes (edges clamped), the
 share (``csrc/residual_core.cuh``), and the reconstruction and nnz written
 to the frame's planes; the header says what bounds them on the card.
 Beside each stands its plain version, ``chroma_p_fused_ref`` and
-``chroma_b_fused_ref``.
+``chroma_b_fused_ref``.  chroma_pu_fused predicts each (32 / k)-square tile
+of a block at its own MV with a scalar 4-tap filter on the CUDA cores,
+reading the windows straight from the planes, then codes the block as the
+other two do; its plain version is chroma_p_fused_ref, which takes an MV
+field.
 
 Contract: ``chroma_p_fused(cur_cb, cur_cr, ref_cb, ref_cr, mv_qpel, cfg)``
 and ``chroma_b_fused(cur_cb, cur_cr, ref0_cb, ref0_cr, ref1_cb, ref1_cr,
@@ -24,14 +29,18 @@ chroma block in raster order (mv0 into ref0, mv1 into ref1), and cfg the
 luma EncodeConfig (64x64 CTUs; its qp gives the chroma quantizer at 4x4
 TUs, encode.video._chroma_cfg's, for both frame types).  Each returns
 (rec_cb, nnz_cb, rec_cr, nnz_cr): (H/2, W/2) uint8 planes and () int32
-counts of coded coefficients.  MVs within cfg's search range reach at most
-the padding the plain versions build; the kernels clamp any reach to the
-plane's edge.
+counts of coded coefficients.  ``chroma_pu_fused(cur_cb, cur_cr, ref_cb,
+ref_cr, mv_field, cfg)`` takes the same with an MV field (n, k, k, 2), k in
+(1, 2, 4, 8): tile (ty, tx) of block i, (32 / k)-square, at mv_field[i, ty,
+tx] (the luma PU decision's base tiles: 8x8 luma tiles give k = 8).  MVs
+within cfg's search range reach at most the padding the plain versions
+build; the kernels clamp any reach to the plane's edge.
 
-They are the KERNEL tiers of the registry's ``chroma_p_fused`` and
-``chroma_b_fused``, whose REF tiers are the plain versions;
-encode.video.encode_inter_frame_yuv and encode_b_frame_yuv take them for
-CUDA planes at 64x64 CTUs when the tiers include KERNEL.
+They are the KERNEL tiers of the registry's ``chroma_p_fused``,
+``chroma_b_fused`` and ``chroma_pu_fused``, whose REF tiers are the plain
+versions; encode.video.encode_inter_frame_yuv (chroma_pu_fused for the PU
+decision's MV field) and encode_b_frame_yuv take them for CUDA planes at
+64x64 CTUs when the tiers include KERNEL.
 """
 
 from __future__ import annotations
@@ -48,19 +57,23 @@ from ..utils.tensor import as_tensor
 from . import build
 
 __all__ = ["chroma_p_fused", "chroma_p_fused_ref", "chroma_b_fused", "chroma_b_fused_ref",
-           "BLOCK"]
+           "chroma_pu_fused", "BLOCK"]
 
 BLOCK = 32                          # chroma block side: the chroma of a 64x64 luma CTU
 # By the number R of references: the kernel's name (its C entry is hevc_<name>)
 # and csrc/chroma_fused.cu's packed ChromaFusedArgs<R>.
 _KERNELS = {1: ("chroma_p_fused", struct.Struct("17q")),
             2: ("chroma_b_fused", struct.Struct("20q"))}
+# csrc/chroma_fused.cu's ChromaPuArgs, and the MV field's tiles a block side.
+_PU_ARGS = struct.Struct("18q")
+PU_TILES = (1, 2, 4, 8)
 _U8, _I32 = torch.uint8, torch.int32
 
 
 def chroma_p_fused_ref(cur_cb, cur_cr, ref_cb, ref_cr, mv_qpel, cfg):
-    """Plain version: encode.video's _chroma_mc then _chroma_residual at
-    Tier.REF, for each plane."""
+    """Plain version of chroma_p_fused and chroma_pu_fused: encode.video's
+    _chroma_mc (MVs (n, 2), or an MV field (n, k, k, 2)) then
+    _chroma_residual at Tier.REF, for each plane."""
     from ..encode import video
 
     cur_cb = as_tensor(cur_cb)
@@ -152,7 +165,22 @@ def _aligned(plane: torch.Tensor) -> torch.Tensor:
     return plane.clone() if plane.data_ptr() & 15 else plane
 
 
-def _launch(what, planes, mvs, cfg):
+def _enqueue_pu(card: int, planes, field, h: int, w: int, k: int, qp: int):
+    """Launch chroma_pu_fused's kernel on card ``card`` on checked operands:
+    the four planes as _enqueue takes them and the (h / 32 * w / 32, k, k,
+    2) int32 contiguous MV field there."""
+    rec = torch.empty((2, h, w), dtype=_U8, device=card)
+    nnz = torch.empty(2, dtype=_I32, device=card)
+    err = build.load().hevc_chroma_pu_fused(_PU_ARGS.pack(
+        *[p.data_ptr() for p in planes], rec.data_ptr(), rec.data_ptr() + h * w,
+        field.data_ptr(), nnz.data_ptr(), h, w, k, *_qargs(qp), card, build.raw_stream(card)))
+    build.check(err, "chroma_pu_fused")
+    return rec[0], nnz[0], rec[1], nnz[1]
+
+
+def _launch(what, planes, mvs, cfg, tiles=None):
+    """Check the operands and launch: MVs (n, 2) a block, or with ``tiles``
+    = k the one MV field (n, k, k, 2) of chroma_pu_fused."""
     dev = build.on_card(what, *planes, *mvs)
     if cfg.ctu != 2 * BLOCK:
         raise ValueError(f"{what}: {cfg.ctu}x{cfg.ctu} CTUs; the kernel codes the "
@@ -166,13 +194,17 @@ def _launch(what, planes, mvs, cfg):
                          f"{BLOCK}, got {[tuple(p.shape) for p in planes]}")
     h, w = shape
     n = h // BLOCK * (w // BLOCK)
+    want = (n, 2) if tiles is None else (n, tiles, tiles, 2)
     for mv in mvs:
         if mv.dtype.is_floating_point or mv.dtype.is_complex or mv.dtype == torch.bool:
             raise TypeError(f"{what}: MVs must be integers, got {mv.dtype}")
-        if tuple(mv.shape) != (n, 2):
-            raise ValueError(f"{what}: MVs {tuple(mv.shape)} for {n} blocks; need ({n}, 2)")
-    return _enqueue(dev.index, [_aligned(p) for p in planes],
-                    [mv.to(_I32).contiguous() for mv in mvs], h, w, cfg.qp)
+        if tuple(mv.shape) != want:
+            raise ValueError(f"{what}: MVs {tuple(mv.shape)} for {n} blocks; need {want}")
+    planes = [_aligned(p) for p in planes]
+    mvs = [mv.to(_I32).contiguous() for mv in mvs]
+    if tiles is None:
+        return _enqueue(dev.index, planes, mvs, h, w, cfg.qp)
+    return _enqueue_pu(dev.index, planes, mvs[0], h, w, tiles, cfg.qp)
 
 
 def chroma_p_fused(cur_cb, cur_cr, ref_cb, ref_cr, mv_qpel, cfg):
@@ -208,10 +240,33 @@ def chroma_b_fused(cur_cb, cur_cr, ref0_cb, ref0_cr, ref1_cb, ref1_cr, mv0_qpel,
     return out
 
 
+def chroma_pu_fused(cur_cb, cur_cr, ref_cb, ref_cr, mv_field, cfg):
+    """(rec_cb, nnz_cb, rec_cr, nnz_cr), each (32 / k)-square tile of a
+    block at its MV of mv_field (n, k, k, 2).  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (and raise if it cannot be
+    built or launched, or the shape is one it does not take).  The RD
+    frame's call takes milliseconds, so every call takes _launch's
+    checks."""
+    planes = [as_tensor(p) for p in (cur_cb, cur_cr, ref_cb, ref_cr)]
+    field = as_tensor(mv_field, planes[0].device)
+    if planes[0].device.type == "cpu":
+        return chroma_p_fused_ref(*planes, field, cfg)
+    k = field.shape[1] if field.dim() == 4 else None
+    if k not in PU_TILES:
+        raise ValueError(f"chroma_pu_fused: an MV field (n, k, k, 2) with k in {PU_TILES}, "
+                         f"got {tuple(field.shape)}")
+    out = _launch("chroma_pu_fused", planes, (field,), cfg, k)
+    chroma_pu_fused.launches += 1
+    return out
+
+
 chroma_p_fused.launches = 0
 chroma_b_fused.launches = 0
+chroma_pu_fused.launches = 0
 
 registry.register("chroma_p_fused", Tier.REF, chroma_p_fused_ref)
 registry.register("chroma_p_fused", Tier.KERNEL, chroma_p_fused)
 registry.register("chroma_b_fused", Tier.REF, chroma_b_fused_ref)
 registry.register("chroma_b_fused", Tier.KERNEL, chroma_b_fused)
+registry.register("chroma_pu_fused", Tier.REF, chroma_p_fused_ref)
+registry.register("chroma_pu_fused", Tier.KERNEL, chroma_pu_fused)

@@ -22,7 +22,12 @@ I frame's ``hevcasm.intra``, each P frame's ``hevcasm.inter_yuv``, each B
 frame's ``hevcasm.inter_b_yuv`` (over ``hevcasm.bi_luma``,
 ``hevcasm.bi_chroma`` and ``hevcasm.psnr``; ``hevcasm.bi_chroma`` over each
 plane's two ``hevcasm.chroma_mc`` and one ``hevcasm.chroma_residual``) and
-``hevcasm.gop_stack`` lie inside ``hevcasm.gop_closed_yuv_b``.
+``hevcasm.gop_stack`` lie inside ``hevcasm.gop_closed_yuv_b``.  The RD P
+frame (pu_decision, tu_sizes) records ``hevcasm.pu_decision`` (over
+``hevcasm.pu_grids``, ``hevcasm.pu_layout`` and ``hevcasm.pu_refine``) and
+``hevcasm.tu_select`` inside ``hevcasm.luma`` of its ``hevcasm.inter_yuv``
+on the 4:2:0 frame, and at the top level on the luma frame
+(encode_inter_frame).
 """
 
 from __future__ import annotations
@@ -53,6 +58,11 @@ SPANS = (
     "hevcasm.bi_luma",          # its luma: prepare, both searches, B3, untile
     "hevcasm.bi_chroma",        # both chroma planes' bi MC and residual
     "hevcasm.gop_closed_yuv_b",  # encode_gop_closed_loop_yuv_b: the whole call
+    "hevcasm.pu_decision",      # the RD P frame's PU decision (loop._decide_pu)
+    "hevcasm.pu_grids",         # its B15 call, or B14's (or the grid scorer's)
+    "hevcasm.pu_layout",        # its layout decision's glue
+    "hevcasm.pu_refine",        # its B13 call and the prediction's assembly
+    "hevcasm.tu_select",        # the RD P frame's TU decision (partition.select_tu_recon)
 )
 
 _OFF = contextlib.nullcontext()

@@ -48,11 +48,13 @@ EMULATED_MAIN = r"""
 #include <random>
 #include <vector>
 
-// stdin: R h w qscale qshift qoffset dscale dshift runs seed, then the
-// planes cur_cb, cur_cr, then each reference's cb and cr (h x w bytes
-// each), each reference's (h / 32) (w / 32) MVs (dy, dx), and the indices of
-// the blocks to code; stdout: each coded block's 32 x 32 reconstruction of
-// Cb then Cr, nnz[0], nnz[1], then the number of output bytes outside the
+// stdin: R (1 or 2: the P or B frame's kernel, references; 0: the per-PU
+// instance, one reference, then k) h w qscale qshift qoffset dscale dshift
+// runs seed, then the planes cur_cb, cur_cr, then each reference's cb and cr
+// (h x w bytes each), each reference's (h / 32) (w / 32) MVs (dy, dx) (the
+// per-PU instance: its (h / 32) (w / 32) k k field), and the indices of the
+// blocks to code; stdout: each coded block's 32 x 32 reconstruction of Cb
+// then Cr, nnz[0], nnz[1], then the number of output bytes outside the
 // coded blocks that changed.  A CTA of one warp: 32 threads, one a lane;
 // shared memory poisoned.
 static uint8_t* aligned16(std::vector<uint8_t>& v, size_t n) {
@@ -60,42 +62,57 @@ static uint8_t* aligned16(std::vector<uint8_t>& v, size_t n) {
   return v.data() + (16 - reinterpret_cast<uintptr_t>(v.data()) % 16) % 16;
 }
 
-template <int R>
-static int run(long long h, long long w, const long long (&q)[5], int runs, unsigned seed) {
+template <int R, bool PU>
+static int run(long long h, long long w, long long k, const long long (&q)[5], int runs,
+               unsigned seed) {
   constexpr int IN = 2 + 2 * R;    // source and reference planes
   std::vector<uint8_t> store[IN + 3];
   uint8_t* plane[IN + 2];
   for (int j = 0; j < IN + 2; ++j) plane[j] = aligned16(store[j], h * w);
   for (int j = 0; j < IN; ++j)
-    for (long long k = 0; k < h * w; ++k) {
-      int x;
-      if (scanf("%d", &x) != 1) return 1;
-      plane[j][k] = static_cast<uint8_t>(x);
+    for (long long x = 0; x < h * w; ++x) {
+      int v;
+      if (scanf("%d", &v) != 1) return 1;
+      plane[j][x] = static_cast<uint8_t>(v);
     }
   const long long n = (h / 32) * (w / 32);
-  std::vector<int32_t> mv(2 * n * R);
+  std::vector<int32_t> mv(2 * n * R * (PU ? k * k : 1));
   for (auto& v : mv)
     if (scanf("%d", &v) != 1) return 1;
   std::vector<long long> run(runs);
   for (auto& i : run)
     if (scanf("%lld", &i) != 1) return 1;
   int32_t nnz[2] = {0, 0};
-  ChromaFusedArgs<R> a{};
+  using Args = std::conditional_t<PU, ChromaPuArgs, ChromaFusedArgs<R>>;
+  constexpr int SMEM = PU ? chroma::SMEM_PU : chroma::SMEM<R>;
+  Args a{};
   for (int p = 0; p < 2; ++p) {
     a.cur[p] = reinterpret_cast<long long>(plane[p]);
-    for (int r = 0; r < R; ++r) a.ref[r][p] = reinterpret_cast<long long>(plane[2 + 2 * r + p]);
     a.rec[p] = reinterpret_cast<long long>(plane[IN + p]);
+    if constexpr (PU) {
+      a.ref[p] = reinterpret_cast<long long>(plane[2 + p]);
+    } else {
+      for (int r = 0; r < R; ++r) a.ref[r][p] = reinterpret_cast<long long>(plane[2 + 2 * r + p]);
+    }
   }
-  for (int r = 0; r < R; ++r) a.mv[r] = reinterpret_cast<long long>(mv.data() + 2 * n * r);
+  if constexpr (PU) {
+    a.mv = reinterpret_cast<long long>(mv.data());
+    a.k = k;
+  } else {
+    for (int r = 0; r < R; ++r) a.mv[r] = reinterpret_cast<long long>(mv.data() + 2 * n * r);
+  }
   a.nnz = reinterpret_cast<long long>(nnz);
   a.h = h;
   a.w = w;
-  for (int k = 0; k < 5; ++k) a.q[k] = q[k];
-  uint8_t* smem = aligned16(store[IN + 2], chroma::SMEM<R>);
+  for (int j = 0; j < 5; ++j) a.q[j] = q[j];
+  uint8_t* smem = aligned16(store[IN + 2], SMEM);
   std::mt19937 poison(seed);
   for (long long i : run) {
-    for (int k = 0; k < chroma::SMEM<R>; ++k) smem[k] = static_cast<uint8_t>(poison());
-    emu_run_block([&] { chroma::code_block(a, i, 32, smem); });
+    for (int j = 0; j < SMEM; ++j) smem[j] = static_cast<uint8_t>(poison());
+    if constexpr (PU)
+      emu_run_block([&] { chroma::code_block_pu(a, i, 32, smem); });
+    else
+      emu_run_block([&] { chroma::code_block(a, i, 32, smem); });
   }
   const long long gc = w / 32;
   std::vector<char> coded(h * w, 0);
@@ -103,25 +120,28 @@ static int run(long long h, long long w, const long long (&q)[5], int runs, unsi
     for (int p = 0; p < 2; ++p)
       for (int r = 0; r < 32; ++r)
         for (int c = 0; c < 32; ++c) {
-          const long long k = (32 * (i / gc) + r) * w + 32 * (i % gc) + c;
-          printf("%d ", plane[IN + p][k]);
-          coded[k] = 1;
+          const long long x = (32 * (i / gc) + r) * w + 32 * (i % gc) + c;
+          printf("%d ", plane[IN + p][x]);
+          coded[x] = 1;
         }
   int changed = 0;
   for (int p = 0; p < 2; ++p)
-    for (long long k = 0; k < h * w; ++k) changed += !coded[k] && plane[IN + p][k] != 77;
+    for (long long x = 0; x < h * w; ++x) changed += !coded[x] && plane[IN + p][x] != 77;
   printf("%d %d %d\n", nnz[0], nnz[1], changed);
   return 0;
 }
 
 int main() {
   int refs, runs;
-  long long h, w, q[5];
+  long long h, w, k = 0, q[5];
   unsigned seed;
-  if (scanf("%d %lld %lld %lld %lld %lld %lld %lld %d %u", &refs, &h, &w, &q[0], &q[1], &q[2],
-            &q[3], &q[4], &runs, &seed) != 10)
+  if (scanf("%d", &refs) != 1 || (refs == 0 && scanf("%lld", &k) != 1)) return 1;
+  if (scanf("%lld %lld %lld %lld %lld %lld %lld %d %u", &h, &w, &q[0], &q[1], &q[2], &q[3],
+            &q[4], &runs, &seed) != 9)
     return 1;
-  return refs == 1 ? run<1>(h, w, q, runs, seed) : refs == 2 ? run<2>(h, w, q, runs, seed) : 1;
+  return refs == 0 ? run<1, true>(h, w, k, q, runs, seed)
+       : refs == 1 ? run<1, false>(h, w, k, q, runs, seed)
+       : refs == 2 ? run<2, false>(h, w, k, q, runs, seed) : 1;
 }
 """
 
@@ -147,8 +167,9 @@ def reach(cfg) -> int:
 def plain(planes, mvs, cfg):
     """The plain version's (rec_cb, rec_cr) planes and nnz, and the nnz of
     each block and plane (n, 2) from the same plain prediction: with one
-    MV array (planes cur_cb, cur_cr, ref_cb, ref_cr) chroma_p_fused_ref's,
-    with two (then ref1_cb, ref1_cr) chroma_b_fused_ref's."""
+    MV array or MV field (planes cur_cb, cur_cr, ref_cb, ref_cr)
+    chroma_p_fused_ref's, with two (then ref1_cb, ref1_cr)
+    chroma_b_fused_ref's."""
     t = [torch.as_tensor(p) for p in planes]
     mv_t = [torch.as_tensor(mv) for mv in mvs]
     ref_fn = chroma_fused.chroma_p_fused_ref if len(mvs) == 1 else chroma_fused.chroma_b_fused_ref
@@ -170,11 +191,13 @@ def plain(planes, mvs, cfg):
 
 
 def emulate(exe, planes, mvs, cfg, blocks, seed=7):
-    """The emulated kernel of len(mvs) references over ``blocks``: (their
-    reconstructions (k, 2, 32, 32), both planes' nnz over them, bytes
-    changed outside them)."""
+    """The emulated kernel of len(mvs) references over ``blocks`` (the
+    per-PU instance's for one MV field (n, k, k, 2)): (their
+    reconstructions (len(blocks), 2, 32, 32), both planes' nnz over them,
+    bytes changed outside them)."""
     h, w = planes[0].shape
-    stdin = " ".join(map(str, (len(mvs), h, w, *chroma_fused._qargs(cfg.qp), len(blocks), seed,
+    head = (0, mvs[0].shape[1]) if mvs[0].ndim == 4 else (len(mvs),)
+    stdin = " ".join(map(str, (*head, h, w, *chroma_fused._qargs(cfg.qp), len(blocks), seed,
                                *np.concatenate([p.ravel() for p in planes]),
                                *np.concatenate([mv.ravel() for mv in mvs]), *blocks)))
     out = torch_testing.run_emulator(exe, stdin, f"{h}x{w} qp {cfg.qp} seed {seed}").split()
@@ -184,7 +207,8 @@ def emulate(exe, planes, mvs, cfg, blocks, seed=7):
 
 def assert_kernel_equals_plain(exe, planes, mvs, cfg, blocks=None, seed=7):
     """The emulated kernel against the plain version; mvs is a list of one
-    MV array (the P frame's kernel, four planes) or two (the B frame's,
+    MV array (the P frame's kernel, four planes), one MV field (n, k, k, 2)
+    (the per-PU instance's, four planes) or two MV arrays (the B frame's,
     six)."""
     gr, gc = planes[0].shape[0] // N, planes[0].shape[1] // N
     blocks = list(range(gr * gc)) if blocks is None else blocks
@@ -363,6 +387,74 @@ def test_b_full_swing_content(emulated_chroma, kind, qp):
                                [outward_mvs(rng, 2, 3, cfg), random_mvs(rng, 6, cfg)], cfg)
 
 
+# ---- the per-PU instance: an MV a (32 / k)-square tile --------------------------------
+
+def random_field(rng, n, k, cfg):
+    """An MV field (n, k, k, 2) int32 whose windows stay within the plain
+    version's padding, every fraction likely."""
+    return random_mvs(rng, n * k * k, cfg).reshape(n, k, k, 2)
+
+
+def outward_field(rng, gr, gc, k, cfg):
+    """An MV field (gr * gc, k, k, 2) whose tiles on the plane's border take
+    their windows as far past its edges as the plain version's padding
+    reaches: outward_mvs over the plane's grid of tiles."""
+    mv = outward_mvs(rng, gr * k, gc * k, cfg).reshape(gr, k, gc, k, 2)
+    return np.ascontiguousarray(mv.transpose(0, 2, 1, 3, 4)).reshape(gr * gc, k, k, 2)
+
+
+@pytest.mark.parametrize("k", chroma_fused.PU_TILES)
+@pytest.mark.parametrize("qp", (35, 22))
+def test_pu_small_plane_random(emulated_chroma, k, qp):
+    rng = np.random.default_rng(700 + 10 * k + qp)
+    cfg = EncodeConfig(qp=qp)
+    assert_kernel_equals_plain(emulated_chroma, random_planes(rng, 2 * N, 3 * N),
+                               [random_field(rng, 6, k, cfg)], cfg)
+
+
+@pytest.mark.parametrize("k", (8, 4))
+def test_pu_every_fraction_on_both_axes(emulated_chroma, k):
+    # Tile j of the plane (raster over blocks, then over each block's
+    # tiles) at fraction ((j // 8) % 8, j % 8): every pair, odd and even,
+    # on both axes, beside neighbours at other fractions.
+    rng = np.random.default_rng(800 + k)
+    cfg = EncodeConfig(qp=33, search_range=16)
+    field = random_field(rng, 6, k, cfg) & ~7
+    j = np.arange(6 * k * k).reshape(6, k, k)
+    field[..., 0] |= (j // 8) % 8
+    field[..., 1] |= j % 8
+    assert_kernel_equals_plain(emulated_chroma, random_planes(rng, 2 * N, 3 * N), [field], cfg)
+
+
+@pytest.mark.parametrize("k", (8, 2))
+@pytest.mark.parametrize("r", (32, 8))
+def test_pu_windows_past_each_edge(emulated_chroma, k, r):
+    rng = np.random.default_rng(900 + r + k)
+    cfg = EncodeConfig(qp=33, search_range=r)
+    assert_kernel_equals_plain(emulated_chroma, random_planes(rng, 2 * N, 3 * N),
+                               [outward_field(rng, 2, 3, k, cfg)], cfg)
+
+
+def test_pu_frame_plane_1080p(emulated_chroma):
+    # The 1080p chroma plane's border blocks and two inside at 4x4 tiles
+    # (the six layouts' 8x8 luma base), each border tile's window past the
+    # edges it touches.
+    h, w = 544, 960
+    gr, gc = h // N, w // N
+    rng = np.random.default_rng(1000)
+    cfg = EncodeConfig(qp=35)
+    assert_kernel_equals_plain(emulated_chroma, random_planes(rng, h, w),
+                               [outward_field(rng, gr, gc, 8, cfg)], cfg, border_blocks(gr, gc))
+
+
+@pytest.mark.parametrize("kind", ["checkerboard", "stripes"])
+def test_pu_full_swing_content(emulated_chroma, kind):
+    rng = np.random.default_rng(1100 + len(kind))
+    cfg = EncodeConfig(qp=35)
+    assert_kernel_equals_plain(emulated_chroma, full_swing(2 * N, 3 * N, kind)[:4],
+                               [outward_field(rng, 2, 3, 8, cfg)], cfg)
+
+
 # ---- the wrapper and the route on the CPU ----------------------------------------------
 
 @pytest.mark.parametrize("qp", (*QPS, 0, 51))
@@ -507,3 +599,97 @@ def test_selftest_b_suite_passes_on_the_cpu(capsys):
     assert selftest.run_suite(selftest.PORT_SUITES[1], Tier.REF, time_it=False,
                               device="cpu") == 0
     assert capsys.readouterr().out.count("REF:ok") == 2
+
+
+# ---- chroma_pu_fused's wrapper, the MV field's plain path and the RD frame's route ------
+
+def test_pu_registered_and_cpu_runs_the_plain_version():
+    assert registry.tiers_of("chroma_pu_fused") == Tier.REF | Tier.KERNEL
+    assert registry._REGISTRY[("chroma_pu_fused", Tier.REF)] is chroma_fused.chroma_p_fused_ref
+    assert registry._REGISTRY[("chroma_pu_fused", Tier.KERNEL)] is chroma_fused.chroma_pu_fused
+    rng = np.random.default_rng(23)
+    cfg = EncodeConfig(qp=33)
+    planes = [torch.as_tensor(p) for p in random_planes(rng, 2 * N, 3 * N)]
+    field = torch.as_tensor(random_field(rng, 6, 8, cfg))
+    before = chroma_fused.chroma_pu_fused.launches
+    got = chroma_fused.chroma_pu_fused(*planes, field, cfg)
+    assert chroma_fused.chroma_pu_fused.launches == before
+    want = chroma_fused.chroma_p_fused_ref(*planes, field, cfg)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    assert [tuple(x.shape) for x in got] == [(2 * N, 3 * N), (), (2 * N, 3 * N), ()]
+
+
+@pytest.mark.parametrize("k", chroma_fused.PU_TILES)
+def test_a_field_of_one_mv_a_block_is_todays_path(k):
+    # Granularity 1 is the fixed frame's path: a field whose tiles all take
+    # their block's MV predicts what the (n, 2) MVs predict, on both
+    # outputs of _chroma_mc, at any k.
+    rng = np.random.default_rng(31 + k)
+    cfg = EncodeConfig(qp=35, search_range=16)
+    plane = torch.as_tensor(random_planes(rng, 2 * N, 3 * N, 1)[0])
+    mv = torch.as_tensor(random_mvs(rng, 6, cfg))
+    field = mv[:, None, None].expand(6, k, k, 2)
+    for out16 in (False, True):
+        want = video._chroma_mc(plane, mv, cfg, out16=out16)
+        got = video._chroma_mc(plane, field, cfg, out16=out16)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", (8, 4, 2))
+def test_pu_plain_prediction_is_each_tile_at_its_mv(k):
+    # _chroma_mc on a field against each (32 / k)-square tile predicted on
+    # its own from the edge-extended plane at its MV.
+    from hevcasm_tpu_torch.ops.pred_inter import pred_uni
+
+    rng = np.random.default_rng(41 + k)
+    cfg = EncodeConfig(qp=35, search_range=8)
+    plane = torch.as_tensor(random_planes(rng, 2 * N, 3 * N, 1)[0])
+    field = torch.as_tensor(outward_field(rng, 2, 3, k, cfg))
+    got = video._chroma_mc(plane, field, cfg)
+    pad = 16
+    padded = ctu_mod.pad_frame(plane, pad, pad, pad, pad)
+    t = N // k
+    for i in range(6):
+        for ty in range(k):
+            for tx in range(k):
+                dy, dx = (int(v) for v in field[i, ty, tx])
+                y = N * (i // 3) + t * ty + (dy >> 3) - 1 + pad
+                x = N * (i % 3) + t * tx + (dx >> 3) - 1 + pad
+                want = pred_uni(padded[y:y + t + 3, x:x + t + 3], dx & 7, dy & 7, 4)
+                assert torch.equal(got[i, t * ty:t * ty + t, t * tx:t * tx + t], want), \
+                    (i, ty, tx)
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(pu_decision=True, pu_layouts=("2Nx2N", "NxN", "quarter", "eighth")),
+     "chroma_pu_fused"),
+    (dict(pu_decision=True), "chroma_pu_fused"),
+    (dict(tu_sizes=(4, 8)), "chroma_p_fused"),
+    (dict(), "chroma_p_fused")])
+@pytest.mark.parametrize("cuda", [True, False])
+def test_rd_frame_route_rule(monkeypatch, kw, want, cuda):
+    # encode_inter_frame_yuv asks _uses_chroma_kernel (here answering for a
+    # CUDA or a CPU plane): the PU decision's field takes chroma_pu_fused's
+    # KERNEL tier, one MV a CTU chroma_p_fused's, a CPU plane neither; the
+    # shims run the plain version.
+    real = video._uses_chroma_kernel
+    monkeypatch.setattr(video, "_uses_chroma_kernel",
+                        lambda cfg, t, plane: real(cfg, t, SimpleNamespace(is_cuda=cuda)))
+    monkeypatch.setattr(registry, "_usable", lambda tier: True)
+    called = []
+    for op in ("chroma_p_fused", "chroma_pu_fused"):
+        def shim(*args, op=op):
+            called.append(op)
+            return chroma_fused.chroma_p_fused_ref(*args)
+
+        monkeypatch.setitem(registry._REGISTRY, (op, Tier.KERNEL), shim)
+    frames = small_yuv(np.random.default_rng(51), 64, 128, 2)
+    cfg = EncodeConfig(search_range=8, qp=32, **kw)
+    got = video.encode_inter_frame_yuv(frames[1], frames[0], cfg, device="cpu")
+    assert called == ([want] if cuda else [])
+    monkeypatch.setattr(video, "_uses_chroma_kernel", lambda cfg, t, plane: False)
+    plain = video.encode_inter_frame_yuv(frames[1], frames[0], cfg, device="cpu")
+    for a, b in zip(got["recon"], plain["recon"]):
+        assert torch.equal(a, b)
+    assert torch.equal(got["nnz"], plain["nnz"])

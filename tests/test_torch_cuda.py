@@ -1882,6 +1882,97 @@ def test_selftest_chroma_b_suite_on_the_card(cuda, capsys):
     assert out.count("KERNEL:ok") == 2 and "MISMATCH" not in out
 
 
+# ---- chroma_pu_fused: the RD P frame's chroma, an MV a PU tile ----------------------
+
+def chroma_pu_case(rng, shape, k, device, r=32):
+    """Four random (h, w) planes and an MV field (n, k, k, 2) int32 whose
+    windows reach the plain version's padding at search range r, every
+    fraction."""
+    planes, _ = chroma_case(rng, shape, device, r)
+    n = shape[0] // 32 * (shape[1] // 32)
+    reach = r // 2 + 1
+    field = rng.integers(-8 * reach, 8 * (reach + 1) + 8, (n, k, k, 2))
+    return planes, torch.as_tensor(field, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (544, 960), (1088, 1920)],
+                         ids=["2x3", "1080p", "4K"])
+@pytest.mark.parametrize("k", chroma_fused.PU_TILES)
+@pytest.mark.parametrize("qp", [35, 22])
+def test_chroma_pu_fused_matches_plain(cuda, shape, k, qp):
+    rng = np.random.default_rng(shape[0] + 10 * k + qp)
+    planes, field = chroma_pu_case(rng, shape, k, cuda)
+    cfg = EncodeConfig(qp=qp)
+    before = chroma_fused.chroma_pu_fused.launches
+    got = chroma_fused.chroma_pu_fused(*planes, field, cfg)
+    assert chroma_fused.chroma_pu_fused.launches == before + 1
+    assert_bit_equal(got, chroma_fused.chroma_p_fused_ref(*planes, field, cfg))
+    cpu = chroma_fused.chroma_p_fused_ref(*(p.cpu() for p in planes), field.cpu(), cfg)
+    assert_bit_equal([g.cpu() for g in got], cpu)
+
+
+@pytest.mark.parametrize("pattern", ["checkerboard", "stripes"])
+def test_chroma_pu_fused_full_swing_and_views(cuda, pattern):
+    # 0/255 content, then planes that are views and an int64 field, to the
+    # same integers.
+    h, w = 128, 192
+    y, x = np.mgrid[:h, :w]
+    pats = ([(y + x) & 1, ((y >> 1) + (x >> 1)) & 1, (y + x + 1) & 1, ((y >> 1) + x) & 1]
+            if pattern == "checkerboard" else [x & 1, y & 1, (x >> 1) & 1, (y >> 2) & 1])
+    planes = [torch.as_tensor((255 * p).astype(np.uint8), device=cuda) for p in pats]
+    _, field = chroma_pu_case(np.random.default_rng(3), (h, w), 8, cuda)
+    for qp in (35, 22):
+        cfg = EncodeConfig(qp=qp)
+        want = chroma_fused.chroma_p_fused_ref(*planes, field, cfg)
+        assert_bit_equal(chroma_fused.chroma_pu_fused(*planes, field, cfg), want)
+        wide = [torch.zeros((h + 2, w + 8), dtype=torch.uint8, device=cuda) for _ in planes]
+        for v, p in zip(wide, planes):
+            v[1:h + 1, 3:w + 3] = p
+        views = [v[1:h + 1, 3:w + 3] for v in wide]
+        assert_bit_equal(chroma_fused.chroma_pu_fused(*views, field.long(), cfg), want)
+
+
+def test_chroma_pu_fused_rejects_what_it_does_not_take(cuda):
+    planes, field = chroma_pu_case(np.random.default_rng(4), (64, 96), 8, cuda)
+    cfg = EncodeConfig(qp=33)
+    with pytest.raises(ValueError):
+        chroma_fused.chroma_pu_fused(*planes, field[:, :3, :3].contiguous(), cfg)
+    with pytest.raises(ValueError):
+        chroma_fused.chroma_pu_fused(*planes, field[:5], cfg)
+    with pytest.raises(ValueError):
+        chroma_fused.chroma_pu_fused(*planes, field[:, 0, 0], cfg)
+    with pytest.raises(TypeError):
+        chroma_fused.chroma_pu_fused(*planes, field.float(), cfg)
+    with pytest.raises(TypeError):
+        chroma_fused.chroma_pu_fused(*planes[:3], planes[3].to(torch.int16), field, cfg)
+    with pytest.raises(ValueError):
+        chroma_fused.chroma_pu_fused(*planes, field, EncodeConfig(ctu=32, qp=33, search_range=8))
+
+
+@pytest.mark.parametrize("kw,counts", [
+    (dict(pu_decision=True, pu_layouts=tuple(partition.PU_LAYOUTS), tu_sizes=(4, 8, 16, 32)),
+     {"b14": 1, "b13": 1, "pu": 1, "p": 0}),
+    (dict(pu_decision=True, tu_sizes=(4, 8, 16, 32)), {"b14": 0, "b13": 1, "pu": 1, "p": 0}),
+    (dict(tu_sizes=(4, 8, 16, 32)), {"b14": 0, "b13": 0, "pu": 0, "p": 1})])
+def test_yuv_rd_frame_1080p_on_card_equals_plain(cuda, kw, counts):
+    # encode_inter_frame_yuv's RD P frame with Tier.ALL against Tier.REF on
+    # a 1920x1088 4:2:0 pair: B14 (six layouts) or B15, B13, and one launch
+    # of chroma_pu_fused for the PU decision's field (chroma_p_fused for one
+    # MV a CTU); the same integers as the plain path, and its luma
+    # encode_inter_frame's.
+    ref0, cur, _ = yuv_clip(1088, 1920, cuda)
+    cfg = EncodeConfig(search_range=32, qp=35, **kw)
+    kernels = {"b14": base_grids.base_grids_ctu, "b13": costmap.refine_qpel_costmap_dma,
+               "pu": chroma_fused.chroma_pu_fused, "p": chroma_fused.chroma_p_fused}
+    before = {k: f.launches for k, f in kernels.items()}
+    out = encode_inter_frame_yuv(cur, ref0, cfg)
+    assert {k: f.launches - before[k] for k, f in kernels.items()} == counts
+    plain = encode_inter_frame_yuv(cur, ref0, cfg, tiers=Tier.REF)
+    assert_same_outputs(out, plain)
+    luma = encode_inter_frame(cur.y, ref0.y, cfg)
+    assert torch.equal(out["recon"].y, luma["recon"]) and torch.equal(out["mvs"], luma["mvs"])
+
+
 # ---- intra_wave_fused: a wave of the closed-loop I frame in one launch --------------
 
 def wave_tables(cur, n=32):

@@ -1,9 +1,10 @@
 """The port's spans (hevcasm_tpu_torch.utils.trace) on the CPU: off without
 a profiler (one shared null context, nothing recorded), host ranges at
 scope FUNCTION under one, nested as documented in a 4:2:0 P frame, a
-closed-loop 4:2:0 IPPP GOP and closed-loop 4:2:0 IBPBP GOPs, and the outputs
-bit-identical traced and untraced.  A 128x64 clip at R = 8, an IPPP GOP of 3
-frames and IBPBP GOPs of 3 and 5; a few seconds."""
+closed-loop 4:2:0 IPPP GOP, closed-loop 4:2:0 IBPBP GOPs and the RD P frame
+(4:2:0 and luma), and the outputs bit-identical traced and untraced.  A
+128x64 clip at R = 8, an IPPP GOP of 3 frames and IBPBP GOPs of 3 and 5; a
+few seconds."""
 
 import collections
 import contextlib
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 import torch_testing  # noqa: F401
-from hevcasm_tpu_torch.encode import EncodeConfig, YuvFrame, video
+from hevcasm_tpu_torch.encode import EncodeConfig, YuvFrame, loop, partition, video
 from hevcasm_tpu_torch.encode.intra_wavefront import _schedule
 from hevcasm_tpu_torch.utils import trace
 
@@ -45,6 +46,23 @@ GOP_PARENT = {
 #: Spans a P frame records, a frame.
 P_COUNT = {name: 2 if name in ("hevcasm.chroma_mc", "hevcasm.chroma_residual") else 1
            for name in P_PARENT}
+#: The RD P frame: the six PU layouts and four TU sizes.
+CFG_RD = EncodeConfig(search_range=R, pu_decision=True, pu_layouts=tuple(partition.PU_LAYOUTS),
+                      tu_sizes=(4, 8, 16, 32))
+#: Each span's innermost enclosing span in an RD 4:2:0 P frame coded alone
+#: (its chroma on the plain path, as P_PARENT's).
+RD_PARENT = {
+    **{k: v for k, v in P_PARENT.items() if k not in ("hevcasm.search", "hevcasm.refine_code")},
+    "hevcasm.pu_decision": "hevcasm.luma",
+    "hevcasm.pu_grids": "hevcasm.pu_decision",
+    "hevcasm.pu_layout": "hevcasm.pu_decision",
+    "hevcasm.pu_refine": "hevcasm.pu_decision",
+    "hevcasm.tu_select": "hevcasm.luma",
+}
+#: And in the RD luma frame (encode_inter_frame), which records only the
+#: decisions' spans.
+RD_LUMA_PARENT = {k: None if v == "hevcasm.luma" else v for k, v in RD_PARENT.items()
+                  if k.startswith(("hevcasm.pu_", "hevcasm.tu_"))}
 #: The spans of a closed-loop IBPBP GOP: (name, innermost enclosing span) and
 #: how many a GOP records, for n = (T - 1) / 2 P and n B frames and the I
 #: frame's waves (intra_wave).  Each B frame's chroma runs two chroma_mc (a
@@ -124,6 +142,21 @@ def coded():
             "p": _events(prof_p), "gop": _events(prof_g)}
 
 
+@pytest.fixture(scope="module")
+def coded_rd():
+    """The RD P frame 1 from frame 0, 4:2:0 and luma, untraced and traced."""
+    at = [YuvFrame(*(p[t] for p in _clip())) for t in range(2)]
+    plain = (video.encode_inter_frame_yuv(at[1], at[0], CFG_RD),
+             loop.encode_inter_frame(at[1].y, at[0].y, CFG_RD))
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof_yuv:
+        traced_yuv = video.encode_inter_frame_yuv(at[1], at[0], CFG_RD)
+    with torch.profiler.profile(activities=acts) as prof_luma:
+        traced_luma = loop.encode_inter_frame(at[1].y, at[0].y, CFG_RD)
+    return {"plain": plain, "traced": (traced_yuv, traced_luma),
+            "yuv": _events(prof_yuv), "luma": _events(prof_luma)}
+
+
 @pytest.fixture(scope="module", params=[3, 5], ids=["T3", "T5"])
 def coded_b(request):
     """A closed-loop IBPBP GOP of T frames, untraced and traced."""
@@ -149,7 +182,7 @@ def test_span_is_one_shared_null_context_without_a_profiler(monkeypatch):
 
 
 def test_span_names_are_unique_and_prefixed():
-    names = set(GOP_PARENT) | {name for name, _ in _b_gop_nest(1, 1)}
+    names = set(GOP_PARENT) | {name for name, _ in _b_gop_nest(1, 1)} | set(RD_PARENT)
     assert len(set(trace.SPANS)) == len(trace.SPANS) == len(names)
     assert set(trace.SPANS) == names
     assert all(name.startswith("hevcasm.") for name in trace.SPANS)
@@ -164,9 +197,10 @@ def test_spans_are_function_scope_host_ranges(coded):
     assert all(scope == function and not user for _, _, _, scope, user in events)
 
 
-def test_every_recorded_name_is_in_SPANS(coded, coded_b):
-    """Over a P frame, an IPPP GOP and an IBPBP GOP, every name is recorded."""
-    names = {e[0] for e in coded["p"] + coded["gop"] + coded_b["events"]}
+def test_every_recorded_name_is_in_SPANS(coded, coded_b, coded_rd):
+    """Over a P frame, an IPPP GOP, an IBPBP GOP and an RD P frame, every
+    name is recorded."""
+    names = {e[0] for e in coded["p"] + coded["gop"] + coded_b["events"] + coded_rd["yuv"]}
     assert names <= set(trace.SPANS)
     assert names == set(trace.SPANS)
 
@@ -222,3 +256,26 @@ def test_b_gop_outputs_are_bit_identical_traced_and_untraced(coded_b):
     assert traced["recon"].y.shape[0] == coded_b["t"]
     for a, b in [*zip(plain["recon"], traced["recon"]), (plain["psnr_y"], traced["psnr_y"])]:
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("entry", ["yuv", "luma"])
+def test_rd_p_frame_spans_nest_as_documented(coded_rd, entry):
+    """The PU decision over its three steps and the TU decision, once a
+    frame, inside the 4:2:0 frame's luma span or at the luma frame's top."""
+    events = coded_rd[entry]
+    parent = RD_PARENT if entry == "yuv" else RD_LUMA_PARENT
+    counts = collections.Counter(e[0] for e in events)
+    assert counts == {name: 2 if name in ("hevcasm.chroma_mc", "hevcasm.chroma_residual")
+                      else 1 for name in parent}
+    for ev in events:
+        assert _parent(ev, events) == parent[ev[0]], ev[0]
+
+
+@pytest.mark.parametrize("entry", [0, 1], ids=["inter_yuv", "inter_luma"])
+def test_rd_outputs_are_bit_identical_traced_and_untraced(coded_rd, entry):
+    plain, traced = coded_rd["plain"][entry], coded_rd["traced"][entry]
+    assert plain.keys() == traced.keys()
+    for key in plain:
+        a, b = plain[key], traced[key]
+        for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
+            assert x.dtype == y.dtype and torch.equal(x, y), key
